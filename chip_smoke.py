@@ -23,12 +23,24 @@ probe 2^24 foreign keys).  Phases, any failure exits non-zero:
    [0, 2^20 + 2^18)): counters bit-equal and pairs multiset-equal to the
    CPU plain run;
 4. launch counts, reset just before phase 2: K1, K2, K3 launched in phase 2,
-   K4 in phase 3 (R20/S24 never misses, so its main path bypasses K4).
+   K4 in phase 3 (R20/S24 never misses, so its main path bypasses K4);
+5. the kernels only the measurement tools reach: K2b (the double-buffered
+   windowed lookup) bit-equal to K2 and to the plain lookup on phase 2's
+   table and K1-sorted probes at W = 8192, and on the same stream with -1
+   holes; P1-P9 (``ops/probes.py``) each equal to its plain version at the
+   TPU probes' sizes; then the roofline and csrprof paths
+   (``hashjoin3d_tpu_torch/tools``) driven once with a short minimum time,
+   counts reset just before them: K2b must launch there.
 
 Prints one JSON line of per-kernel results, then, last,
 ``{"ok": true, "device": {...}}``.  ``launches`` there is the main path's
-count (phase 2 alone); ``miss_probe_launches`` is phase 3's.  Nothing here
-imports JAX.
+count (phase 2 alone); ``miss_probe_launches`` is phase 3's and
+``tool_launches`` phase 5's tool path.  ``bound_ms`` is the kernel's bytes
+(each input read once, each output written once) over 3.35 TB/s, or for P4
+its tensor-core operations over 989 TFLOP/s where that is larger;
+``library_ms`` the PyTorch call that computes the same function (null where
+there is none).  A probe with several cases (P3, P5, P7) reports the sums
+over its cases.  Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -63,7 +75,16 @@ KERNELS = {
     "K4 bitonic_sort_segmented": (
         "hashjoin3d_tpu_torch/csrc/bitonic.cu",
         "hashjoin3d_tpu/ops/bitonic.py:247", "bitonic_sort_segmented"),
+    "K2b windowed_lookup db": (
+        "hashjoin3d_tpu_torch/csrc/windowed.cu",
+        "hashjoin3d_tpu/ops/windowed.py:115", "windowed_lookup_db"),
 }
+#: probe id -> launch-count key (the TPU probe's line: tools.mosaic_probe)
+PROBE_KEYS = {"P1": "probe_roll", "P2": "probe_rotate", "P3": "probe_cumsum",
+              "P4": "probe_onehot_matmul", "P5": "probe_permute",
+              "P6": "probe_masked_store", "P7": "probe_block_copy",
+              "P8": "probe_row_copy", "P9": "probe_digit_histogram"}
+TOOL_MIN_TIME = 0.005
 
 
 class SmokeFailure(RuntimeError):
@@ -91,6 +112,15 @@ def cuda_ms(fn, reps: int = 10) -> float:
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+
+def bound(*tensors: torch.Tensor) -> dict:
+    """``bound_ms`` of a kernel that reads its inputs and writes its outputs
+    (``tensors``) once each, over the card's memory rate."""
+    from hashjoin3d_tpu_torch.utils.measure import bound_ms, nbytes
+
+    ms, by = bound_ms(nbytes(*tensors))
+    return dict(bound_ms=ms, bound_by=by)
 
 
 def check_segment_rows(keys_in, sk, rows, chunk, what):
@@ -158,12 +188,15 @@ def phase1_kernels(rk, sa, ops):
     psk, _ = bitonic.plain_sort_segmented(sa, SEGMENT, lid)
     require(torch.equal(sk, psk), "K1: keys differ from the plain sort")
     check_segment_rows(sa, sk, rows, SEGMENT, "K1")
+    K = sa.shape[0] // SEGMENT
     results["K1 bitonic_sort_packed_segmented"] = dict(
         max_abs_err=max_abs_err(sk, psk),
         ms=cuda_ms(lambda: bitonic.bitonic_sort_packed_segmented(
             sa, SEGMENT, KEY_BITS)),
         plain_ms=cuda_ms(lambda: bitonic.plain_sort_segmented(
-            sa, SEGMENT, lid)))
+            sa, SEGMENT, lid)),
+        library_ms=cuda_ms(lambda: torch.sort(sa.view(K, SEGMENT), dim=1)),
+        **bound(sa, sk, rows))
 
     # K2: the packed direct words of the sorted probes (T = 2^20, W = 8192)
     direct = ops["table"].direct
@@ -174,7 +207,9 @@ def phase1_kernels(rk, sa, ops):
         max_abs_err=max_abs_err(got, want),
         ms=cuda_ms(lambda: windowed.windowed_lookup(direct, sk, W=WINDOW)),
         plain_ms=cuda_ms(lambda: windowed.windowed_lookup_plain(
-            direct, sk, W=WINDOW)))
+            direct, sk, W=WINDOW)),
+        library_ms=cuda_ms(lambda: torch.index_select(direct, 0, sk)),
+        **bound(direct, sk, got))
 
     # K3: run_boundaries' scans over the build's sorted bucket column
     b = bucket_of(hash_key(rk), 1 << LOG2_R)
@@ -200,7 +235,11 @@ def phase1_kernels(rk, sa, ops):
     results["K3 multi_scan"] = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: scan.multi_scan(fwd, ("sum", "max"))),
-        plain_ms=cuda_ms(lambda: scan.multi_scan_plain(fwd, ("sum", "max"))))
+        plain_ms=cuda_ms(lambda: scan.multi_scan_plain(fwd, ("sum", "max"))),
+        # no single call: cumsum + cummax, two calls
+        library_ms=cuda_ms(lambda: (torch.cumsum(fwd[0], 0, dtype=I32),
+                                    torch.cummax(fwd[1], 0))),
+        **bound(*fwd, *fwd))
 
     # K4 (a) 1-op signed: miss-walk bucket ids with -1 dead markers
     bucket_ids = bucket_of(hash_key(sa), 1 << LOG2_R)
@@ -223,7 +262,9 @@ def phase1_kernels(rk, sa, ops):
         ms=cuda_ms(lambda: bitonic.bitonic_sort_segmented(
             wide, SEGMENT, payload=lid, stable=False)),
         plain_ms=cuda_ms(lambda: bitonic.plain_sort_segmented(
-            wide, SEGMENT, lid)))
+            wide, SEGMENT, lid)),
+        library_ms=cuda_ms(lambda: torch.sort(wide.view(K, SEGMENT), dim=1)),
+        **bound(wide, lid, gk, gr))
     return results
 
 
@@ -257,6 +298,82 @@ def same_join(got, want, what):
     require(torch.equal(pairs_multiset_key(got).cpu(),
                         pairs_multiset_key(want)),
             f"{what}: result pairs differ from the plain run")
+
+
+def phase5_k2b(direct, sa, dev):
+    """K2b vs K2 vs the plain lookup on the main path's covered stream and
+    on the same stream with 20% -1 holes (T = 2^20, 2^24 keys, W = 8192)."""
+    from hashjoin3d_tpu_torch.ops import bitonic, windowed
+
+    sk, _ = bitonic.bitonic_sort_packed_segmented(sa, SEGMENT, KEY_BITS)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    holes = torch.where(torch.rand(sk.shape, generator=gen, device=dev) < 0.2,
+                        -1, sk)
+    err = 0
+    for keys, what in ((sk, "sorted"), (holes, "holes")):
+        db = windowed.windowed_lookup(direct, keys, W=WINDOW, db=True)
+        k2 = windowed.windowed_lookup(direct, keys, W=WINDOW)
+        plain = windowed.windowed_lookup_plain(direct, keys, W=WINDOW)
+        require(torch.equal(db, k2), f"K2b differs from K2 ({what})")
+        require(torch.equal(db, plain), f"K2b differs from plain ({what})")
+        err = max(err, max_abs_err(db, plain))
+    return dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: windowed.windowed_lookup(direct, sk, W=WINDOW,
+                                                    db=True)),
+        k2_ms_same_call=cuda_ms(lambda: windowed.windowed_lookup(
+            direct, sk, W=WINDOW)),
+        plain_ms=cuda_ms(lambda: windowed.windowed_lookup_plain(
+            direct, sk, W=WINDOW)),
+        library_ms=cuda_ms(lambda: torch.index_select(direct, 0, sk)),
+        **bound(direct, sk, sk))
+
+
+def phase5_probes(dev):
+    """P1-P9 vs their plain versions, summed over each probe's cases."""
+    from hashjoin3d_tpu_torch.tools import mosaic_probe
+
+    out = {}
+    for c in mosaic_probe.cases(dev):
+        r = mosaic_probe.run_case(c, min_time=0.02)
+        require(r["ok"], f"{c.probe} {c.label}: differs from its plain "
+                f"version (max_abs_err {r['max_abs_err']})")
+        print(f"phase 5 {c.probe} {c.label}: OK, {r['ms']:.4f} ms vs plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
+        acc = out.setdefault(c.probe, dict(
+            max_abs_err=0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+            bound_by=r["bound_by"], cases={}))
+        acc["max_abs_err"] = max(acc["max_abs_err"], r["max_abs_err"])
+        for k in ("ms", "plain_ms", "bound_ms"):
+            acc[k] += r[k]
+        acc["library_ms"] = (None if acc["library_ms"] is None
+                             or r["library_ms"] is None
+                             else acc["library_ms"] + r["library_ms"])
+        acc["cases"][c.label] = r["ms"]
+    return out
+
+
+def phase5_tools(dev):
+    """The roofline rows, its kernel section and the csrprof stages, once
+    each with a short minimum time; the launch counts of that path."""
+    from hashjoin3d_tpu_torch import kernels
+    from hashjoin3d_tpu_torch.tools import csrprof, roofline
+
+    kernels.reset_launch_counts()
+    d = roofline.inputs(dev, LOG2_S, LOG2_R)
+    def log(line):
+        print("phase 5 roofline " + line)
+
+    roofline.run_rows(roofline.table_rows(d), TOOL_MIN_TIME, False, log)
+    roofline.run_rows(roofline.kernel_rows(d), TOOL_MIN_TIME, True, log)
+    del d
+    times = csrprof.run(csrprof.stages(dev, LOG2_S, LOG2_R), 1 << LOG2_S,
+                        TOOL_MIN_TIME,
+                        lambda line: print("phase 5 csrprof " + line))
+    torch.cuda.synchronize()
+    require(all(torch.isfinite(torch.tensor(list(times.values())))),
+            "csrprof: a stage time is not finite")
+    return dict(kernels.LAUNCHES)
 
 
 def main() -> int:
@@ -351,11 +468,35 @@ def main() -> int:
             "bitonic_sort_segmented not launched in phase 3")
     print(f"launches after phase 2 {after2}, after phase 3 {after3}")
 
-    print(json.dumps({"kernels": [
+    # phase 5: K2b, P1-P9, and the measurement tools' path
+    from hashjoin3d_tpu_torch.tools.mosaic_probe import PROBES
+    results["K2b windowed_lookup db"] = phase5_k2b(table_gpu.direct, exp.sa,
+                                                   dev)
+    r = results["K2b windowed_lookup db"]
+    print(f"phase 5 K2b: bit-equal to K2 and plain, {r['ms']:.4f} ms vs K2 "
+          f"{r['k2_ms_same_call']:.4f} ms in the same call")
+    probe_results = phase5_probes(dev)
+    del exp, table_gpu, out_gpu, out3
+    torch.cuda.empty_cache()
+    tools = phase5_tools(dev)
+    require(tools["windowed_lookup_db"] > 0,
+            "windowed_lookup_db not launched on the tools' path")
+    print(f"launches on the tools' path {tools}")
+
+    entries = [
         dict(name=name, route="cuda", source=src, replaces=rep,
              launches=after2[key],
-             miss_probe_launches=after3[key] - after2[key], **results[name])
-        for name, (src, rep, key) in KERNELS.items()]}))
+             miss_probe_launches=after3[key] - after2[key],
+             tool_launches=tools[key], **results[name])
+        for name, (src, rep, key) in KERNELS.items()]
+    for pid, key in PROBE_KEYS.items():
+        entries.append(dict(
+            name=f"{pid} {key}", route="cuda",
+            source="hashjoin3d_tpu_torch/csrc/probes.cu",
+            replaces=f"tools/mosaic_probe.py:{PROBES[pid][1]}",
+            launches=after2[key], miss_probe_launches=after3[key] - after2[key],
+            tool_launches=tools[key], **probe_results[pid]))
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -19,6 +19,20 @@
 // coalesced loads (bases are 1024-aligned), and each key resolves with one
 // indexed shared-memory load.  Nothing of the TPU's one-hot row-select loop
 // (windowed.py:93-111) remains: Hopper has a real indexed load.
+//
+// K2b (hj3t_windowed_lookup_db): the same function with the window load
+// double-buffered.  Replaces hashjoin3d_tpu/ops/windowed.py:
+// _windowed_kernel_db (the same pallas_call with db=True), which started
+// chunk j+1's window DMA before chunk j's select loop over a sequential grid.
+// Here a persistent grid (as many blocks as fit on the SMs) gives each block
+// a contiguous run of chunks; the block keeps two window slots and three key
+// slots in shared memory (2 (W+1024) + 3 C words: 84 KiB at W = 8192,
+// C = 1024, two blocks per SM).  While chunk j resolves, cp.async 16-byte
+// copies bring chunk j+1's window and chunk j+2's keys; chunk j+1's base
+// (its key maximum) comes from its keys, which landed one chunk earlier.  The
+// bound is the same as K2's (keys in, words out, windows from L2); the
+// design asks whether hiding the window load behind the resolve pays when
+// several K2 blocks per SM already overlap each other's loads.
 
 #include <cuda_runtime.h>
 
@@ -28,6 +42,41 @@
 namespace {
 
 constexpr int kThreads = 256;
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// chunk_bases in int32: kmax - W wraps exactly as the reference's i32 math
+__device__ __forceinline__ int window_base(int kmax, int W, long long T) {
+  const int R = W + 1024;
+  const int t = (int)((unsigned)kmax - (unsigned)W) & ~1023;
+  const long long hi = T - R > 0 ? T - R : 0;
+  return t < 0 ? 0 : (int)(t > hi ? hi : t);
+}
+
+// Block-wide max of one value per thread; every thread gets the result.
+// Starts and ends with a barrier, so `scratch` may be reused right after.
+__device__ __forceinline__ int block_max(int v, int* scratch) {
+  for (int d = 16; d > 0; d >>= 1)
+    v = max(v, __shfl_down_sync(0xffffffffu, v, d));
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = scratch[0];
+  for (int w = 1; w < kThreads / 32; ++w) v = max(v, scratch[w]);
+  return v;
+}
 
 __global__ void __launch_bounds__(kThreads)
     windowed_kernel(const int* __restrict__ table, const int* __restrict__ keys,
@@ -39,18 +88,8 @@ __global__ void __launch_bounds__(kThreads)
 
   int kmax = INT_MIN;
   for (int i = threadIdx.x; i < C; i += kThreads) kmax = max(kmax, keys[c0 + i]);
-  for (int d = 16; d > 0; d >>= 1)
-    kmax = max(kmax, __shfl_down_sync(0xffffffffu, kmax, d));
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = kmax;
-  __syncthreads();
-  kmax = warp_max[0];
-  for (int w = 1; w < kThreads / 32; ++w) kmax = max(kmax, warp_max[w]);
-
-  // chunk_bases in int32: kmax - W wraps exactly as the reference's i32 math
   const int R = W + 1024;
-  const int t = (int)((unsigned)kmax - (unsigned)W) & ~1023;
-  const long long hi = T - R > 0 ? T - R : 0;
-  const int base = t < 0 ? 0 : (int)(t > hi ? hi : t);
+  const int base = window_base(block_max(kmax, warp_max), W, T);
 
   const int4* src = reinterpret_cast<const int4*>(table + base);
   for (int i = threadIdx.x; i < R / 4; i += kThreads) window4[i] = src[i];
@@ -59,6 +98,77 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = threadIdx.x; i < C; i += kThreads) {
     const unsigned delta = (unsigned)keys[c0 + i] - (unsigned)base;
     out[c0 + i] = delta < (unsigned)R ? win[delta] : 0;
+  }
+}
+
+// K2b.  Chunks [first, last) of this block; slots: windows w[c & 1], keys
+// k[c % 3].  Iteration c: wait for chunk c's window and chunk c+1's keys
+// (one cp.async group, issued in iteration c-1), take chunk c+1's base,
+// issue chunk c+1's window and chunk c+2's keys, then resolve chunk c.  The
+// barrier at the top of iteration c also retires iteration c-1's reads of
+// the slots that iteration c refills.
+__global__ void __launch_bounds__(kThreads)
+    windowed_db_kernel(const int* __restrict__ table,
+                       const int* __restrict__ keys, int* __restrict__ out,
+                       long long T, int C, int W, long long nchunks) {
+  extern __shared__ int4 smem4[];
+  __shared__ int warp_max[kThreads / 32];
+  const int R = W + 1024;
+  int* smem = reinterpret_cast<int*>(smem4);
+  int* const win[2] = {smem, smem + R};
+  int* const kslot[3] = {smem + 2 * R, smem + 2 * R + C, smem + 2 * R + 2 * C};
+
+  const long long first = (long long)blockIdx.x * nchunks / gridDim.x;
+  const long long last = ((long long)blockIdx.x + 1) * nchunks / gridDim.x;
+  if (first >= last) return;
+
+  auto load_keys = [&](long long c) {
+    const int4* src = reinterpret_cast<const int4*>(keys + c * C);
+    int4* dst = reinterpret_cast<int4*>(kslot[c % 3]);
+    for (int i = threadIdx.x; i < C / 4; i += kThreads)
+      cp_async16(dst + i, src + i);
+  };
+  auto load_window = [&](long long c, int base) {
+    const int4* src = reinterpret_cast<const int4*>(table + base);
+    int4* dst = reinterpret_cast<int4*>(win[c & 1]);
+    for (int i = threadIdx.x; i < R / 4; i += kThreads)
+      cp_async16(dst + i, src + i);
+  };
+  auto base_of = [&](long long c) {
+    const int* k = kslot[c % 3];
+    int kmax = INT_MIN;
+    for (int i = threadIdx.x; i < C; i += kThreads) kmax = max(kmax, k[i]);
+    return window_base(block_max(kmax, warp_max), W, T);
+  };
+
+  // prologue: chunk first's keys, then its window and chunk first+1's keys
+  load_keys(first);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  int base = base_of(first);
+  load_window(first, base);
+  if (first + 1 < last) load_keys(first + 1);
+  cp_async_commit();
+
+  for (long long c = first; c < last; ++c) {
+    cp_async_wait_all();
+    __syncthreads();
+    int next_base = 0;
+    if (c + 1 < last) {
+      next_base = base_of(c + 1);
+      load_window(c + 1, next_base);
+      if (c + 2 < last) load_keys(c + 2);
+      cp_async_commit();
+    }
+    const int* k = kslot[c % 3];
+    const int* w = win[c & 1];
+    int* o = out + c * C;
+    for (int i = threadIdx.x; i < C; i += kThreads) {
+      const unsigned delta = (unsigned)k[i] - (unsigned)base;
+      o[i] = delta < (unsigned)R ? w[delta] : 0;
+    }
+    base = next_base;
   }
 }
 
@@ -86,6 +196,43 @@ int hj3t_windowed_lookup(const void* table, const void* keys, void* out,
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(table), static_cast<const int*>(keys),
       static_cast<int*>(out), T, C, W);
+  return (int)cudaGetLastError();
+}
+
+// K2b: as hj3t_windowed_lookup, results bit-equal; keys 16-byte aligned and
+// C a multiple of 4; (2 (W + 1024) + 3 C) * 4 bytes of shared memory must
+// fit one block (W <= 16384 at C = 1024).
+int hj3t_windowed_lookup_db(const void* table, const void* keys, void* out,
+                            long long T, long long n, int C, int W,
+                            void* stream) {
+  if (C <= 0 || C % 4 != 0 || n % C != 0 || W < 1024 ||
+      T < (long long)W + 1024 || T % 1024 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaGetLastError();
+  int dev = 0, sms = 0, smem_max = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = (2 * ((size_t)W + 1024) + 3 * (size_t)C) * sizeof(int);
+  if (smem > (size_t)smem_max) return (int)cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(windowed_db_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, windowed_db_kernel, kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long nchunks = n / C;
+  long long grid = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  if (grid > nchunks) grid = nchunks;
+  windowed_db_kernel<<<(unsigned)grid, kThreads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(table), static_cast<const int*>(keys),
+      static_cast<int*>(out), T, C, W, nchunks);
   return (int)cudaGetLastError();
 }
 

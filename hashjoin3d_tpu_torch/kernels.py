@@ -1,13 +1,14 @@
 """Build and bind the hand-written CUDA kernels of ``csrc/``.
 
-All ``csrc/*.cu`` compile in one ``nvcc`` call for ``sm_90a`` into
-``_build/libhj3kernels-<hash>.so`` at first use (never at import: the CPU test
-host has no ``nvcc``), and load through ``ctypes``.  Each C entry point takes
-its pointers and the CUDA stream as ``void*`` and returns
-``cudaGetLastError()``; :func:`count_launch` raises on a non-zero code.  Kernels
-launch on PyTorch's current stream, never synchronise and allocate nothing:
-the Python wrappers (``ops/scan.py``, ``ops/windowed.py``, ``ops/bitonic.py``)
-allocate outputs and scratch with ``torch.empty``.
+Each ``csrc/*.cu`` compiles with its own ``nvcc`` call for ``sm_90a`` into
+``_build/libhj3<source>-<hash>.so`` at first use (never at import: the CPU
+test host has no ``nvcc``); the calls run side by side, and the libraries
+load through ``ctypes``.  Each C entry point takes its pointers and the CUDA
+stream as ``void*`` and returns ``cudaGetLastError()``; :func:`count_launch`
+raises on a non-zero code.  Kernels launch on PyTorch's current stream,
+never synchronise and allocate nothing: the Python wrappers (``ops/scan.py``,
+``ops/windowed.py``, ``ops/bitonic.py``, ``ops/probes.py``) allocate outputs
+and scratch with ``torch.empty``.
 
 ``LAUNCHES`` counts, per wrapper, the calls that launched its kernel; a run
 resets it with :func:`reset_launch_counts` to show which kernels a path went
@@ -19,6 +20,8 @@ from __future__ import annotations
 import ctypes
 import os
 import shutil
+import types
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -30,21 +33,40 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 #: wrapper name -> kernel launches since the last reset
-LAUNCHES = {"multi_scan": 0, "windowed_lookup": 0,
-            "bitonic_sort_packed_segmented": 0, "bitonic_sort_segmented": 0}
+LAUNCHES = {"multi_scan": 0, "windowed_lookup": 0, "windowed_lookup_db": 0,
+            "bitonic_sort_packed_segmented": 0, "bitonic_sort_segmented": 0,
+            "probe_roll": 0, "probe_rotate": 0, "probe_cumsum": 0,
+            "probe_onehot_matmul": 0, "probe_permute": 0,
+            "probe_masked_store": 0, "probe_block_copy": 0,
+            "probe_row_copy": 0, "probe_digit_histogram": 0}
 
 _lib = None
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _S = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_char_p
+#: entry point -> (argument types, result type)
 _SIGNATURES = {
-    # in0..in3, out0..out3, op0..op3, n, reverse, scratch, stream
-    "hj3t_multi_scan": [_P] * 8 + [_I] * 4 + [_L, _I, _P, _P],
-    # table, keys, out, T, n, C, W, stream
-    "hj3t_windowed_lookup": [_P, _P, _P, _L, _L, _I, _I, _P],
-    # keys, payload, out_keys, out_payload, n, log_seg, unsigned, stable, stream
-    "hj3t_bitonic_sort_segmented": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
+    # scan.cu -- in0..in3, out0..out3, op0..op3, n, reverse, scratch, stream
+    "hj3t_multi_scan": ([_P] * 8 + [_I] * 4 + [_L, _I, _P, _P], _I),
+    "hj3t_scan_tile": ([], _I),
+    "hj3t_error_string": ([_I], _S),
+    # windowed.cu -- table, keys, out, T, n, C, W, stream
+    "hj3t_windowed_lookup": ([_P, _P, _P, _L, _L, _I, _I, _P], _I),
+    "hj3t_windowed_lookup_db": ([_P, _P, _P, _L, _L, _I, _I, _P], _I),
+    # bitonic.cu -- keys, payload, out_keys, out_payload, n, log_seg,
+    # unsigned, stable, stream
+    "hj3t_bitonic_sort_segmented": ([_P, _P, _P, _P, _L, _I, _I, _I, _P], _I),
     # keys, out_keys, out_rows, n, log_seg, key_bits, stream
-    "hj3t_bitonic_sort_packed_segmented": [_P, _P, _P, _L, _I, _I, _P],
+    "hj3t_bitonic_sort_packed_segmented": ([_P, _P, _P, _L, _I, _I, _P], _I),
+    # probes.cu -- arguments as in each entry point's comment there
+    "hj3t_probe_roll": ([_P, _P, _L, _I, _P], _I),
+    "hj3t_probe_rotate": ([_P, _P, _P, _L, _P], _I),
+    "hj3t_probe_cumsum": ([_P, _P, _L, _I, _I, _P], _I),
+    "hj3t_probe_onehot_matmul": ([_P, _P, _P, _L, _P], _I),
+    "hj3t_probe_permute": ([_P, _P, _P, _L, _I, _P], _I),
+    "hj3t_probe_masked_store": ([_P, _P, _I, _I, _I, _P], _I),
+    "hj3t_probe_block_copy": ([_P, _P, _L, _I, _P], _I),
+    "hj3t_probe_row_copy": ([_P, _P, _L, _L, _I, _P], _I),
+    "hj3t_probe_digit_histogram": ([_P, _P, _L, _P], _I),
 }
 
 
@@ -61,22 +83,28 @@ def nvcc() -> str:
     return found
 
 
-def lib() -> ctypes.CDLL:
-    """The kernel library, built on first call."""
+def lib() -> types.SimpleNamespace:
+    """Every entry point of ``_SIGNATURES``, typed; the libraries are built
+    on first call, one ``nvcc`` per source, all at once."""
     global _lib
     if _lib is None:
-        so = build_library([nvcc(), *NVCC_FLAGS], sorted(CSRC.glob("*.cu")),
-                           "hj3kernels")
-        handle = ctypes.CDLL(str(so))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(handle, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        handle.hj3t_error_string.argtypes = [ctypes.c_int]
-        handle.hj3t_error_string.restype = ctypes.c_char_p
-        handle.hj3t_scan_tile.argtypes = []
-        handle.hj3t_scan_tile.restype = ctypes.c_int
-        _lib = handle
+        cmd = [nvcc(), *NVCC_FLAGS]
+        sources = sorted(CSRC.glob("*.cu"))
+        with ThreadPoolExecutor(len(sources)) as pool:
+            built = list(pool.map(
+                lambda src: build_library(cmd, [src], f"hj3{src.stem}"),
+                sources))
+        handles = [ctypes.CDLL(str(so)) for so in built]
+        ns = types.SimpleNamespace()
+        for name, (argtypes, restype) in _SIGNATURES.items():
+            found = [h for h in handles if hasattr(h, name)]
+            if len(found) != 1:
+                raise RuntimeError(f"{name}: defined in {len(found)} of the "
+                                   f"kernel libraries, expected 1")
+            fn = getattr(found[0], name)
+            fn.argtypes, fn.restype = argtypes, restype
+            setattr(ns, name, fn)
+        _lib = ns
     return _lib
 
 

@@ -1,4 +1,4 @@
-"""Windowed table lookup for (nearly) sorted key streams (kernel K2).
+"""Windowed table lookup for (nearly) sorted key streams (kernels K2, K2b).
 
 Port of ``hashjoin3d_tpu/ops/windowed.py``: ``windowed_lookup`` resolves
 ``table[key]`` chunk by chunk against one table window per ``C``-key chunk,
@@ -7,8 +7,9 @@ outside its chunk's window (negative, past the table, or too far below the
 chunk's maximum) yields 0, the miss marker.  :func:`windowed_coverage_ok`
 says whether every in-range key of a stream is covered.
 
-On CUDA tensors :func:`windowed_lookup` launches ``csrc/windowed.cu``; on CPU
-tensors it runs :func:`windowed_lookup_plain`.
+On CUDA tensors :func:`windowed_lookup` launches ``csrc/windowed.cu`` (K2, or
+with ``db=True`` K2b, the double-buffered window load; the results are the
+same); on CPU tensors it runs :func:`windowed_lookup_plain`.
 """
 
 from __future__ import annotations
@@ -20,6 +21,13 @@ from .layout import I32, I64
 
 DEFAULT_C = 1024
 DEFAULT_W = 1024
+#: shared memory one CUDA block may use (H100: 227 KB)
+SMEM_PER_BLOCK = 232448
+
+
+def db_smem_bytes(C: int, W: int) -> int:
+    """Shared memory of one K2b block: two window slots, three key slots."""
+    return (2 * (W + 1024) + 3 * C) * 4
 
 
 def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
@@ -36,7 +44,8 @@ def chunk_bases(keys_sorted: torch.Tensor, T: int, C: int,
     return base.clamp(0, max(T - (W + 1024), 0)).to(I32)
 
 
-def _check(table: torch.Tensor, keys: torch.Tensor, C: int, W: int):
+def _check(table: torch.Tensor, keys: torch.Tensor, C: int, W: int,
+           db: bool):
     T, n = table.shape[0], keys.shape[0]
     if table.dtype != I32 or keys.dtype != I32:
         raise ValueError("table and keys must be int32 carriers")
@@ -47,29 +56,40 @@ def _check(table: torch.Tensor, keys: torch.Tensor, C: int, W: int):
     if T < W + 1024 or T % 1024:
         raise ValueError(f"table size {T} must be a multiple of 1024 and "
                          f">= W + 1024")
+    if db and db_smem_bytes(C, W) > SMEM_PER_BLOCK:
+        raise ValueError(f"db=True: two windows and three key chunks "
+                         f"({db_smem_bytes(C, W)} B at C={C}, W={W}) exceed "
+                         f"{SMEM_PER_BLOCK} B of shared memory (W <= 16384 "
+                         f"at C = 1024)")
 
 
 def windowed_lookup(table: torch.Tensor, keys_sorted: torch.Tensor,
-                    C: int = DEFAULT_C, W: int = DEFAULT_W) -> torch.Tensor:
+                    C: int = DEFAULT_C, W: int = DEFAULT_W,
+                    db: bool = False) -> torch.Tensor:
     """``table[keys]`` with miss-as-0 for keys outside their chunk window.
 
     ``table``: int32[T] (u32 carrier), T >= W + 1024 and T % 1024 == 0;
     ``keys_sorted``: int32[n], n % C == 0, nearly nondecreasing (-1 holes
     are fine).  Coverage of in-range keys is the caller's to check
     (:func:`windowed_coverage_ok`, ``strands_windowed.safe_lookup``).
+    ``db=True`` launches K2b, which overlaps the next chunk's window load
+    with this chunk's lookups (same results; W <= 16384 at C = 1024).
     """
-    _check(table, keys_sorted, C, W)
+    _check(table, keys_sorted, C, W, db)
     if table.device.type == "cpu" and keys_sorted.device.type == "cpu":
         return windowed_lookup_plain(table, keys_sorted, C, W)
-    kernels.require_cuda("windowed_lookup", table, keys_sorted)
-    if table.data_ptr() % 16:
-        raise ValueError("windowed_lookup: table must be 16-byte aligned")
+    name = "windowed_lookup_db" if db else "windowed_lookup"
+    kernels.require_cuda(name, table, keys_sorted)
+    if table.data_ptr() % 16 or (db and keys_sorted.data_ptr() % 16):
+        raise ValueError(f"{name}: table (and with db, keys) must be "
+                         f"16-byte aligned")
     out = torch.empty_like(keys_sorted)
-    rc = kernels.lib().hj3t_windowed_lookup(
-        kernels.ptr(table), kernels.ptr(keys_sorted), kernels.ptr(out),
-        table.shape[0], keys_sorted.shape[0], C, W,
-        kernels.stream(table.device))
-    kernels.count_launch(rc, "windowed_lookup")
+    entry = (kernels.lib().hj3t_windowed_lookup_db if db
+             else kernels.lib().hj3t_windowed_lookup)
+    rc = entry(kernels.ptr(table), kernels.ptr(keys_sorted), kernels.ptr(out),
+               table.shape[0], keys_sorted.shape[0], C, W,
+               kernels.stream(table.device))
+    kernels.count_launch(rc, name)
     return out
 
 

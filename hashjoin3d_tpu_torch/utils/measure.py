@@ -6,13 +6,23 @@ is still under ``min_time_s`` at the end of the plan, never fewer than
 ``min_repeat`` runs.  Each run is timed on the host clock between two
 ``torch.cuda.synchronize()`` calls (no-ops for a CPU device), so the time is
 the device's work for that run, not its enqueue.
+
+The measurement tools (``tools/roofline.py``, ``tools/csrprof.py``,
+``tools/mosaic_probe.py``) time on CUDA events with :func:`events_ms`, name
+the card with :func:`card`, and state each bound with :func:`bound_ms`.
 """
 
 from __future__ import annotations
 
+import subprocess
 import time
 
 import torch
+
+#: H100 SXM device memory rate, bytes/s (NVIDIA's data sheet)
+HBM_BYTES_PER_S = 3.35e12
+#: H100 SXM dense bf16 tensor-core rate, flop/s (NVIDIA's data sheet)
+BF16_FLOPS = 989e12
 
 
 def _sync(device: torch.device) -> None:
@@ -37,3 +47,56 @@ def repeat_mintime(min_time_s: float, func, device: torch.device,
             n *= 2
         i += 1
     return total, n, out
+
+
+def require_cuda_device(device) -> torch.device:
+    """The device of a measurement: CUDA, and present.  A measurement never
+    falls back to the CPU."""
+    dev = torch.device(device)
+    if dev.type != "cuda" or not torch.cuda.is_available():
+        raise RuntimeError(f"this measurement needs a CUDA GPU (device "
+                           f"{dev}, torch.cuda.is_available() "
+                           f"{torch.cuda.is_available()})")
+    return dev
+
+
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def events_ms(fn, min_time_s: float, min_reps: int = 3) -> float:
+    """Mean milliseconds per call of ``fn`` on CUDA events: one warm-up
+    call, then runs of ``min_reps``, doubling (or more) until one run of
+    calls takes at least ``min_time_s``."""
+    fn()
+    torch.cuda.synchronize()
+    reps = min_reps
+    while True:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        if ms >= min_time_s * 1e3:
+            return ms / reps
+        reps = max(2 * reps, int(reps * min_time_s * 1e3 / max(ms, 1e-3)) + 1)
+
+
+def nbytes(*tensors: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound_ms(n_bytes: int, flops: float = 0.0,
+             flops_per_s: float = BF16_FLOPS) -> tuple[float, str]:
+    """The least time the card could take: the larger of ``n_bytes`` over
+    the memory rate and ``flops`` over the compute rate; and which bounds."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")

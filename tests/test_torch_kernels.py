@@ -1,8 +1,9 @@
 """The port's kernel wrappers on the CPU (their plain PyTorch versions)
 against the JAX package's Pallas kernels run in interpret mode.
 
-K3 ``multi_scan``, K2 ``windowed_lookup`` (+ ``chunk_bases`` and
-``safe_lookup``'s routes), K4 ``bitonic_sort_segmented`` and K1
+K3 ``multi_scan``, K2 ``windowed_lookup`` and K2b (``db=True``; +
+``chunk_bases`` and ``safe_lookup``'s routes), K4 ``bitonic_sort_segmented``
+and K1
 ``bitonic_sort_packed_segmented``.  Inputs are seeded numpy; results must be
 exact: scans and lookups bit-equal, sorts with keys bit-equal and each
 segment's (key, payload) multiset equal (equal-key payload order is the
@@ -27,6 +28,7 @@ from hashjoin3d_tpu.ops.windowed import (
     windowed_coverage_ok as jax_coverage_ok)
 from hashjoin3d_tpu.ops.windowed import windowed_lookup as jax_windowed_lookup
 
+from hashjoin3d_tpu_torch.ops import probes
 from hashjoin3d_tpu_torch.ops import strands_windowed as tw
 from hashjoin3d_tpu_torch.ops.bitonic import (bitonic_sort_packed_segmented,
                                               bitonic_sort_segmented)
@@ -91,6 +93,40 @@ def test_windowed_lookup_plain_matches_jax_kernel():
     assert np.array_equal(
         chunk_bases(torch.from_numpy(keys), T, C, W).numpy(),
         np.asarray(jax_chunk_bases(jnp.asarray(keys), T, C, W)))
+
+
+def test_windowed_lookup_db_plain_matches_jax_db_kernel():
+    """K2b on the inputs of the JAX package's own db test: bit-equal to the
+    Pallas db kernel (interpret mode) and to K2, misses included."""
+    rng = np.random.default_rng(7)
+    T = 8192
+    table = rng.integers(1, 2**32, T, dtype=np.uint32)
+    keys = np.sort(rng.integers(0, T, 16384).astype(np.int32))
+    keys[rng.random(16384) < 0.2] = -1          # miss holes
+    want = np.asarray(jax_windowed_lookup(jnp.asarray(table),
+                                          jnp.asarray(keys), C=128, W=1024,
+                                          interpret=True, db=True))
+    got = windowed_lookup(t32(table), torch.from_numpy(keys), C=128, W=1024,
+                          db=True)
+    assert np.array_equal(got.numpy().view(np.uint32), want)
+    k2 = windowed_lookup(t32(table), torch.from_numpy(keys), C=128, W=1024)
+    assert torch.equal(got, k2)
+    assert (want[keys == -1] == 0).all()
+
+
+def test_windowed_lookup_db_window_limit():
+    """Two windows and three key chunks must fit one block's shared memory:
+    W = 16384 passes, W = 32768 raises (K2 alone still takes it)."""
+    keys = torch.zeros(1024, dtype=torch.int32)
+    for W, ok in ((16384, True), (32768, False)):
+        table = torch.arange(W + 1024, dtype=torch.int32)
+        if ok:
+            assert torch.equal(windowed_lookup(table, keys, W=W, db=True),
+                               windowed_lookup(table, keys, W=W))
+        else:
+            with pytest.raises(ValueError, match="db=True"):
+                windowed_lookup(table, keys, W=W, db=True)
+            windowed_lookup(table, keys, W=W)
 
 
 @pytest.mark.parametrize("case,ok", [("sorted", True), ("ragged", True),
@@ -204,7 +240,17 @@ def test_bitonic_sort_packed_plain_matches_jax_kernel():
     lambda x: bitonic_sort_segmented(x, 256),
     lambda x: bitonic_sort_packed_segmented(x, 256, 20),
     lambda x: windowed_lookup(x, x, C=128, W=1024),
+    lambda x: windowed_lookup(x, x, C=128, W=1024, db=True),
     lambda x: multi_scan((x,), ("sum",)),
+    lambda x: probes.roll(x.view(-1, 128), 3),
+    lambda x: probes.rotate(x.view(-1, 128), x[:16]),
+    lambda x: probes.cumsum(x.view(-1, 128), 1),
+    lambda x: probes.onehot_matmul(x.view(-1, 128), x.new_empty((128, 128))),
+    lambda x: probes.permute(x, x[:1024]),
+    lambda x: probes.masked_store(x.view(-1, 128), 8),
+    lambda x: probes.block_copy(x, 1024),
+    lambda x: probes.row_copy(x.view(-1, 128), 3),
+    lambda x: probes.digit_histogram(x.view(-1, 128)),
 ])
 def test_wrappers_launch_or_raise_off_the_cpu(call):
     """Only CPU tensors take the plain version: any other device must reach
