@@ -21,18 +21,21 @@
 // (windowed.py:93-111) remains: Hopper has a real indexed load.
 //
 // K2b (hj3t_windowed_lookup_db): the same function with the window load
-// double-buffered.  Replaces hashjoin3d_tpu/ops/windowed.py:
-// _windowed_kernel_db (the same pallas_call with db=True), which started
-// chunk j+1's window DMA before chunk j's select loop over a sequential grid.
-// Here a persistent grid (as many blocks as fit on the SMs) gives each block
-// a contiguous run of chunks; the block keeps two window slots and three key
-// slots in shared memory (2 (W+1024) + 3 C words: 84 KiB at W = 8192,
-// C = 1024, two blocks per SM).  While chunk j resolves, cp.async 16-byte
-// copies bring chunk j+1's window and chunk j+2's keys; chunk j+1's base
-// (its key maximum) comes from its keys, which landed one chunk earlier.  The
-// bound is the same as K2's (keys in, words out, windows from L2); the
-// design asks whether hiding the window load behind the resolve pays when
-// several K2 blocks per SM already overlap each other's loads.
+// pipelined.  Replaces hashjoin3d_tpu/ops/windowed.py:_windowed_kernel_db
+// (the same pallas_call with db=True), which started chunk j+1's window DMA
+// before chunk j's select loop over a sequential grid.  Here a persistent
+// grid (as many blocks as fit on the SMs) gives each block a contiguous run
+// of chunks.  The block keeps the table in a ring of S words of shared
+// memory (S the power of two >= 1.5 (W + 1024); table word p in slot
+// p mod S) and three key slots.  While chunk j resolves, cp.async 16-byte
+// copies bring chunk j+2's keys and only the part of chunk j+1's window that
+// is not resident yet: consecutive chunks of a sorted stream share most of
+// their windows.  Chunk j+1's base (its key maximum) comes from its keys,
+// which landed one chunk earlier.  A base that moves back (a new sorted
+// segment) or jumps by more than S - (W + 1024) reloads the whole window
+// after chunk j's lookups.  Bound: keys in and words out (HBM) and the
+// window words staged from L2; the ring stages each table word about once
+// per sorted run instead of once per chunk.
 
 #include <cuda_runtime.h>
 
@@ -63,6 +66,14 @@ __device__ __forceinline__ int window_base(int kmax, int W, long long T) {
   const int t = (int)((unsigned)kmax - (unsigned)W) & ~1023;
   const long long hi = T - R > 0 ? T - R : 0;
   return t < 0 ? 0 : (int)(t > hi ? hi : t);
+}
+
+// K2b's ring of table words: the power of two >= 1.5 (W + 1024).
+int ring_words(int W) {
+  const int R = W + 1024;
+  int S = 1024;
+  while (S < R + R / 2) S *= 2;
+  return S;
 }
 
 // Block-wide max of one value per thread; every thread gets the result.
@@ -101,44 +112,62 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// K2b.  Chunks [first, last) of this block; slots: windows w[c & 1], keys
-// k[c % 3].  Iteration c: wait for chunk c's window and chunk c+1's keys
-// (one cp.async group, issued in iteration c-1), take chunk c+1's base,
-// issue chunk c+1's window and chunk c+2's keys, then resolve chunk c.  The
-// barrier at the top of iteration c also retires iteration c-1's reads of
-// the slots that iteration c refills.
+// K2b.  Chunks [first, last) of this block; the ring holds table words
+// [lo, hi) (hi - lo <= S); key slot c % 3 holds chunk c's keys.  Iteration
+// c: wait for the copies issued in iteration c-1 (chunk c's missing window
+// words, chunk c+1's keys), take chunk c+1's base, issue its missing window
+// words unless they would overwrite chunk c's window, issue chunk c+2's
+// keys, resolve chunk c, and reload chunk c+1's window whole if it had to
+// wait.  The barrier at the top of iteration c also retires iteration c-1's
+// reads of the key slot that iteration c refills.
 __global__ void __launch_bounds__(kThreads)
     windowed_db_kernel(const int* __restrict__ table,
                        const int* __restrict__ keys, int* __restrict__ out,
-                       long long T, int C, int W, long long nchunks) {
+                       long long T, int C, int W, int S, long long nchunks) {
   extern __shared__ int4 smem4[];
   __shared__ int warp_max[kThreads / 32];
   const int R = W + 1024;
-  int* smem = reinterpret_cast<int*>(smem4);
-  int* const win[2] = {smem, smem + R};
-  int* const kslot[3] = {smem + 2 * R, smem + 2 * R + C, smem + 2 * R + 2 * C};
+  int* ring = reinterpret_cast<int*>(smem4);
+  int* key_slots = ring + S;
 
   const long long first = (long long)blockIdx.x * nchunks / gridDim.x;
   const long long last = ((long long)blockIdx.x + 1) * nchunks / gridDim.x;
   if (first >= last) return;
 
+  auto kslot = [&](long long c) { return key_slots + (int)(c % 3) * C; };
   auto load_keys = [&](long long c) {
     const int4* src = reinterpret_cast<const int4*>(keys + c * C);
-    int4* dst = reinterpret_cast<int4*>(kslot[c % 3]);
+    int4* dst = reinterpret_cast<int4*>(kslot(c));
     for (int i = threadIdx.x; i < C / 4; i += kThreads)
       cp_async16(dst + i, src + i);
   };
-  auto load_window = [&](long long c, int base) {
-    const int4* src = reinterpret_cast<const int4*>(table + base);
-    int4* dst = reinterpret_cast<int4*>(win[c & 1]);
-    for (int i = threadIdx.x; i < R / 4; i += kThreads)
-      cp_async16(dst + i, src + i);
+  // table words [a, b), both multiples of 4, into their ring slots
+  auto load_words = [&](int a, int b) {
+    for (int p = a + 4 * (int)threadIdx.x; p < b; p += 4 * kThreads)
+      cp_async16(ring + (p & (S - 1)), table + p);
   };
   auto base_of = [&](long long c) {
-    const int* k = kslot[c % 3];
+    const int* k = kslot(c);
     int kmax = INT_MIN;
     for (int i = threadIdx.x; i < C; i += kThreads) kmax = max(kmax, k[i]);
     return window_base(block_max(kmax, warp_max), W, T);
+  };
+
+  int lo, hi;  // resident table words, the same in every thread
+  // Load what window [b, b + R) lacks without touching the slots of
+  // window [busy, busy + R); false if that is not possible.
+  auto extend = [&](int b, int busy) {
+    if (b >= lo && b + R <= hi) return true;
+    if (b < lo || (long long)b + R - S > busy) return false;
+    load_words(b > hi ? b : hi, b + R);
+    lo = b > hi ? b : max(lo, b + R - S);
+    hi = b + R;
+    return true;
+  };
+  auto reload = [&](int b) {
+    load_words(b, b + R);
+    lo = b;
+    hi = b + R;
   };
 
   // prologue: chunk first's keys, then its window and chunk first+1's keys
@@ -147,7 +176,7 @@ __global__ void __launch_bounds__(kThreads)
   cp_async_wait_all();
   __syncthreads();
   int base = base_of(first);
-  load_window(first, base);
+  reload(base);
   if (first + 1 < last) load_keys(first + 1);
   cp_async_commit();
 
@@ -155,18 +184,23 @@ __global__ void __launch_bounds__(kThreads)
     cp_async_wait_all();
     __syncthreads();
     int next_base = 0;
+    bool wait = false;
     if (c + 1 < last) {
       next_base = base_of(c + 1);
-      load_window(c + 1, next_base);
+      wait = !extend(next_base, base);
       if (c + 2 < last) load_keys(c + 2);
       cp_async_commit();
     }
-    const int* k = kslot[c % 3];
-    const int* w = win[c & 1];
+    const int* k = kslot(c);
     int* o = out + c * C;
     for (int i = threadIdx.x; i < C; i += kThreads) {
       const unsigned delta = (unsigned)k[i] - (unsigned)base;
-      o[i] = delta < (unsigned)R ? w[delta] : 0;
+      o[i] = delta < (unsigned)R ? ring[k[i] & (S - 1)] : 0;
+    }
+    if (wait) {
+      __syncthreads();
+      reload(next_base);
+      cp_async_commit();
     }
     base = next_base;
   }
@@ -200,13 +234,13 @@ int hj3t_windowed_lookup(const void* table, const void* keys, void* out,
 }
 
 // K2b: as hj3t_windowed_lookup, results bit-equal; keys 16-byte aligned and
-// C a multiple of 4; (2 (W + 1024) + 3 C) * 4 bytes of shared memory must
-// fit one block (W <= 16384 at C = 1024).
+// C a multiple of 4; (ring + 3 C) * 4 bytes of shared memory must fit one
+// block (W <= 16384 at C = 1024).
 int hj3t_windowed_lookup_db(const void* table, const void* keys, void* out,
                             long long T, long long n, int C, int W,
                             void* stream) {
-  if (C <= 0 || C % 4 != 0 || n % C != 0 || W < 1024 ||
-      T < (long long)W + 1024 || T % 1024 != 0)
+  if (C <= 0 || C % 4 != 0 || n % C != 0 || W < 1024 || W > (1 << 24) ||
+      T < (long long)W + 1024 || T % 1024 != 0 || T > INT_MAX)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaGetLastError();
   int dev = 0, sms = 0, smem_max = 0, per_sm = 0;
@@ -217,7 +251,8 @@ int hj3t_windowed_lookup_db(const void* table, const void* keys, void* out,
     err = cudaDeviceGetAttribute(
         &smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = (2 * ((size_t)W + 1024) + 3 * (size_t)C) * sizeof(int);
+  const int S = ring_words(W);
+  const size_t smem = ((size_t)S + 3 * (size_t)C) * sizeof(int);
   if (smem > (size_t)smem_max) return (int)cudaErrorInvalidValue;
   err = cudaFuncSetAttribute(windowed_db_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -232,7 +267,7 @@ int hj3t_windowed_lookup_db(const void* table, const void* keys, void* out,
   windowed_db_kernel<<<(unsigned)grid, kThreads, smem,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(table), static_cast<const int*>(keys),
-      static_cast<int*>(out), T, C, W, nchunks);
+      static_cast<int*>(out), T, C, W, S, nchunks);
   return (int)cudaGetLastError();
 }
 

@@ -25,9 +25,18 @@ DEFAULT_W = 1024
 SMEM_PER_BLOCK = 232448
 
 
+def db_ring_words(W: int) -> int:
+    """K2b's ring of table words: the power of two >= 1.5 (W + 1024)
+    (``ring_words`` in ``csrc/windowed.cu``)."""
+    R, S = W + 1024, 1024
+    while S < R + R // 2:
+        S *= 2
+    return S
+
+
 def db_smem_bytes(C: int, W: int) -> int:
-    """Shared memory of one K2b block: two window slots, three key slots."""
-    return (2 * (W + 1024) + 3 * C) * 4
+    """Shared memory of one K2b block: the ring and three key slots."""
+    return (db_ring_words(W) + 3 * C) * 4
 
 
 def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
@@ -57,7 +66,7 @@ def _check(table: torch.Tensor, keys: torch.Tensor, C: int, W: int,
         raise ValueError(f"table size {T} must be a multiple of 1024 and "
                          f">= W + 1024")
     if db and db_smem_bytes(C, W) > SMEM_PER_BLOCK:
-        raise ValueError(f"db=True: two windows and three key chunks "
+        raise ValueError(f"db=True: the window ring and three key chunks "
                          f"({db_smem_bytes(C, W)} B at C={C}, W={W}) exceed "
                          f"{SMEM_PER_BLOCK} B of shared memory (W <= 16384 "
                          f"at C = 1024)")
