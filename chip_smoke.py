@@ -24,8 +24,8 @@ probe 2^24 foreign keys).  Phases, any failure exits non-zero:
    CPU plain run;
 4. launch counts, reset just before phase 2: K1, K2, K3 launched in phase 2,
    K4 in phase 3 (R20/S24 never misses, so its main path bypasses K4);
-5. the kernels only the measurement tools reach: K2b (the double-buffered
-   windowed lookup) bit-equal to K2 and to the plain lookup on phase 2's
+5. the kernels only the measurement tools reach: K2b (the windowed lookup
+   with a pipelined ring window) bit-equal to K2 and to the plain lookup on phase 2's
    table and K1-sorted probes at W = 8192, and on the same stream with -1
    holes; P1-P9 (``ops/probes.py``) each equal to its plain version at the
    TPU probes' sizes; then the roofline and csrprof paths
@@ -48,7 +48,6 @@ from __future__ import annotations
 import csv
 import io
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -79,11 +78,6 @@ KERNELS = {
         "hashjoin3d_tpu_torch/csrc/windowed.cu",
         "hashjoin3d_tpu/ops/windowed.py:115", "windowed_lookup_db"),
 }
-#: probe id -> launch-count key (the TPU probe's line: tools.mosaic_probe)
-PROBE_KEYS = {"P1": "probe_roll", "P2": "probe_rotate", "P3": "probe_cumsum",
-              "P4": "probe_onehot_matmul", "P5": "probe_permute",
-              "P6": "probe_masked_store", "P7": "probe_block_copy",
-              "P8": "probe_row_copy", "P9": "probe_digit_histogram"}
 TOOL_MIN_TIME = 0.005
 
 
@@ -388,11 +382,9 @@ def main() -> int:
     from hashjoin3d_tpu_torch.ops.strands_windowed import (
         direct_probe_strand_sorted)
     from hashjoin3d_tpu_torch.utils.gen import exp1_data
+    from hashjoin3d_tpu_torch.utils.measure import card as card_name
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_name()
     print(card)
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
@@ -489,12 +481,13 @@ def main() -> int:
              miss_probe_launches=after3[key] - after2[key],
              tool_launches=tools[key], **results[name])
         for name, (src, rep, key) in KERNELS.items()]
-    for pid, key in PROBE_KEYS.items():
+    for pid, (_, line, key) in PROBES.items():
         entries.append(dict(
             name=f"{pid} {key}", route="cuda",
             source="hashjoin3d_tpu_torch/csrc/probes.cu",
-            replaces=f"tools/mosaic_probe.py:{PROBES[pid][1]}",
-            launches=after2[key], miss_probe_launches=after3[key] - after2[key],
+            replaces=f"tools/mosaic_probe.py:{line}",
+            launches=after2[key],
+            miss_probe_launches=after3[key] - after2[key],
             tool_launches=tools[key], **probe_results[pid]))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

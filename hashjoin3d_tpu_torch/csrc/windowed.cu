@@ -26,16 +26,20 @@
 // before chunk j's select loop over a sequential grid.  Here a persistent
 // grid (as many blocks as fit on the SMs) gives each block a contiguous run
 // of chunks.  The block keeps the table in a ring of S words of shared
-// memory (S the power of two >= 1.5 (W + 1024); table word p in slot
-// p mod S) and three key slots.  While chunk j resolves, cp.async 16-byte
-// copies bring chunk j+2's keys and only the part of chunk j+1's window that
-// is not resident yet: consecutive chunks of a sorted stream share most of
-// their windows.  Chunk j+1's base (its key maximum) comes from its keys,
+// memory (S a power of two >= W + 1024, chosen by the Python wrapper;
+// table word p in slot p mod S) and three key slots.  While chunk j
+// resolves, cp.async 16-byte copies bring chunk j+2's keys and only the part
+// of chunk j+1's window that is not resident yet: consecutive chunks of a
+// sorted stream share most of their windows.  Chunk j+1's base (its key maximum) comes from its keys,
 // which landed one chunk earlier.  A base that moves back (a new sorted
 // segment) or jumps by more than S - (W + 1024) reloads the whole window
 // after chunk j's lookups.  Bound: keys in and words out (HBM) and the
 // window words staged from L2; the ring stages each table word about once
-// per sorted run instead of once per chunk.
+// per sorted run instead of once per chunk.  What limits it in practice is
+// the per-chunk chain (keys land, block max, window copy, two barriers)
+// when few blocks fit an SM: at W = 8192 (76 KiB, two blocks per SM) it
+// only matches K2, at W <= 4096 it is faster.  512 threads a block were
+// slower at every W (PERF.md), so blocks keep 256.
 
 #include <cuda_runtime.h>
 
@@ -66,14 +70,6 @@ __device__ __forceinline__ int window_base(int kmax, int W, long long T) {
   const int t = (int)((unsigned)kmax - (unsigned)W) & ~1023;
   const long long hi = T - R > 0 ? T - R : 0;
   return t < 0 ? 0 : (int)(t > hi ? hi : t);
-}
-
-// K2b's ring of table words: the power of two >= 1.5 (W + 1024).
-int ring_words(int W) {
-  const int R = W + 1024;
-  int S = 1024;
-  while (S < R + R / 2) S *= 2;
-  return S;
 }
 
 // Block-wide max of one value per thread; every thread gets the result.
@@ -234,13 +230,14 @@ int hj3t_windowed_lookup(const void* table, const void* keys, void* out,
 }
 
 // K2b: as hj3t_windowed_lookup, results bit-equal; keys 16-byte aligned and
-// C a multiple of 4; (ring + 3 C) * 4 bytes of shared memory must fit one
-// block (W <= 16384 at C = 1024).
+// C a multiple of 4; S, the ring's words, a power of two >= W + 1024;
+// (S + 3 C) * 4 bytes of shared memory must fit one block.
 int hj3t_windowed_lookup_db(const void* table, const void* keys, void* out,
-                            long long T, long long n, int C, int W,
+                            long long T, long long n, int C, int W, int S,
                             void* stream) {
-  if (C <= 0 || C % 4 != 0 || n % C != 0 || W < 1024 || W > (1 << 24) ||
-      T < (long long)W + 1024 || T % 1024 != 0 || T > INT_MAX)
+  if (C <= 0 || C % 4 != 0 || n % C != 0 || W < 1024 ||
+      T < (long long)W + 1024 || T % 1024 != 0 || T > INT_MAX ||
+      S < W + 1024 || (S & (S - 1)) != 0)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaGetLastError();
   int dev = 0, sms = 0, smem_max = 0, per_sm = 0;
@@ -251,7 +248,6 @@ int hj3t_windowed_lookup_db(const void* table, const void* keys, void* out,
     err = cudaDeviceGetAttribute(
         &smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
-  const int S = ring_words(W);
   const size_t smem = ((size_t)S + 3 * (size_t)C) * sizeof(int);
   if (smem > (size_t)smem_max) return (int)cudaErrorInvalidValue;
   err = cudaFuncSetAttribute(windowed_db_kernel,

@@ -42,16 +42,17 @@ LAUNCHES = {"multi_scan": 0, "windowed_lookup": 0, "windowed_lookup_db": 0,
 
 _lib = None
 
-_P, _I, _L, _S = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_char_p
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_S = ctypes.c_char_p
 #: entry point -> (argument types, result type)
 _SIGNATURES = {
     # scan.cu -- in0..in3, out0..out3, op0..op3, n, reverse, scratch, stream
     "hj3t_multi_scan": ([_P] * 8 + [_I] * 4 + [_L, _I, _P, _P], _I),
     "hj3t_scan_tile": ([], _I),
     "hj3t_error_string": ([_I], _S),
-    # windowed.cu -- table, keys, out, T, n, C, W, stream
+    # windowed.cu -- table, keys, out, T, n, C, W, (ring words,) stream
     "hj3t_windowed_lookup": ([_P, _P, _P, _L, _L, _I, _I, _P], _I),
-    "hj3t_windowed_lookup_db": ([_P, _P, _P, _L, _L, _I, _I, _P], _I),
+    "hj3t_windowed_lookup_db": ([_P, _P, _P, _L, _L, _I, _I, _I, _P], _I),
     # bitonic.cu -- keys, payload, out_keys, out_payload, n, log_seg,
     # unsigned, stable, stream
     "hj3t_bitonic_sort_segmented": ([_P, _P, _P, _P, _L, _I, _I, _I, _P], _I),

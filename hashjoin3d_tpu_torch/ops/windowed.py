@@ -26,8 +26,8 @@ SMEM_PER_BLOCK = 232448
 
 
 def db_ring_words(W: int) -> int:
-    """K2b's ring of table words: the power of two >= 1.5 (W + 1024)
-    (``ring_words`` in ``csrc/windowed.cu``)."""
+    """K2b's ring of table words: the power of two >= 1.5 (W + 1024), so
+    a window's base may advance by half a window without waiting."""
     R, S = W + 1024, 1024
     while S < R + R // 2:
         S *= 2
@@ -93,11 +93,12 @@ def windowed_lookup(table: torch.Tensor, keys_sorted: torch.Tensor,
         raise ValueError(f"{name}: table (and with db, keys) must be "
                          f"16-byte aligned")
     out = torch.empty_like(keys_sorted)
-    entry = (kernels.lib().hj3t_windowed_lookup_db if db
-             else kernels.lib().hj3t_windowed_lookup)
-    rc = entry(kernels.ptr(table), kernels.ptr(keys_sorted), kernels.ptr(out),
-               table.shape[0], keys_sorted.shape[0], C, W,
-               kernels.stream(table.device))
+    args = (kernels.ptr(table), kernels.ptr(keys_sorted), kernels.ptr(out),
+            table.shape[0], keys_sorted.shape[0], C, W)
+    lib = kernels.lib()
+    rc = (lib.hj3t_windowed_lookup_db(*args, db_ring_words(W),
+                                      kernels.stream(table.device)) if db
+          else lib.hj3t_windowed_lookup(*args, kernels.stream(table.device)))
     kernels.count_launch(rc, name)
     return out
 

@@ -32,7 +32,7 @@ from ..ops.strands_windowed import (_miss_chain_cmps, _pad_table,
                                     safe_lookup)
 from ..ops.windowed import chunk_bases, windowed_lookup
 from ..utils.gen import exp1_data
-from ..utils.measure import card, events_ms, require_cuda_device
+from ..utils.measure import card, events_ms, require_cuda
 
 
 class Stage(NamedTuple):
@@ -126,7 +126,7 @@ def main(argv=None) -> int:
     ap.add_argument("--logt", type=int, default=20)
     ap.add_argument("--min-time", type=float, default=0.4)
     args = ap.parse_args(argv)
-    dev = require_cuda_device("cuda")
+    dev = require_cuda()
     print(f"card: {card()}; P = 2^{args.logp} probes, T = 2^{args.logt} keys",
           flush=True)
     run(stages(dev, args.logp, args.logt), 1 << args.logp, args.min_time)

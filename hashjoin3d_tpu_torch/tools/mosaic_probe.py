@@ -23,20 +23,30 @@ import numpy as np
 import torch
 
 from ..ops import probes
-from ..utils.measure import (BF16_FLOPS, bound_ms, card, events_ms, nbytes,
-                             require_cuda_device)
+from ..utils.measure import bound_ms, card, events_ms, nbytes, require_cuda
 
-#: probe id -> (title, line of the TPU probe in tools/mosaic_probe.py)
+class Probe(NamedTuple):
+    title: str
+    line: int     #: of the TPU probe in tools/mosaic_probe.py
+    key: str      #: its wrapper's key in ``kernels.LAUNCHES``
+
+
 PROBES = {
-    "P1": ("roll: runtime whole-row roll along lanes", 72),
-    "P2": ("rotate: per-row rotation", 103),
-    "P3": ("cumsum: along lanes and along rows", 142),
-    "P4": ("mxu: one-hot permutation applied by a matrix product", 178),
-    "P5": ("permute: generic within-block permutation", 218),
-    "P6": ("store: masked store at a runtime row offset", 269),
-    "P7": ("dma: block copy in reversed block order", 305),
-    "P8": ("dma-unaligned: 8-row copy from row offset 3", 349),
-    "P9": ("onehot: 16-bin digit histogram per row", 382),
+    "P1": Probe("roll: runtime whole-row roll along lanes", 72, "probe_roll"),
+    "P2": Probe("rotate: per-row rotation", 103, "probe_rotate"),
+    "P3": Probe("cumsum: along lanes and along rows", 142, "probe_cumsum"),
+    "P4": Probe("mxu: one-hot permutation applied by a matrix product", 178,
+                "probe_onehot_matmul"),
+    "P5": Probe("permute: generic within-block permutation", 218,
+                "probe_permute"),
+    "P6": Probe("store: masked store at a runtime row offset", 269,
+                "probe_masked_store"),
+    "P7": Probe("dma: block copy in reversed block order", 305,
+                "probe_block_copy"),
+    "P8": Probe("dma-unaligned: 8-row copy from row offset 3", 349,
+                "probe_row_copy"),
+    "P9": Probe("onehot: 16-bin digit histogram per row", 382,
+                "probe_digit_histogram"),
 }
 
 
@@ -47,7 +57,7 @@ class Case(NamedTuple):
     plain: Callable                 #: its plain PyTorch version
     n_elems: int
     inputs: tuple
-    flops: float = 0.0              #: tensor-core operations (P4)
+    flops: float = 0.0              #: bf16 tensor-core operations (P4)
     library: Callable | None = None  #: one PyTorch call of the same function
     library_name: str = ""
 
@@ -103,7 +113,7 @@ def cases(dev, shrink: int = 0) -> list[Case]:
     xs = t(np.arange(1 << (20 - shrink)).reshape(-1, 128))
     out.append(Case("P6", "masked store, runtime row offset 8",
                     lambda: probes.masked_store(xs, 8),
-                    lambda: probes.masked_store_plain(xs, 8), 1 << (20 - shrink),
+                    lambda: probes.masked_store_plain(xs, 8), xs.numel(),
                     (xs[:8, :64],)))
     src = t(rng.integers(0, 1 << 30, 1 << (24 - shrink)))
     for B in (1024, 8192, 65536):
@@ -133,7 +143,7 @@ def run_case(c: Case, min_time: float) -> dict:
     ok = got.shape == want.shape and torch.equal(got, want)
     err = (int((got.long() - want.long()).abs().max())
            if got.shape == want.shape else None)
-    bound, bound_by = bound_ms(nbytes(*c.inputs, got), c.flops, BF16_FLOPS)
+    bound, bound_by = bound_ms(nbytes(*c.inputs, got), c.flops)
     ms = events_ms(c.run, min_time)
     return dict(probe=c.probe, label=c.label, ok=ok, max_abs_err=err, ms=ms,
                 ns_per_elem=ms * 1e6 / c.n_elems,
@@ -149,11 +159,11 @@ def main(argv=None) -> int:
     ap.add_argument("-k", default="", help="substring filter")
     ap.add_argument("--min-time", type=float, default=0.3)
     args = ap.parse_args(argv)
-    dev = require_cuda_device("cuda")
+    dev = require_cuda()
     print(f"card: {card()}", flush=True)
     wrong = 0
     for c in cases(dev):
-        title = PROBES[c.probe][0]
+        title = PROBES[c.probe].title
         if args.k and args.k not in c.probe and args.k not in title:
             continue
         r = run_case(c, args.min_time)

@@ -36,7 +36,7 @@ from ..ops.scan import multi_scan
 from ..ops.sort import probe_sort_chunk, window_for_chunk
 from ..ops.strands_windowed import _pad_table
 from ..utils.measure import (HBM_BYTES_PER_S, bound_ms, card, events_ms,
-                             nbytes, require_cuda_device)
+                             nbytes, require_cuda)
 
 WINDOWS = (1024, 2048, 4096, 8192)
 
@@ -117,7 +117,8 @@ def table_rows(d: dict) -> list[Row]:
             (small, idx_small), n),
         Row("torch scatter n->T i32", lambda: scatter(zeros, idx64, upd),
             (zeros, idx64, upd), n),
-        Row("cumsum i32", lambda: torch.cumsum(ones, 0, dtype=I32), (ones,), n),
+        Row("cumsum i32", lambda: torch.cumsum(ones, 0, dtype=I32), (ones,),
+            n),
         Row("cummax i32", lambda: torch.cummax(upd, 0).values, (upd,), n),
         Row("cummin i32 (reverse)",
             lambda: torch.cummin(upd.flip(0), 0).values.flip(0), (upd,), n),
@@ -127,7 +128,8 @@ def table_rows(d: dict) -> list[Row]:
             lambda: scatter(torch.empty_like(upd), perm64, upd),
             (perm64, upd), n),
         Row("inv-perm 2-op sort", lambda: sort2(perm, upd)[1], (perm, upd), n),
-        Row("torch.sort i32 (1 op)", lambda: torch.sort(idx).values, (idx,), n),
+        Row("torch.sort i32 (1 op)", lambda: torch.sort(idx).values, (idx,),
+            n),
         Row("torch.sort i32 + i32 (2 op)", lambda: sort2(idx, row_ids),
             (idx, row_ids), n),
     ]
@@ -214,12 +216,13 @@ def kernel_rows(d: dict) -> list[Row]:
               lambda db=db: windowed.windowed_lookup(table, sk, W=W, db=db),
               (table, sk), n,
               lambda out: torch.equal(out, want_lookup),
-              library=lambda: table[sk.long()],
-              library_name="table[keys] (covered stream)")
+              library=lambda: torch.index_select(table, 0, sk),
+              library_name="torch.index_select (table[keys])")
           for db in (False, True)],
         Row(f"K3 multi_scan (sum, max over {T >> 20}Mi)",
             lambda: multi_scan(fwd, ("sum", "max")), fwd, T,
-            lambda out: torch.equal(out[0], torch.cumsum(fwd[0], 0, dtype=I32)),
+            lambda out: torch.equal(out[0],
+                                    torch.cumsum(fwd[0], 0, dtype=I32)),
             library=lambda: (torch.cumsum(fwd[0], 0, dtype=I32),
                              torch.cummax(fwd[1], 0)),
             library_name="cumsum + cummax (two calls)"),
@@ -275,7 +278,7 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=24, help="log2 #probes")
     ap.add_argument("--t", type=int, default=20, help="log2 table size")
     args = ap.parse_args(argv)
-    dev = require_cuda_device("cuda")
+    dev = require_cuda()
     mt = 0.2 if args.quick else 0.5
     print(f"card: {card()}; n = 2^{args.n}, T = 2^{args.t}", flush=True)
     d = inputs(dev, args.n, args.t)
@@ -290,7 +293,8 @@ def main(argv=None) -> int:
     print("\n| kernel | ms | bound ms (bytes) | library call | library ms |")
     print("|---|---|---|---|---|")
     for r in ks:
-        lib = f"{r['library_ms']:.4f}" if r["library_ms"] is not None else "—"
+        lib = ("—" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f}")
         print(f"| {r['name']} | {r['ms']:.4f} | {r['bound_ms']:.4f} "
               f"({r['bytes']}) | {r['library_name'] or '—'} | {lib} |")
     return 0

@@ -49,32 +49,31 @@ def repeat_mintime(min_time_s: float, func, device: torch.device,
     return total, n, out
 
 
-def require_cuda_device(device) -> torch.device:
-    """The device of a measurement: CUDA, and present.  A measurement never
+def require_cuda() -> torch.device:
+    """The device of a measurement: the first CUDA GPU.  A measurement never
     falls back to the CPU."""
-    dev = torch.device(device)
-    if dev.type != "cuda" or not torch.cuda.is_available():
-        raise RuntimeError(f"this measurement needs a CUDA GPU (device "
-                           f"{dev}, torch.cuda.is_available() "
-                           f"{torch.cuda.is_available()})")
-    return dev
+    if not torch.cuda.is_available():
+        raise RuntimeError("this measurement needs a CUDA GPU "
+                           "(torch.cuda.is_available() is False)")
+    return torch.device("cuda", 0)
 
 
 def card() -> str:
     """The card's name and power limit, as ``nvidia-smi`` gives them."""
     smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
         capture_output=True, text=True, check=True)
     return smi.stdout.strip().splitlines()[0]
 
 
-def events_ms(fn, min_time_s: float, min_reps: int = 3) -> float:
+def events_ms(fn, min_time_s: float) -> float:
     """Mean milliseconds per call of ``fn`` on CUDA events: one warm-up
-    call, then runs of ``min_reps``, doubling (or more) until one run of
-    calls takes at least ``min_time_s``."""
+    call, then runs of 3 calls, doubling (or more) until one run of calls
+    takes at least ``min_time_s``."""
     fn()
     torch.cuda.synchronize()
-    reps = min_reps
+    reps = 3
     while True:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -93,10 +92,10 @@ def nbytes(*tensors: torch.Tensor) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound_ms(n_bytes: int, flops: float = 0.0,
-             flops_per_s: float = BF16_FLOPS) -> tuple[float, str]:
+def bound_ms(n_bytes: int, bf16_flops: float = 0.0) -> tuple[float, str]:
     """The least time the card could take: the larger of ``n_bytes`` over
-    the memory rate and ``flops`` over the compute rate; and which bounds."""
+    the memory rate and ``bf16_flops`` over the tensor cores' bf16 rate;
+    and which of the two bounds."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / flops_per_s * 1e3
+    t_ops = bf16_flops / BF16_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
