@@ -27,15 +27,17 @@ probe 2^24 foreign keys).  Phases, any failure exits non-zero:
 5. the kernels only the measurement tools reach: K2b (the windowed lookup
    with a pipelined ring window) bit-equal to K2 and to the plain lookup on phase 2's
    table and K1-sorted probes at W = 8192, and on the same stream with -1
-   holes; P1-P9 (``ops/probes.py``) each equal to its plain version at the
-   TPU probes' sizes; then the roofline and csrprof paths
-   (``hashjoin3d_tpu_torch/tools``) driven once with a short minimum time,
-   counts reset just before them: K2b must launch there.
+   holes; P1-P9 (``ops/probes.py``) through the mosaic_probe runner, each
+   equal to its plain version at the TPU probes' sizes, counts reset just
+   before it: each P kernel must launch there; then the roofline and
+   csrprof paths (``hashjoin3d_tpu_torch/tools``) driven once with a short
+   minimum time, counts reset just before them: K2b must launch there.
 
 Prints one JSON line of per-kernel results, then, last,
 ``{"ok": true, "device": {...}}``.  ``launches`` there is the main path's
-count (phase 2 alone); ``miss_probe_launches`` is phase 3's and
-``tool_launches`` phase 5's tool path.  ``bound_ms`` is the kernel's bytes
+count (phase 2 alone); ``miss_probe_launches`` is phase 3's,
+``probe_tool_launches`` phase 5's probe runner's (its check and timed
+launches) and ``tool_launches`` phase 5's roofline and csrprof path's.  ``bound_ms`` is the kernel's bytes
 (each input read once, each output written once) over 3.35 TB/s, or for P4
 its tensor-core operations over 989 TFLOP/s where that is larger;
 ``library_ms`` the PyTorch call that computes the same function (null where
@@ -324,17 +326,22 @@ def phase5_k2b(direct, sa, dev):
 
 
 def phase5_probes(dev):
-    """P1-P9 vs their plain versions, summed over each probe's cases."""
+    """P1-P9 through the mosaic_probe runner, counts reset just before it:
+    each case equal to its plain version, results summed over each probe's
+    cases, and the runner's launch counts."""
+    from hashjoin3d_tpu_torch import kernels
     from hashjoin3d_tpu_torch.tools import mosaic_probe
 
+    kernels.reset_launch_counts()
+    runs = mosaic_probe.run(dev, "", 0.02,
+                            lambda line: print("phase 5 probe" + line))
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
     out = {}
-    for c in mosaic_probe.cases(dev):
-        r = mosaic_probe.run_case(c, min_time=0.02)
-        require(r["ok"], f"{c.probe} {c.label}: differs from its plain "
+    for r in runs:
+        require(r["ok"], f"{r['probe']} {r['label']}: differs from its plain "
                 f"version (max_abs_err {r['max_abs_err']})")
-        print(f"phase 5 {c.probe} {c.label}: OK, {r['ms']:.4f} ms vs plain "
-              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
-        acc = out.setdefault(c.probe, dict(
+        acc = out.setdefault(r["probe"], dict(
             max_abs_err=0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
             bound_by=r["bound_by"], cases={}))
         acc["max_abs_err"] = max(acc["max_abs_err"], r["max_abs_err"])
@@ -343,8 +350,12 @@ def phase5_probes(dev):
         acc["library_ms"] = (None if acc["library_ms"] is None
                              or r["library_ms"] is None
                              else acc["library_ms"] + r["library_ms"])
-        acc["cases"][c.label] = r["ms"]
-    return out
+        acc["cases"][r["label"]] = r["ms"]
+    for pid, probe in mosaic_probe.PROBES.items():
+        require(pid in out, f"{pid}: the runner has no case")
+        require(launches[probe.key] > 0,
+                f"{probe.key} not launched on the probe runner's path")
+    return out, launches
 
 
 def phase5_tools(dev):
@@ -467,7 +478,8 @@ def main() -> int:
     r = results["K2b windowed_lookup db"]
     print(f"phase 5 K2b: bit-equal to K2 and plain, {r['ms']:.4f} ms vs K2 "
           f"{r['k2_ms_same_call']:.4f} ms in the same call")
-    probe_results = phase5_probes(dev)
+    probe_results, probe_tools = phase5_probes(dev)
+    print(f"launches on the probe runner's path {probe_tools}")
     del exp, table_gpu, out_gpu, out3
     torch.cuda.empty_cache()
     tools = phase5_tools(dev)
@@ -479,7 +491,8 @@ def main() -> int:
         dict(name=name, route="cuda", source=src, replaces=rep,
              launches=after2[key],
              miss_probe_launches=after3[key] - after2[key],
-             tool_launches=tools[key], **results[name])
+             tool_launches=tools[key],
+             probe_tool_launches=probe_tools[key], **results[name])
         for name, (src, rep, key) in KERNELS.items()]
     for pid, (_, line, key) in PROBES.items():
         entries.append(dict(
@@ -488,7 +501,8 @@ def main() -> int:
             replaces=f"tools/mosaic_probe.py:{line}",
             launches=after2[key],
             miss_probe_launches=after3[key] - after2[key],
-            tool_launches=tools[key], **probe_results[pid]))
+            tool_launches=tools[key],
+            probe_tool_launches=probe_tools[key], **probe_results[pid]))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,22 +25,13 @@
 
 #include <cstdint>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int kLanes = 128;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                   : "memory");
-}
 
 // P1 / P2: out[r, j] = x[r, (j + d_r) mod 128], d_r = shifts[r] (P2) or
 // the constant d (P1).  One warp per row, staged in shared memory.
@@ -218,6 +209,7 @@ __global__ void __launch_bounds__(kThreads)
     const int4* s = reinterpret_cast<const int4*>(src + off);
     for (int i = threadIdx.x; i < piece / 4; i += kThreads)
       cp_async16(stage4 + i, s + i);
+    cp_async_commit();
     cp_async_wait_all();
     __syncthreads();
     int4* o = reinterpret_cast<int4*>(out + off);
@@ -235,6 +227,7 @@ __global__ void __launch_bounds__(kThreads)
   const int4* s = reinterpret_cast<const int4*>(src + off * kLanes);
   const int n4 = nrows * kLanes / 4;
   for (int i = threadIdx.x; i < n4; i += kThreads) cp_async16(rows4 + i, s + i);
+  cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
   int4* o = reinterpret_cast<int4*>(out);

@@ -26,8 +26,8 @@
 // before chunk j's select loop over a sequential grid.  Here a persistent
 // grid (as many blocks as fit on the SMs) gives each block a contiguous run
 // of chunks.  The block keeps the table in a ring of S words of shared
-// memory (S a power of two >= W + 1024, chosen by the Python wrapper;
-// table word p in slot p mod S) and three key slots.  While chunk j
+// memory (S the power of two >= 1.5 (W + 1024), db_ring_words; table word
+// p in slot p mod S) and three key slots.  While chunk j
 // resolves, cp.async 16-byte copies bring chunk j+2's keys and only the part
 // of chunk j+1's window that is not resident yet: consecutive chunks of a
 // sorted stream share most of their windows.  Chunk j+1's base (its key maximum) comes from its keys,
@@ -46,22 +46,19 @@
 #include <climits>
 #include <cstdint>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+// K2b's ring of table words: the power of two >= 1.5 (W + 1024), so a
+// window's base may advance by half a window without waiting.
+int db_ring_words(int W) {
+  const int R = W + 1024;
+  int S = 1024;
+  while (S < R + R / 2) S *= 2;
+  return S;
 }
 
 // chunk_bases in int32: kmax - W wraps exactly as the reference's i32 math
@@ -230,16 +227,17 @@ int hj3t_windowed_lookup(const void* table, const void* keys, void* out,
 }
 
 // K2b: as hj3t_windowed_lookup, results bit-equal; keys 16-byte aligned and
-// C a multiple of 4; S, the ring's words, a power of two >= W + 1024;
-// (S + 3 C) * 4 bytes of shared memory must fit one block.
+// C a multiple of 4; the ring and three key chunks, (S + 3 C) * 4 bytes,
+// must fit one block's shared memory (W <= 16384 at C = 1024), else
+// cudaErrorInvalidValue.
 int hj3t_windowed_lookup_db(const void* table, const void* keys, void* out,
-                            long long T, long long n, int C, int W, int S,
+                            long long T, long long n, int C, int W,
                             void* stream) {
-  if (C <= 0 || C % 4 != 0 || n % C != 0 || W < 1024 ||
-      T < (long long)W + 1024 || T % 1024 != 0 || T > INT_MAX ||
-      S < W + 1024 || (S & (S - 1)) != 0)
+  if (C <= 0 || C % 4 != 0 || n % C != 0 || W < 1024 || W > (1 << 20) ||
+      T < (long long)W + 1024 || T % 1024 != 0 || T > INT_MAX)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaGetLastError();
+  const int S = db_ring_words(W);
   int dev = 0, sms = 0, smem_max = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)

@@ -2,7 +2,8 @@
 
 Each ``csrc/*.cu`` compiles with its own ``nvcc`` call for ``sm_90a`` into
 ``_build/libhj3<source>-<hash>.so`` at first use (never at import: the CPU
-test host has no ``nvcc``); the calls run side by side, and the libraries
+test host has no ``nvcc``; the hash covers the shared ``csrc/*.cuh``
+headers too); the calls run side by side, and the libraries
 load through ``ctypes``.  Each C entry point takes its pointers and the CUDA
 stream as ``void*`` and returns ``cudaGetLastError()``; :func:`count_launch`
 raises on a non-zero code.  Kernels launch on PyTorch's current stream,
@@ -44,30 +45,40 @@ _lib = None
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _S = ctypes.c_char_p
-#: entry point -> (argument types, result type)
+#: source in ``csrc/`` -> its entry points -> (argument types, result type)
 _SIGNATURES = {
-    # scan.cu -- in0..in3, out0..out3, op0..op3, n, reverse, scratch, stream
-    "hj3t_multi_scan": ([_P] * 8 + [_I] * 4 + [_L, _I, _P, _P], _I),
-    "hj3t_scan_tile": ([], _I),
-    "hj3t_error_string": ([_I], _S),
-    # windowed.cu -- table, keys, out, T, n, C, W, (ring words,) stream
-    "hj3t_windowed_lookup": ([_P, _P, _P, _L, _L, _I, _I, _P], _I),
-    "hj3t_windowed_lookup_db": ([_P, _P, _P, _L, _L, _I, _I, _I, _P], _I),
-    # bitonic.cu -- keys, payload, out_keys, out_payload, n, log_seg,
-    # unsigned, stable, stream
-    "hj3t_bitonic_sort_segmented": ([_P, _P, _P, _P, _L, _I, _I, _I, _P], _I),
-    # keys, out_keys, out_rows, n, log_seg, key_bits, stream
-    "hj3t_bitonic_sort_packed_segmented": ([_P, _P, _P, _L, _I, _I, _P], _I),
-    # probes.cu -- arguments as in each entry point's comment there
-    "hj3t_probe_roll": ([_P, _P, _L, _I, _P], _I),
-    "hj3t_probe_rotate": ([_P, _P, _P, _L, _P], _I),
-    "hj3t_probe_cumsum": ([_P, _P, _L, _I, _I, _P], _I),
-    "hj3t_probe_onehot_matmul": ([_P, _P, _P, _L, _P], _I),
-    "hj3t_probe_permute": ([_P, _P, _P, _L, _I, _P], _I),
-    "hj3t_probe_masked_store": ([_P, _P, _I, _I, _I, _P], _I),
-    "hj3t_probe_block_copy": ([_P, _P, _L, _I, _P], _I),
-    "hj3t_probe_row_copy": ([_P, _P, _L, _L, _I, _P], _I),
-    "hj3t_probe_digit_histogram": ([_P, _P, _L, _P], _I),
+    "scan.cu": {
+        # in0..in3, out0..out3, op0..op3, n, reverse, scratch, stream
+        "hj3t_multi_scan": ([_P] * 8 + [_I] * 4 + [_L, _I, _P, _P], _I),
+        "hj3t_scan_tile": ([], _I),
+        "hj3t_error_string": ([_I], _S),
+    },
+    "windowed.cu": {
+        # table, keys, out, T, n, C, W, stream
+        "hj3t_windowed_lookup": ([_P, _P, _P, _L, _L, _I, _I, _P], _I),
+        "hj3t_windowed_lookup_db": ([_P, _P, _P, _L, _L, _I, _I, _P], _I),
+    },
+    "bitonic.cu": {
+        # keys, payload, out_keys, out_payload, n, log_seg, unsigned,
+        # stable, stream
+        "hj3t_bitonic_sort_segmented":
+            ([_P, _P, _P, _P, _L, _I, _I, _I, _P], _I),
+        # keys, out_keys, out_rows, n, log_seg, key_bits, stream
+        "hj3t_bitonic_sort_packed_segmented":
+            ([_P, _P, _P, _L, _I, _I, _P], _I),
+    },
+    "probes.cu": {
+        # arguments as in each entry point's comment there
+        "hj3t_probe_roll": ([_P, _P, _L, _I, _P], _I),
+        "hj3t_probe_rotate": ([_P, _P, _P, _L, _P], _I),
+        "hj3t_probe_cumsum": ([_P, _P, _L, _I, _I, _P], _I),
+        "hj3t_probe_onehot_matmul": ([_P, _P, _P, _L, _P], _I),
+        "hj3t_probe_permute": ([_P, _P, _P, _L, _I, _P], _I),
+        "hj3t_probe_masked_store": ([_P, _P, _I, _I, _I, _P], _I),
+        "hj3t_probe_block_copy": ([_P, _P, _L, _I, _P], _I),
+        "hj3t_probe_row_copy": ([_P, _P, _L, _L, _I, _P], _I),
+        "hj3t_probe_digit_histogram": ([_P, _P, _L, _P], _I),
+    },
 }
 
 
@@ -90,21 +101,19 @@ def lib() -> types.SimpleNamespace:
     global _lib
     if _lib is None:
         cmd = [nvcc(), *NVCC_FLAGS]
-        sources = sorted(CSRC.glob("*.cu"))
-        with ThreadPoolExecutor(len(sources)) as pool:
-            built = list(pool.map(
-                lambda src: build_library(cmd, [src], f"hj3{src.stem}"),
-                sources))
-        handles = [ctypes.CDLL(str(so)) for so in built]
+        headers = sorted(CSRC.glob("*.cuh"))
+        with ThreadPoolExecutor(len(_SIGNATURES)) as pool:
+            built = pool.map(
+                lambda src: build_library(cmd, [CSRC / src],
+                                          f"hj3{Path(src).stem}", headers),
+                _SIGNATURES)
         ns = types.SimpleNamespace()
-        for name, (argtypes, restype) in _SIGNATURES.items():
-            found = [h for h in handles if hasattr(h, name)]
-            if len(found) != 1:
-                raise RuntimeError(f"{name}: defined in {len(found)} of the "
-                                   f"kernel libraries, expected 1")
-            fn = getattr(found[0], name)
-            fn.argtypes, fn.restype = argtypes, restype
-            setattr(ns, name, fn)
+        for so, entries in zip(built, _SIGNATURES.values()):
+            handle = ctypes.CDLL(str(so))
+            for name, (argtypes, restype) in entries.items():
+                fn = getattr(handle, name)
+                fn.argtypes, fn.restype = argtypes, restype
+                setattr(ns, name, fn)
         _lib = ns
     return _lib
 

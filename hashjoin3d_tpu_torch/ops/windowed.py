@@ -21,22 +21,9 @@ from .layout import I32, I64
 
 DEFAULT_C = 1024
 DEFAULT_W = 1024
-#: shared memory one CUDA block may use (H100: 227 KB)
-SMEM_PER_BLOCK = 232448
-
-
-def db_ring_words(W: int) -> int:
-    """K2b's ring of table words: the power of two >= 1.5 (W + 1024), so
-    a window's base may advance by half a window without waiting."""
-    R, S = W + 1024, 1024
-    while S < R + R // 2:
-        S *= 2
-    return S
-
-
-def db_smem_bytes(C: int, W: int) -> int:
-    """Shared memory of one K2b block: the ring and three key slots."""
-    return (db_ring_words(W) + 3 * C) * 4
+#: K2b's largest window: its ring of table words must fit one block's
+#: 227 KB of shared memory (``csrc/windowed.cu`` sizes and checks it)
+DB_MAX_W = 16384
 
 
 def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
@@ -65,11 +52,9 @@ def _check(table: torch.Tensor, keys: torch.Tensor, C: int, W: int,
     if T < W + 1024 or T % 1024:
         raise ValueError(f"table size {T} must be a multiple of 1024 and "
                          f">= W + 1024")
-    if db and db_smem_bytes(C, W) > SMEM_PER_BLOCK:
-        raise ValueError(f"db=True: the window ring and three key chunks "
-                         f"({db_smem_bytes(C, W)} B at C={C}, W={W}) exceed "
-                         f"{SMEM_PER_BLOCK} B of shared memory (W <= 16384 "
-                         f"at C = 1024)")
+    if db and W > DB_MAX_W:
+        raise ValueError(f"db=True: W = {W} > {DB_MAX_W}, the window ring "
+                         f"would not fit one block's shared memory")
 
 
 def windowed_lookup(table: torch.Tensor, keys_sorted: torch.Tensor,
@@ -82,7 +67,7 @@ def windowed_lookup(table: torch.Tensor, keys_sorted: torch.Tensor,
     are fine).  Coverage of in-range keys is the caller's to check
     (:func:`windowed_coverage_ok`, ``strands_windowed.safe_lookup``).
     ``db=True`` launches K2b, which overlaps the next chunk's window load
-    with this chunk's lookups (same results; W <= 16384 at C = 1024).
+    with this chunk's lookups (same results; W <= 16384).
     """
     _check(table, keys_sorted, C, W, db)
     if table.device.type == "cpu" and keys_sorted.device.type == "cpu":
@@ -96,10 +81,8 @@ def windowed_lookup(table: torch.Tensor, keys_sorted: torch.Tensor,
     args = (kernels.ptr(table), kernels.ptr(keys_sorted), kernels.ptr(out),
             table.shape[0], keys_sorted.shape[0], C, W)
     lib = kernels.lib()
-    rc = (lib.hj3t_windowed_lookup_db(*args, db_ring_words(W),
-                                      kernels.stream(table.device)) if db
-          else lib.hj3t_windowed_lookup(*args, kernels.stream(table.device)))
-    kernels.count_launch(rc, name)
+    entry = lib.hj3t_windowed_lookup_db if db else lib.hj3t_windowed_lookup
+    kernels.count_launch(entry(*args, kernels.stream(table.device)), name)
     return out
 
 

@@ -89,7 +89,10 @@ def cases(dev, shrink: int = 0) -> list[Case]:
         *[Case("P3", f"cumsum axis={ax}",
                lambda ax=ax: probes.cumsum(vals, ax, block),
                lambda ax=ax: probes.cumsum_plain(vals, ax, block), n, (vals,),
-               library=lambda ax=ax: probes.cumsum_plain(vals, ax, block),
+               library=lambda ax=ax: (
+                   torch.cumsum(vals, 1, dtype=torch.int32) if ax == 1
+                   else torch.cumsum(vals.view(-1, block, 128), 1,
+                                     dtype=torch.int32).view(vals.shape)),
                library_name="torch.cumsum")
           for ax in (1, 0)],
         Case("P4", "bf16 byte planes (rows,128)@(128,128) one-hot",
@@ -154,6 +157,25 @@ def run_case(c: Case, min_time: float) -> dict:
                 bound_by=bound_by)
 
 
+def run(dev, k: str, min_time: float, log) -> list[dict]:
+    """Every case whose probe id or title contains ``k``: :func:`run_case`,
+    one line to ``log`` each; the results in order."""
+    results = []
+    for c in cases(dev):
+        title = PROBES[c.probe].title
+        if k and k not in c.probe and k not in title:
+            continue
+        r = run_case(c, min_time)
+        lib = (f"{r['library_name']} {r['library_ms']:.4f} ms"
+               if r["library_ms"] is not None else "no single call")
+        log(f"  {c.probe} {c.label:44s} {'OK   ' if r['ok'] else 'WRONG'} "
+            f"{r['ms']:9.4f} ms  {r['ns_per_elem']:8.4f} ns/elem  "
+            f"plain {r['plain_ms']:.4f} ms  {lib}  bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+        results.append(r)
+    return results
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("-k", default="", help="substring filter")
@@ -161,20 +183,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     dev = require_cuda()
     print(f"card: {card()}", flush=True)
-    wrong = 0
-    for c in cases(dev):
-        title = PROBES[c.probe].title
-        if args.k and args.k not in c.probe and args.k not in title:
-            continue
-        r = run_case(c, args.min_time)
-        wrong += not r["ok"]
-        lib = (f"{r['library_name']} {r['library_ms']:.4f} ms"
-               if r["library_ms"] is not None else "no single call")
-        print(f"  {c.probe} {c.label:44s} {'OK   ' if r['ok'] else 'WRONG'} "
-              f"{r['ms']:9.4f} ms  {r['ns_per_elem']:8.4f} ns/elem  "
-              f"plain {r['plain_ms']:.4f} ms  {lib}  bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
-    return 1 if wrong else 0
+    results = run(dev, args.k, args.min_time,
+                  lambda line: print(line, flush=True))
+    return 0 if all(r["ok"] for r in results) else 1
 
 
 if __name__ == "__main__":

@@ -11,6 +11,7 @@ network's for the unstable forms).  The CUDA kernels themselves need the
 card: ``chip_smoke.py`` holds each against these plain versions there.
 """
 
+import re
 import unittest.mock as mock
 
 import numpy as np
@@ -258,3 +259,21 @@ def test_wrappers_launch_or_raise_off_the_cpu(call):
     x = torch.empty(2048, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel for device meta"):
         call(x)
+
+
+def test_every_kernel_source_is_bound_with_its_arity():
+    """``kernels._SIGNATURES`` names each ``csrc/*.cu`` once, and every
+    entry point it types is defined there with as many parameters."""
+    from hashjoin3d_tpu_torch import kernels
+
+    assert set(kernels._SIGNATURES) == {p.name for p in
+                                        kernels.CSRC.glob("*.cu")}
+    for src, entries in kernels._SIGNATURES.items():
+        text = (kernels.CSRC / src).read_text()
+        for name, (argtypes, _) in entries.items():
+            m = re.search(rf"^(?:const )?\w+\*? {name}\(([^)]*)\)", text,
+                          re.M)
+            assert m, f"{name} is not defined in {src}"
+            params = [p for p in m.group(1).split(",")
+                      if p.strip() not in ("", "void")]
+            assert len(params) == len(argtypes), name
