@@ -12,9 +12,13 @@ probe 2^24 foreign keys).  Phases, any failure exits non-zero:
 
 0. the card and its power limit (``nvidia-smi``), the kernel build time;
 1. each kernel against its plain PyTorch version on the same CUDA tensors at
-   the main-path shapes: K2 and K3 bit-equal; K1 and K4 with keys equal and
-   each segment's row ids a permutation that carries its own key; then K1
-   and K4 at other segment sizes (256 .. 2^15) and key widths;
+   the main-path shapes, bit-equal: K2, K3, and the radix sorts K1 (keys and
+   rows) and K4 (1-op, take_min with an ascending payload, stable with a
+   shuffled payload); then K1 and K4 at other segment sizes (256 .. 8192 on
+   the one-block path, 2^14 and 2^15 on the multi-tile path) and key
+   widths, bit-equal except take_min with a shuffled payload, whose
+   equal-key payload order is free (keys equal, each segment's payload a
+   permutation that carries its own key);
 2. ``Experiment1(20, 24, Csr, device="cuda")``: its CSV c_* and ht_* columns
    equal the reference's Csr row (``artifacts/r5/e1_t0c.csv``),
    ``route_worst`` is 0, the result pairs equal (as a multiset) those of the
@@ -65,7 +69,7 @@ SEGMENT, WINDOW, KEY_BITS = 1 << 18, 8192, 20
 #: name -> (source, TPU kernel it replaces, launch-count key)
 KERNELS = {
     "K1 bitonic_sort_packed_segmented": (
-        "hashjoin3d_tpu_torch/csrc/bitonic.cu",
+        "hashjoin3d_tpu_torch/csrc/radix.cu",
         "hashjoin3d_tpu/ops/bitonic.py:290", "bitonic_sort_packed_segmented"),
     "K2 windowed_lookup": (
         "hashjoin3d_tpu_torch/csrc/windowed.cu",
@@ -74,7 +78,7 @@ KERNELS = {
         "hashjoin3d_tpu_torch/csrc/scan.cu",
         "hashjoin3d_tpu/ops/scan.py:224", "multi_scan"),
     "K4 bitonic_sort_segmented": (
-        "hashjoin3d_tpu_torch/csrc/bitonic.cu",
+        "hashjoin3d_tpu_torch/csrc/radix.cu",
         "hashjoin3d_tpu/ops/bitonic.py:247", "bitonic_sort_segmented"),
     "K2b windowed_lookup db": (
         "hashjoin3d_tpu_torch/csrc/windowed.cu",
@@ -134,40 +138,58 @@ def check_segment_rows(keys_in, sk, rows, chunk, what):
             f"{what}: a row id does not carry its key")
 
 
+def same(got, want) -> bool:
+    return all(torch.equal(g, w) for g, w in zip(got, want))
+
+
 def check_sort_shapes(dev):
     """K1 and K4 at other segment sizes and key widths than the main path's
-    (2^16 keys): keys equal to the plain sort; stable 2-op bit-equal;
-    take_min rows a per-segment permutation carrying their keys."""
+    (2^16 keys; 256 .. 8192 take the one-block path, 2^14 and 2^15 the
+    multi-tile passes): bit-equal to the plain sort, except take_min with a
+    shuffled payload (keys equal, rows a per-segment permutation carrying
+    their keys)."""
     from hashjoin3d_tpu_torch.ops import bitonic
     from hashjoin3d_tpu_torch.ops.layout import I32
 
     gen = torch.Generator(device=dev).manual_seed(1)
     n = 1 << 16
-    for chunk in (256, 2048, 1 << 13, 1 << 15):
+    for chunk in (256, 2048, 1 << 13, 1 << 14, 1 << 15):
+        K = n // chunk
         lid = torch.arange(n, dtype=I32, device=dev) % chunk
+        shuffled = torch.argsort(torch.rand((K, chunk), generator=gen,
+                                            device=dev), dim=1).to(I32)
+        shuffled = shuffled.view(-1)
         keys = torch.randint(-2**31, 2**31 - 1, (n,), generator=gen,
                              device=dev, dtype=I32) >> 20  # heavy ties
         (g1,) = bitonic.bitonic_sort_segmented(keys, chunk, unsigned=False)
         (w1,) = bitonic.plain_sort_segmented(keys, chunk, unsigned=False)
         require(torch.equal(g1, w1), f"K4 1-op signed, chunk {chunk}")
-        got = bitonic.bitonic_sort_segmented(keys, chunk, payload=lid)
-        want = bitonic.plain_sort_segmented(keys, chunk, lid)
-        require(all(torch.equal(g, w) for g, w in zip(got, want)),
-                f"K4 2-op stable u32, chunk {chunk}")
-        gk, gr = bitonic.bitonic_sort_segmented(keys, chunk, payload=lid,
-                                                unsigned=False, stable=False)
-        require(torch.equal(gk, bitonic.plain_sort_segmented(
-            keys, chunk, lid, unsigned=False)[0]),
+        for pay, what in ((lid, "ascending"), (shuffled, "shuffled")):
+            got = bitonic.bitonic_sort_segmented(keys, chunk, payload=pay)
+            require(same(got, bitonic.plain_sort_segmented(keys, chunk, pay)),
+                    f"K4 2-op stable u32, {what} payload, chunk {chunk}")
+        got = bitonic.bitonic_sort_segmented(keys, chunk, payload=lid,
+                                             unsigned=False, stable=False)
+        require(same(got, bitonic.plain_sort_segmented(
+            keys, chunk, lid, unsigned=False)),
             f"K4 2-op take_min i32, chunk {chunk}")
-        check_segment_rows(keys, gk, gr, chunk, f"K4 take_min {chunk}")
+        gk, gr = bitonic.bitonic_sort_segmented(keys, chunk, payload=shuffled,
+                                                stable=False)
+        require(torch.equal(gk, bitonic.plain_sort_segmented(keys, chunk)[0]),
+                f"K4 2-op take_min u32, shuffled payload, chunk {chunk}")
+        by_payload = torch.empty_like(keys)  # each segment's keys by payload
+        seg_base = torch.arange(n, device=dev) // chunk * chunk
+        by_payload[shuffled + seg_base] = keys
+        check_segment_rows(by_payload, gk, gr, chunk, f"K4 take_min {chunk}")
+        flat = torch.full_like(keys, 7)  # every digit constant: no live pass
+        require(same(bitonic.bitonic_sort_segmented(
+            flat, chunk, payload=lid, stable=False), (flat, lid)),
+            f"K4 constant keys, chunk {chunk}")
         for key_bits in (8, 20, 31):
             small = keys & ((1 << key_bits) - 1)
-            sk, rows = bitonic.bitonic_sort_packed_segmented(small, chunk,
-                                                             key_bits)
-            require(torch.equal(sk, bitonic.plain_sort_segmented(
-                small, chunk, lid)[0]), f"K1 chunk {chunk} bits {key_bits}")
-            check_segment_rows(small, sk, rows, chunk,
-                               f"K1 chunk {chunk} bits {key_bits}")
+            require(same(bitonic.bitonic_sort_packed_segmented(
+                small, chunk, key_bits), bitonic.plain_sort_segmented(
+                    small, chunk, lid)), f"K1 chunk {chunk} bits {key_bits}")
 
 
 def phase1_kernels(rk, sa, ops):
@@ -181,12 +203,12 @@ def phase1_kernels(rk, sa, ops):
     # K1: the probe sort of S.a (2^24 keys < 2^20, 2^18 segments)
     sk, rows = bitonic.bitonic_sort_packed_segmented(sa, SEGMENT, KEY_BITS)
     lid = torch.arange(sa.shape[0], dtype=I32, device=dev) % SEGMENT
-    psk, _ = bitonic.plain_sort_segmented(sa, SEGMENT, lid)
+    psk, prows = bitonic.plain_sort_segmented(sa, SEGMENT, lid)
     require(torch.equal(sk, psk), "K1: keys differ from the plain sort")
-    check_segment_rows(sa, sk, rows, SEGMENT, "K1")
+    require(torch.equal(rows, prows), "K1: rows differ from the plain sort")
     K = sa.shape[0] // SEGMENT
     results["K1 bitonic_sort_packed_segmented"] = dict(
-        max_abs_err=max_abs_err(sk, psk),
+        max_abs_err=max(max_abs_err(sk, psk), max_abs_err(rows, prows)),
         ms=cuda_ms(lambda: bitonic.bitonic_sort_packed_segmented(
             sa, SEGMENT, KEY_BITS)),
         plain_ms=cuda_ms(lambda: bitonic.plain_sort_segmented(
@@ -246,15 +268,25 @@ def phase1_kernels(rk, sa, ops):
     (want1,) = bitonic.plain_sort_segmented(bucket_ids, SEGMENT,
                                             unsigned=False)
     require(torch.equal(got1, want1), "K4 1-op: differs from the plain sort")
-    # K4 (b) 2-op u32, take_min ties: probe keys past the packed domain
+    # K4 (b) 2-op u32, take_min ties: probe keys past the packed domain,
+    # the ascending row ids as payload (input order on ties = the plain
+    # sort's order)
     wide = ops["wide_keys"]
     gk, gr = bitonic.bitonic_sort_segmented(wide, SEGMENT, payload=lid,
                                             stable=False)
-    wk, _ = bitonic.plain_sort_segmented(wide, SEGMENT, lid)
+    wk, wr = bitonic.plain_sort_segmented(wide, SEGMENT, lid)
     require(torch.equal(gk, wk), "K4 2-op: keys differ from the plain sort")
-    check_segment_rows(wide, gk, gr, SEGMENT, "K4 2-op")
+    require(torch.equal(gr, wr), "K4 2-op: rows differ from the plain sort")
+    # K4 (c) 2-op u32 stable, a shuffled payload: lexicographic
+    pay = torch.randint(-2**31, 2**31 - 1, wide.shape, generator=gen,
+                        device=dev, dtype=I32) >> 16
+    got = bitonic.bitonic_sort_segmented(wide, SEGMENT, payload=pay)
+    want = bitonic.plain_sort_segmented(wide, SEGMENT, pay)
+    require(same(got, want), "K4 2-op stable: differs from the plain sort")
     results["K4 bitonic_sort_segmented"] = dict(
-        max_abs_err=max(max_abs_err(got1, want1), max_abs_err(gk, wk)),
+        max_abs_err=max(max_abs_err(got1, want1), max_abs_err(gk, wk),
+                        max_abs_err(gr, wr),
+                        *(max_abs_err(g, w) for g, w in zip(got, want))),
         ms=cuda_ms(lambda: bitonic.bitonic_sort_segmented(
             wide, SEGMENT, payload=lid, stable=False)),
         plain_ms=cuda_ms(lambda: bitonic.plain_sort_segmented(

@@ -9,7 +9,7 @@ stream as ``void*`` and returns ``cudaGetLastError()``; :func:`count_launch`
 raises on a non-zero code.  Kernels launch on PyTorch's current stream,
 never synchronise and allocate nothing: the Python wrappers (``ops/scan.py``,
 ``ops/windowed.py``, ``ops/bitonic.py``, ``ops/probes.py``) allocate outputs
-and scratch with ``torch.empty``.
+and scratch with ``torch.empty`` or ``torch.zeros``.
 
 ``LAUNCHES`` counts, per wrapper, the calls that launched its kernel; a run
 resets it with :func:`reset_launch_counts` to show which kernels a path went
@@ -58,14 +58,11 @@ _SIGNATURES = {
         "hj3t_windowed_lookup": ([_P, _P, _P, _L, _L, _I, _I, _P], _I),
         "hj3t_windowed_lookup_db": ([_P, _P, _P, _L, _L, _I, _I, _P], _I),
     },
-    "bitonic.cu": {
-        # keys, payload, out_keys, out_payload, n, log_seg, unsigned,
-        # stable, stream
-        "hj3t_bitonic_sort_segmented":
-            ([_P, _P, _P, _P, _L, _I, _I, _I, _P], _I),
-        # keys, out_keys, out_rows, n, log_seg, key_bits, stream
-        "hj3t_bitonic_sort_packed_segmented":
-            ([_P, _P, _P, _L, _I, _I, _P], _I),
+    "radix.cu": {
+        # keys, payload, out_keys, out_payload, tmp_keys, tmp_payload,
+        # counts, segtot, ors, plan (host int32 words), n, log_seg,
+        # rows_from_pos, stream
+        "hj3t_radix_sort_segmented": ([_P] * 10 + [_L, _I, _I, _P], _I),
     },
     "probes.cu": {
         # arguments as in each entry point's comment there

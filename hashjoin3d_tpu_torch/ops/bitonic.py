@@ -1,30 +1,136 @@
 """Segmented sorts of int32 columns (kernels K1 and K4).
 
-Port of ``hashjoin3d_tpu/ops/bitonic.py``:
+Port of ``hashjoin3d_tpu/ops/bitonic.py``; the names stay the JAX
+package's, the kernels behind them are a segmented LSD radix sort
+(``csrc/radix.cu``) and no longer a bitonic network:
 
 * :func:`bitonic_sort_segmented` (K4): sort every ``chunk``-sized segment
   ascending, 1-op or with an int32 payload; keys compare as u32
   (``unsigned=True``) or int32.  ``stable=True`` orders lexicographically by
-  (key, payload); ``stable=False`` leaves the payload order of equal keys to
-  the network (each payload still travels with its key).
+  (key, payload); ``stable=False`` sorts on the key alone (each payload still
+  travels with its key; the kernel keeps equal keys in input order).
 * :func:`bitonic_sort_packed_segmented` (K1): sorted keys and segment-local
-  row ids for keys below ``2^key_bits``; equal-key row order unspecified.
+  row ids for keys below ``2^key_bits``, in (key, row) order.
 
-On CUDA tensors both launch ``csrc/bitonic.cu``; on CPU tensors they run
-:func:`plain_sort_segmented`, a per-segment ``torch.sort`` that is
-lexicographic by (key, payload) -- a valid result for every tie rule.
+:func:`radix_plan` computes the kernels' passes: digit widths, bit offsets,
+the column each digit comes from, the ping-pong and the scratch sizes.  On
+CUDA tensors both wrappers launch ``csrc/radix.cu`` with that plan; on CPU
+tensors they run :func:`plain_sort_segmented`, a per-segment ``torch.sort``
+that is lexicographic by (key, payload) -- a valid result for every tie
+rule.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 
 from .. import kernels
 from .layout import I32, I64, SIGN
 
-#: Largest segment the bitonic kernels take (the TPU kernel's cap, kept so
+#: Largest segment the segmented kernels take (the TPU kernel's cap, kept so
 #: the probe strands choose the same segment and window sizes).
 MAX_SEGMENT_BITONIC = 1 << 18
+
+#: Elements of one tile of a multi-tile pass (256 threads x 16) and the
+#: largest segment one block sorts whole in shared memory (512 threads x 16).
+RADIX_TILE = 4096
+RADIX_ONE_BLOCK_MAX = 8192
+#: Widest digit: 8 bits (K4: four digits; K1 at 20 bits: 7 + 7 + 6).  The
+#: kernels take up to 10 (1024 bins); three 7-bit digits measured faster for
+#: K1 than two 10-bit ones on the H100 (PERF.md).
+RADIX_MAX_BITS = 8
+RADIX_MAX_BITS_KERNEL = 10
+RADIX_MAX_PASSES = 8
+
+
+class RadixPass(NamedTuple):
+    column: int   #: 0 the keys, 1 the payload
+    shift: int    #: the digit's lowest bit
+    bits: int     #: the digit's width
+    dest: str     #: "out", "scratch" (multi-tile ping-pong) or "shared"
+
+
+class RadixPlan(NamedTuple):
+    """The passes of one radix sort, least significant digit first."""
+    passes: tuple
+    flips: tuple      #: xor before taking digits: (keys, payload)
+    chunk: int
+    nops: int         #: columns moved: 1 (keys) or 2 (keys, payload/rows)
+
+    @property
+    def one_block(self) -> bool:
+        return self.chunk <= RADIX_ONE_BLOCK_MAX
+
+    def words(self) -> list[int]:
+        """The plan as the kernel's int32 words: npass, the two flips, then
+        (column, shift, bits) per pass."""
+        return [len(self.passes), *self.flips,
+                *(w for p in self.passes for w in p[:3])]
+
+    def scratch_words(self, n: int) -> dict:
+        """int32 words of each scratch buffer for ``n`` keys (0: unused).
+        The multi-tile path ping-pongs through ``tmp_keys`` (and
+        ``tmp_payload``), keeps per-tile digit counts and per-segment bin
+        totals, and ORs the columns into ``ors`` (zeroed)."""
+        if self.one_block:
+            return dict(tmp_keys=0, tmp_payload=0, counts=0, segtot=0,
+                        ors=0)
+        bins = 1 << max(p.bits for p in self.passes)
+        return dict(tmp_keys=n, tmp_payload=n if self.nops == 2 else 0,
+                    counts=n // RADIX_TILE * bins,
+                    segtot=n // self.chunk * bins, ors=4)
+
+
+def _digits(column: int, bits: int, max_bits: int) -> list:
+    """``bits`` low bits of a column in as few digits as ``max_bits``
+    allows, widths as even as possible (8-bit cap: 20 -> 7 + 7 + 6,
+    32 -> 4 x 8)."""
+    npass = -(-bits // max_bits)
+    base, extra = divmod(bits, npass)
+    out, shift = [], 0
+    for i in range(npass):
+        w = base + (i < extra)
+        out.append((column, shift, w))
+        shift += w
+    return out
+
+
+def radix_plan(key_bits: int, chunk: int, nops: int, stable: bool,
+               unsigned: bool = True,
+               max_bits: int | None = None) -> RadixPlan:
+    """Pass plan of a segmented LSD radix sort of ``key_bits``-bit keys in
+    ``chunk`` segments, moving ``nops`` columns.
+
+    ``stable`` (2-op): the payload's 32 bits (as int32) are sorted first,
+    then the key's, so the result is lexicographic by (key, payload).
+    Otherwise only key digits run; a stable LSD sort keeps equal keys in
+    input order, so K1's rows, which ascend on input, come out in (key, row)
+    order.  Signed keys and payloads flip the sign bit before their digits
+    are taken.  On the multi-tile path pass ``i`` of ``npass`` writes the
+    output when ``npass - 1 - i`` is even, else the scratch, so the last
+    pass ends in the output; the kernel skips a pass whose digit is the
+    same for every key and counts the ping-pong over the passes that run.
+    """
+    max_bits = max_bits or RADIX_MAX_BITS
+    if not 1 <= max_bits <= RADIX_MAX_BITS_KERNEL:
+        raise ValueError(f"digits of {max_bits} bits: the kernels take 1 to "
+                         f"{RADIX_MAX_BITS_KERNEL}")
+    if not 1 <= key_bits <= 32 or nops not in (1, 2):
+        raise ValueError(f"key_bits {key_bits} / nops {nops} out of range")
+    digits = _digits(1, 32, max_bits) if nops == 2 and stable else []
+    digits += _digits(0, key_bits, max_bits)
+    if len(digits) > RADIX_MAX_PASSES:
+        raise ValueError(f"{len(digits)} passes exceed {RADIX_MAX_PASSES}")
+    one_block = chunk <= RADIX_ONE_BLOCK_MAX
+    npass = len(digits)
+    passes = tuple(
+        RadixPass(c, s, b, "shared" if one_block else
+                  "out" if (npass - 1 - i) % 2 == 0 else "scratch")
+        for i, (c, s, b) in enumerate(digits))
+    return RadixPlan(passes, (0 if unsigned else SIGN, SIGN), chunk, nops)
 
 
 def _check(keys: torch.Tensor, chunk: int, payload=None):
@@ -58,34 +164,56 @@ def plain_sort_segmented(keys: torch.Tensor, chunk: int,
     return (sk ^ SIGN if unsigned else sk, sv)
 
 
+def _radix(name: str, plan: RadixPlan, keys: torch.Tensor,
+           payload: torch.Tensor | None, rows_from_pos: bool):
+    """Allocate the outputs and the plan's scratch, launch ``csrc/radix.cu``
+    and count the launch under ``name``."""
+    n, dev = keys.shape[0], keys.device
+    out_k = torch.empty_like(keys)
+    out_v = torch.empty_like(keys) if plan.nops == 2 else None
+    # held here until the launch is queued: a buffer dropped earlier goes
+    # back to the allocator, which may hand its memory to the next one
+    scratch = [None if not words else
+               (torch.zeros if key == "ors" else torch.empty)(
+                   words, dtype=I32, device=dev)
+               for key, words in plan.scratch_words(n).items()]
+    words = plan.words()
+    c_words = (ctypes.c_int * len(words))(*words)
+    rc = kernels.lib().hj3t_radix_sort_segmented(
+        kernels.ptr(keys), kernels.ptr(payload), kernels.ptr(out_k),
+        kernels.ptr(out_v), *map(kernels.ptr, scratch),
+        ctypes.cast(c_words, ctypes.c_void_p), n,
+        plan.chunk.bit_length() - 1, int(rows_from_pos),
+        kernels.stream(dev))
+    kernels.count_launch(rc, name)
+    return (out_k,) if out_v is None else (out_k, out_v)
+
+
 def bitonic_sort_segmented(keys: torch.Tensor, chunk: int,
                            payload: torch.Tensor | None = None,
                            unsigned: bool = True, stable: bool = True):
     """Sort ``chunk``-sized segments ascending; returns ``(sorted_keys,)``
-    or ``(sorted_keys, sorted_payload)``."""
+    or ``(sorted_keys, sorted_payload)``.  On CUDA: four 8-bit key digits,
+    after four payload digits when ``stable``."""
     _check(keys, chunk, payload)
     if keys.device.type == "cpu" and (payload is None
                                       or payload.device.type == "cpu"):
         return plain_sort_segmented(keys, chunk, payload, unsigned)
     ops = (keys,) if payload is None else (keys, payload)
     kernels.require_cuda("bitonic_sort_segmented", *ops)
-    out_k = torch.empty_like(keys)
-    out_v = None if payload is None else torch.empty_like(payload)
-    rc = kernels.lib().hj3t_bitonic_sort_segmented(
-        kernels.ptr(keys), kernels.ptr(payload), kernels.ptr(out_k),
-        kernels.ptr(out_v), keys.shape[0], chunk.bit_length() - 1,
-        int(unsigned), int(stable), kernels.stream(keys.device))
-    kernels.count_launch(rc, "bitonic_sort_segmented")
-    return (out_k,) if payload is None else (out_k, out_v)
+    plan = radix_plan(32, chunk, len(ops), stable, unsigned)
+    return _radix("bitonic_sort_segmented", plan, keys, payload, False)
 
 
 def bitonic_sort_packed_segmented(keys: torch.Tensor, chunk: int,
                                   key_bits: int):
-    """(sorted u32 keys, segment-local row ids) per ``chunk`` segment.
+    """(sorted u32 keys, segment-local row ids) per ``chunk`` segment, in
+    (key, row) order.
 
     REQUIRES every key below ``2^key_bits`` (the caller routes wider streams
-    to :func:`bitonic_sort_segmented`); the kernel packs the first
-    ``min(32 - key_bits, log2 chunk, 13)`` levels into one word.
+    to :func:`bitonic_sort_segmented`): the kernel sorts the low
+    ``key_bits`` bits only, in ``ceil(key_bits / RADIX_MAX_BITS)`` digit
+    passes, and makes the row ids from positions in its first pass.
     """
     _check(keys, chunk)
     if not 1 <= key_bits <= 31:
@@ -94,11 +222,5 @@ def bitonic_sort_packed_segmented(keys: torch.Tensor, chunk: int,
         lid = torch.arange(keys.shape[0], dtype=I32) % chunk
         return plain_sort_segmented(keys, chunk, lid, unsigned=True)
     kernels.require_cuda("bitonic_sort_packed_segmented", keys)
-    out_k = torch.empty_like(keys)
-    out_r = torch.empty_like(keys)
-    rc = kernels.lib().hj3t_bitonic_sort_packed_segmented(
-        kernels.ptr(keys), kernels.ptr(out_k), kernels.ptr(out_r),
-        keys.shape[0], chunk.bit_length() - 1, key_bits,
-        kernels.stream(keys.device))
-    kernels.count_launch(rc, "bitonic_sort_packed_segmented")
-    return out_k, out_r
+    plan = radix_plan(key_bits, chunk, 2, False)
+    return _radix("bitonic_sort_packed_segmented", plan, keys, None, True)

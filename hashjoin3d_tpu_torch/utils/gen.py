@@ -1,10 +1,11 @@
 """Experiment-1 inputs from the reference-exact native generator.
 
-The generator is ``hashjoin3d_tpu/native/hj3gen.cpp``: it calls the same
-libstdc++ facilities as the reference binaries in the same order, so streams
-are bit-identical to theirs.  It is compiled from that source with ``g++``
-into ``hashjoin3d_tpu_torch/_build/`` at first use and loaded with
-``ctypes``; nothing of the JAX package is imported.
+The generator is ``hashjoin3d_tpu_torch/native/hj3gen.cpp``, the port's own
+byte-equal copy of the JAX package's ``native/hj3gen.cpp``: it calls the
+same libstdc++ facilities as the reference binaries in the same order, so
+streams are bit-identical to theirs.  It is compiled from that source with
+``g++`` into ``hashjoin3d_tpu_torch/_build/`` at first use and loaded with
+``ctypes``; nothing of the JAX package is imported or read.
 """
 
 from __future__ import annotations
@@ -16,8 +17,7 @@ import numpy as np
 
 from .._native import build_library
 
-GEN_SOURCE = (Path(__file__).resolve().parents[2] / "hashjoin3d_tpu"
-              / "native" / "hj3gen.cpp")
+GEN_SOURCE = Path(__file__).resolve().parents[1] / "native" / "hj3gen.cpp"
 
 _lib = None
 

@@ -4,8 +4,9 @@ against the JAX package's Pallas kernels run in interpret mode.
 K3 ``multi_scan``, K2 ``windowed_lookup`` and K2b (``db=True``; +
 ``chunk_bases`` and ``safe_lookup``'s routes), K4 ``bitonic_sort_segmented``
 and K1
-``bitonic_sort_packed_segmented``.  Inputs are seeded numpy; results must be
-exact: scans and lookups bit-equal, sorts with keys bit-equal and each
+``bitonic_sort_packed_segmented``, and the radix sorts' pass plan
+(``radix_plan``) run with torch ops.  Inputs are seeded numpy; results must
+be exact: scans and lookups bit-equal, sorts with keys bit-equal and each
 segment's (key, payload) multiset equal (equal-key payload order is the
 network's for the unstable forms).  The CUDA kernels themselves need the
 card: ``chip_smoke.py`` holds each against these plain versions there.
@@ -32,8 +33,9 @@ from hashjoin3d_tpu.ops.windowed import windowed_lookup as jax_windowed_lookup
 from hashjoin3d_tpu_torch.ops import probes
 from hashjoin3d_tpu_torch.ops import strands_windowed as tw
 from hashjoin3d_tpu_torch.ops.bitonic import (bitonic_sort_packed_segmented,
-                                              bitonic_sort_segmented)
-from hashjoin3d_tpu_torch.ops.layout import from_numpy_u32
+                                              bitonic_sort_segmented,
+                                              radix_plan)
+from hashjoin3d_tpu_torch.ops.layout import SIGN, from_numpy_u32
 from hashjoin3d_tpu_torch.ops.scan import multi_scan
 from hashjoin3d_tpu_torch.ops.windowed import (chunk_bases, windowed_lookup,
                                                windowed_coverage_ok)
@@ -218,6 +220,139 @@ def test_bitonic_sort_segmented_plain_matches_jax_kernel(form):
         assert np.array_equal(got[1].numpy(), np.asarray(want[1]))
     else:
         _same_segments(got, want, chunk)
+
+
+def run_radix_plan(plan, keys, payload):
+    """The radix plan with torch ops: per pass, in the plan's order, one
+    stable sort of every segment by the pass's digit.  A pass whose digit is
+    the same for every key is skipped, as the kernels skip it."""
+    cols = [torch.from_numpy(keys.view(np.int32)).to(torch.int64),
+            torch.from_numpy(payload).to(torch.int64)]
+    K = keys.shape[0] // plan.chunk
+    for p in plan.passes:
+        u = (cols[p.column] ^ plan.flips[p.column]) & 0xFFFFFFFF
+        digit = (u >> p.shift) & ((1 << p.bits) - 1)
+        if digit.min() == digit.max():
+            continue
+        idx = torch.sort(digit.view(K, plan.chunk), dim=1,
+                         stable=True).indices
+        cols = [torch.gather(c.view(K, plan.chunk), 1, idx).view(-1)
+                for c in cols]
+    return [c.to(torch.int32).numpy() for c in cols]
+
+
+@pytest.mark.parametrize("chunk,P", [(256, 4096), (16384, 16384)])
+@pytest.mark.parametrize("form", ["1op_signed", "2op_unsigned_stable",
+                                  "2op_unsigned_take_min", "2op_signed"])
+def test_radix_plan_matches_jax_kernel(form, chunk, P):
+    """K4's pass plan, run with torch ops, against the Pallas network in
+    interpret mode: bit-equal where the JAX kernel's order is defined
+    (1-op, stable 2-op with a shuffled payload that is not monotone), keys
+    bit-equal and (key, payload) multisets equal for take_min."""
+    rng = np.random.default_rng(16)
+    if form == "1op_signed":      # bucket ids with -1 dead markers
+        keys = rng.integers(0, 300, P).astype(np.int32)
+        keys[rng.random(P) < 0.3] = -1
+    elif form == "2op_signed":
+        keys = rng.integers(-9, 9, P).astype(np.int32)
+    elif form == "2op_unsigned_take_min":  # the miss probe: top byte 0
+        keys = rng.integers(0, (1 << 20) + (1 << 18), P).astype(np.uint32)
+        keys[:P // 8] = keys[0]
+    else:                         # heavy ties, keys >= 2^31 as u32
+        keys = rng.choice(np.array([0, 3, 2**31 - 1, 2**31, 2**32 - 1],
+                                   np.uint32), P)
+    unsigned = form.startswith("2op_unsigned")
+    stable = form != "2op_unsigned_take_min"
+    lid = np.tile(np.arange(chunk, dtype=np.int32), P // chunk)
+    payload = lid if not stable else rng.integers(-40, 40, P).astype(
+        np.int32)                 # shuffled, duplicated, signed
+    nops = 1 if form == "1op_signed" else 2
+    plan = radix_plan(32, chunk, nops, stable, unsigned)
+    got = run_radix_plan(plan, keys, payload)
+    jops = (jnp.asarray(keys),) if nops == 1 else (
+        jnp.asarray(keys), jnp.asarray(payload))
+    with mock.patch.object(JB, "UNROLL_MAX", 256):  # hybrid passes
+        want = [np.asarray(w).view(np.int32)
+                for w in JB._bitonic_pallas(jops, chunk, unsigned, True,
+                                            stable)]
+    if nops == 1 or stable:
+        for g, w in zip(got, want):
+            assert np.array_equal(g, w)
+    else:
+        _same_segments(got, want, chunk)
+        plain = bitonic_sort_segmented(t32(keys), chunk, torch.from_numpy(
+            payload))  # input-order ties of an ascending payload
+        assert all(np.array_equal(g, w.numpy()) for g, w in zip(got, plain))
+
+
+@pytest.mark.parametrize("key_bits,chunk,P", [(8, 256, 4096),
+                                              (20, 4096, 8192),
+                                              (20, 16384, 16384),
+                                              (24, 16384, 16384)])
+def test_radix_plan_k1_matches_jax_kernel(key_bits, chunk, P):
+    """K1's plan (rows from positions) against the packed Pallas kernel in
+    interpret mode: keys bit-equal, (key, row) multisets equal, and rows in
+    (key, row) order, bit-equal to the plain version."""
+    rng = np.random.default_rng(17)
+    keys = rng.integers(0, 1 << key_bits, P).astype(np.uint32)
+    keys[:300] = keys[300]  # ties across a segment
+    lid = np.tile(np.arange(chunk, dtype=np.int32), P // chunk)
+    plan = radix_plan(key_bits, chunk, 2, False)
+    got = run_radix_plan(plan, keys, lid)
+    sub_bits = min(32 - key_bits, 16, chunk.bit_length() - 1)
+    with mock.patch.object(JB, "UNROLL_MAX", max(256, 1 << sub_bits)):
+        want = JB.bitonic_sort_packed_segmented(jnp.asarray(keys), chunk,
+                                                key_bits, interpret=True)
+    _same_segments(got, want, chunk)
+    plain = bitonic_sort_packed_segmented(t32(keys), chunk, key_bits)
+    assert all(np.array_equal(g, w.numpy()) for g, w in zip(got, plain))
+
+
+@pytest.mark.parametrize("key_bits,nops,stable,widths", [
+    (8, 2, False, [8]), (20, 2, False, [7, 7, 6]), (24, 2, False, [8, 8, 8]),
+    (31, 2, False, [8, 8, 8, 7]), (32, 1, True, [8, 8, 8, 8]),
+    (32, 2, False, [8, 8, 8, 8]), (32, 2, True, [8] * 8)])
+def test_radix_plan_passes(key_bits, nops, stable, widths):
+    """Digits per key width, columns and offsets, and the ping-pong: the
+    last pass writes the output and the passes alternate before it."""
+    plan = radix_plan(key_bits, 1 << 18, nops, stable)
+    assert [p.bits for p in plan.passes] == widths
+    cols = [p.column for p in plan.passes]
+    assert cols == sorted(cols, reverse=True)        # payload digits first
+    assert cols.count(1) == (4 if nops == 2 and stable else 0)
+    for c in (0, 1):
+        shifts = [p.shift for p in plan.passes if p.column == c]
+        bits = [p.bits for p in plan.passes if p.column == c]
+        assert shifts == [sum(bits[:i]) for i in range(len(bits))]
+    assert sum(p.bits for p in plan.passes if p.column == 0) == key_bits
+    dest = [p.dest for p in plan.passes]
+    assert dest[-1] == "out"
+    assert all(a != b for a, b in zip(dest, dest[1:]))
+    assert plan.words() == [len(widths), 0, SIGN, *(
+        w for p in plan.passes for w in (p.column, p.shift, p.bits))]
+    assert radix_plan(key_bits, 256, nops, stable).passes[0].dest == "shared"
+
+
+def test_radix_plan_scratch():
+    """Scratch words: none for one-block segments; at the main shape (2^24
+    keys, 2^18 segments, 7-bit digits) the ping-pong pair, 128 bins per
+    4096-key tile and per segment, and the four OR words -- about 130 MiB
+    beside the 128 MiB of output."""
+    assert sum(radix_plan(20, 8192, 2, False).scratch_words(1 << 24)
+               .values()) == 0
+    size = radix_plan(20, 1 << 18, 2, False).scratch_words(1 << 24)
+    assert list(size) == ["tmp_keys", "tmp_payload", "counts", "segtot",
+                          "ors"]  # the kernel's argument order
+    assert size == dict(tmp_keys=1 << 24, tmp_payload=1 << 24,
+                        counts=(1 << 12) * 128, segtot=64 * 128, ors=4)
+    assert radix_plan(20, 1 << 18, 2, False, max_bits=10).scratch_words(
+        1 << 24)["counts"] == (1 << 12) * 1024
+    assert radix_plan(32, 1 << 14, 1, False).scratch_words(1 << 14) == dict(
+        tmp_keys=1 << 14, tmp_payload=0, counts=4 * 256, segtot=256, ors=4)
+    with pytest.raises(ValueError):
+        radix_plan(32, 1 << 18, 2, True, max_bits=4)  # 16 passes
+    with pytest.raises(ValueError):
+        radix_plan(20, 1 << 18, 2, False, max_bits=11)  # 2048 bins
 
 
 def test_bitonic_sort_packed_plain_matches_jax_kernel():

@@ -119,6 +119,22 @@ def test_can_use_dense_direct_rejects_non_permutations():
     assert not can_use_dense_direct(np.arange(8, dtype=np.uint64), 8)
 
 
+def test_generator_source_is_the_ports_own_copy():
+    """The port compiles its own copy of the generator, never a file of the
+    JAX package, and the copy is byte-equal to it (same streams)."""
+    from pathlib import Path
+
+    import hashjoin3d_tpu
+    import hashjoin3d_tpu_torch
+    from hashjoin3d_tpu_torch.utils import gen
+
+    port = Path(hashjoin3d_tpu_torch.__file__).resolve().parent
+    assert gen.GEN_SOURCE.resolve().is_relative_to(port)
+    jax_src = (Path(hashjoin3d_tpu.__file__).resolve().parent / "native"
+               / "hj3gen.cpp")
+    assert gen.GEN_SOURCE.read_bytes() == jax_src.read_bytes()
+
+
 def test_only_the_dense_build_is_ported():
     keys = t32(np.arange(16, dtype=np.uint32))
     with pytest.raises(NotImplementedError, match="slice 3"):
