@@ -9,10 +9,12 @@ prints the card and its power limit (``nvidia-smi``) first.
     python3 tools/torch_csr_perf.py times --side NAME [--root TREE]
 
   K1 (the packed probe sort of S.a), K4 2-op take_min (2^24 keys over
-  [0, 2^20 + 2^18), numpy seed 0) and K4 1-op signed (S.a's bucket ids with
-  30% -1 markers, numpy seed 1): each the mean of 20 launches on CUDA
-  events after one warm-up launch.  The Csr probe strand: the median host
-  time of 20 runs, each between two ``torch.cuda.synchronize()`` calls.
+  [0, 2^20 + 2^18), numpy seed 0), K4 1-op signed (S.a's bucket ids with
+  30% -1 markers, numpy seed 1), K4 stable with a payload over
+  [-2^15, 2^15) (numpy seed 2) and K1 at 8192-key segments: each the mean
+  of 20 launches on CUDA events after one warm-up launch.  The Csr probe
+  strand: the median host time of 20 runs, each between two
+  ``torch.cuda.synchronize()`` calls.
   ``--root`` imports the port from another tree (a ``git archive`` of a
   commit), so one machine compares two trees: run parent, change, change,
   parent, each in its own process.
@@ -116,6 +118,8 @@ def times(side: str, dev) -> dict:
         0, (1 << LOG2_R) + (1 << 18), n, dtype=np.uint32), dev)
     dead = torch.from_numpy(np.random.default_rng(1).random(n) < 0.3).to(dev)
     ids = torch.where(dead, -1, bucket_of(hash_key(sa), 1 << LOG2_R))
+    pay = torch.from_numpy(np.random.default_rng(2).integers(
+        -2**15, 2**15, n, dtype=np.int32)).to(dev)
     return dict(
         side=side,
         k1_ms=events_ms(lambda: bitonic.bitonic_sort_packed_segmented(
@@ -124,6 +128,10 @@ def times(side: str, dev) -> dict:
             wide, SEGMENT, payload=lid, stable=False)),
         k4_1op_ms=events_ms(lambda: bitonic.bitonic_sort_segmented(
             ids, SEGMENT, unsigned=False)),
+        k4_stable_ms=events_ms(lambda: bitonic.bitonic_sort_segmented(
+            wide, SEGMENT, payload=pay)),
+        k1_8192_ms=events_ms(lambda: bitonic.bitonic_sort_packed_segmented(
+            sa, 8192, KEY_BITS)),
         probe_ms_median=statistics.median(host_ms(probe)))
 
 

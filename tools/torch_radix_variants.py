@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import re
 import sys
 from pathlib import Path
 
@@ -115,9 +116,14 @@ def by_kernel(fn, reps: int = 5) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return {a.key.split("(")[0].split("::")[-1].split("<")[0]:
+    return {_kernel_name(a.key):
             (round(a.device_time_total / reps / 1e3, 4), a.count / reps)
             for a in prof.key_averages() if a.device_time_total > 0}
+
+
+def _kernel_name(key: str) -> str:
+    m = re.search(r"radix_\w+(<\d>)?", key)
+    return m.group(0) if m else key[:40]
 
 
 def main() -> int:
