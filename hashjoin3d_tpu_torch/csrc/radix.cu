@@ -19,11 +19,11 @@
 // pass per digit, whatever the segment size, and Hopper ranks and reorders a
 // tile in shared memory cheaply.
 //
-// What bounds it: bytes per pass.  One histogram pass reads the digit
-// columns once; then each digit pass reads and writes every moved column
-// once.  At the main shape K1 (2^24 keys < 2^20, three digits of 7, 7 and 6
-// bits) moves about 0.8 GB; K4 2-op take_min (four 8-bit digits, the top
-// one constant on the miss probe's keys and skipped) about 0.9 GB.
+// What bounds it: bytes per pass.  Each digit pass reads the digit column
+// once (upsweep: per-tile digit counts), then reads and writes every moved
+// column once (scatter).  At the main shape K1 (2^24 keys < 2^20, two 10-bit
+// digits) moves about 0.6 GB; K4 2-op (four 8-bit digits, the top one
+// constant on the miss probe's keys and skipped) about 1 GB.
 //
 // The pass plan -- digit widths, bit offsets, the column each digit comes
 // from (payload digits first for a stable 2-op sort, then the key's), the
@@ -33,18 +33,17 @@
 //  * one block per segment (segments up to kOneBlockMax): the segment lives
 //    in shared memory through every pass; passes whose digit is the same for
 //    every key of the segment are skipped.
-//  * multi-tile (larger segments):
-//      radix_histogram  one read of the input: per segment, the counts of
-//                       every pass's digit, and the ORs of every key and its
-//                       complement, so that every later kernel knows which
-//                       digits vary anywhere and skips a pass that is
-//                       constant for all keys, on the device;
-//      radix_scatter    per pass: each block takes the next 4096-key tile,
-//                       ranks it stably, reorders it in shared memory so
-//                       that global writes go out as runs of one digit,
-//                       finds the tile's offset among the segment's tiles by
-//                       decoupled look-back, and scatters to segment base +
-//                       digit offset + tile offset.
+//  * multi-tile (larger segments): per pass, reduce-then-scan --
+//      radix_upsweep   per-tile digit counts (pass 0 also ORs every key and
+//                      its complement, so every later kernel knows which
+//                      digits vary anywhere and skips a pass that is
+//                      constant for all keys, on the device);
+//      radix_scan      per segment and bin, the running offset of each tile
+//                      and the bin total;
+//      radix_scatter   each block loads a tile, ranks it stably, reorders it
+//                      in shared memory so that global writes go out as runs
+//                      of one digit, and scatters to segment base + digit
+//                      offset + tile offset.
 //    Passes ping-pong between the output and scratch buffers; the live
 //    passes are counted from the end so that the last one writes the output.
 //
@@ -57,6 +56,8 @@
 #include <algorithm>
 #include <cstdint>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int kMaxPasses = 8;
@@ -65,6 +66,8 @@ constexpr int kItems = 16;                     // elements per thread
 constexpr int kTileThreads = 256;              // multi-tile passes
 constexpr int kTile = kTileThreads * kItems;   // 4096 elements a tile
 constexpr int kOneBlockMax = 8192;             // 512 threads x 16 elements
+constexpr int kScanBins = 128;                 // bins per radix_scan block
+constexpr int kScanBatch = 16;                 // tiles loaded at once there
 constexpr unsigned kFull = 0xffffffffu;
 
 // The plan holds no array that a kernel would index at run time: that
@@ -208,9 +211,9 @@ __device__ __forceinline__ unsigned match_digit(unsigned d, int nbits) {
   return m;
 }
 
-__device__ void block_rank(const unsigned (&dig)[kItems], int valid, int R,
-                           int* whist, int* binstart, int* wsum,
-                           int (&rank)[kItems]) {
+template <class DigitOf>
+__device__ void block_rank(DigitOf dig, int valid, int R, int* whist,
+                           int* binstart, int* wsum, int (&rank)[kItems]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5, stride = R + 1;
   for (int b = threadIdx.x; b < nwarps * stride; b += blockDim.x) whist[b] = 0;
@@ -223,7 +226,7 @@ __device__ void block_rank(const unsigned (&dig)[kItems], int valid, int R,
 #pragma unroll
   for (int i = 0; i < kItems; ++i) {
     const int pos = (warp * kItems + i) * 32 + lane;
-    const unsigned d = pos < valid ? dig[i] : (unsigned)R;
+    const unsigned d = pos < valid ? dig(i) : (unsigned)R;
     const unsigned peers = match_digit(d, nbits);
     const int before = __popc(peers & lt);
     const int cnt = wh[d];
@@ -247,7 +250,10 @@ __device__ void block_rank(const unsigned (&dig)[kItems], int valid, int R,
 #pragma unroll
   for (int i = 0; i < kItems; ++i) {
     const int pos = (warp * kItems + i) * 32 + lane;
-    if (pos < valid) rank[i] += binstart[dig[i]] + wh[dig[i]];
+    if (pos < valid) {
+      const unsigned d = dig(i);
+      rank[i] += binstart[d] + wh[d];
+    }
   }
 }
 
@@ -301,13 +307,13 @@ __global__ void __launch_bounds__(kOneBlockMax / kItems)
     const int c = D.col, shift = D.shift, bits = D.bits;
     const unsigned flip = D.flip;
     if (!(((c ? dv : dk) >> shift) & ((1u << bits) - 1u))) continue;
-    unsigned dig[kItems];
     int rank[kItems];
-#pragma unroll
-    for (int i = 0; i < kItems; ++i)
-      dig[i] = digit_of((unsigned)(c == 0 ? key[i] : val[i]), flip, shift,
-                        bits);
-    block_rank(dig, chunk, 1 << bits, whist, binstart, wsum, rank);
+    block_rank(
+        [&](int i) {
+          return digit_of((unsigned)(c == 0 ? key[i] : val[i]), flip, shift,
+                          bits);
+        },
+        chunk, 1 << bits, whist, binstart, wsum, rank);
 #pragma unroll
     for (int i = 0; i < kItems; ++i) {
       const int pos = (warp * kItems + i) * 32 + lane;
@@ -338,94 +344,85 @@ __global__ void __launch_bounds__(kOneBlockMax / kItems)
 }
 
 // --- multi-tile passes --------------------------------------------------------
-//
-// state (int32 words, zeroed by the caller): kStateHead words (the ORs of
-// each column and its complement, then one tile counter per pass), the
-// per-segment histogram of every pass's digit (nseg x npass x stride), then
-// one status word per tile and bin (tiles x stride), reused by every pass.
 
-constexpr int kStateHead = 4 + kMaxPasses;
-constexpr int kHistTile = 4 * kTile;  // keys per histogram block
-
-// Status word of a (tile, bin): which pass wrote it (epoch p + 1, so that a
-// word left by an earlier pass reads as not yet written), whether the count
-// is the tile's own or the inclusive prefix over the segment's tiles up to
-// it, and the count.  A word is one store: nothing else needs ordering.
-constexpr unsigned kPrefix = 1u << 27, kCountMask = kPrefix - 1u;
-constexpr int kEpochShift = 28;
-constexpr long long kSpinLimit = 1ll << 22;  // ~1 s of waiting: a fault
-#ifndef RADIX_LOOKBACK
-#define RADIX_LOOKBACK 4
-#endif
-constexpr int kLookBack = RADIX_LOOKBACK;  // status words read at once
-
-__device__ __forceinline__ unsigned ld_relaxed(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p)
-               : "memory");
-  return v;
-}
-__device__ __forceinline__ void st_relaxed(unsigned* p, unsigned v) {
-  asm volatile("st.relaxed.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v)
-               : "memory");
-}
-
-// One read of the input: per segment, the counts of every pass's digit, and
-// the ORs of every key (and payload) and its complement, from which each
-// later kernel tells which passes have a digit that varies.  A segment's
-// digit counts do not depend on the order of its keys, so they serve every
-// pass.
+// Per-tile counts of pass p's digit over the pass's source; pass 0 reads
+// the input and also ORs every key (and payload) and its complement into
+// ors[0..3].
 __global__ void __launch_bounds__(kTileThreads)
-    radix_histogram(Plan P, const int* in_k, const int* in_v, int* state,
-                    int log_seg, int stride) {
-  __shared__ int hist[kMaxPasses << kMaxBits];
+    radix_upsweep(Plan P, Bufs B, unsigned* ors, int* counts, int p) {
+  __shared__ int hist[1 << kMaxBits];
   __shared__ unsigned sor[4];
-  const int nh = P.npass * stride;
-  for (int b = threadIdx.x; b < nh; b += blockDim.x) hist[b] = 0;
+  const bool first_kernel = p == 0;
+  int src = 0;
+  if (!first_kernel) {
+    const Route r = route(P, ors, p);
+    if (!r.live) return;
+    src = r.src;
+  }
+  const Digit D = digit_at(P, p);
+  const int c = D.col, shift = D.shift, bits = D.bits, R = 1 << bits;
+  const unsigned flip = D.flip;
+  for (int b = threadIdx.x; b < R; b += blockDim.x) hist[b] = 0;
   if (threadIdx.x < 4) sor[threadIdx.x] = 0;
   __syncthreads();
-  const long long base = (long long)blockIdx.x * kHistTile;
-  const bool need_v = P.payload_digits;
-  unsigned o[4] = {0, 0, 0, 0};
-  for (int s = 0; s < kHistTile; s += kTile) {
-    unsigned k[kItems], v[kItems];
+  const long long base = (long long)blockIdx.x * kTile;
+  const int* kcol = src_keys(B, src);
+  const int* vcol = src_vals(B, src);
+  const bool need_v = c == 1 || (first_kernel && P.payload_digits);
+  unsigned k[kItems], v[kItems];
 #pragma unroll
-    for (int i = 0; i < kItems; ++i) {  // every load in flight first
-      const long long t = base + s + i * kTileThreads + threadIdx.x;
-      k[i] = (unsigned)in_k[t];
-      v[i] = need_v ? (unsigned)in_v[t] : 0u;
-    }
-#pragma unroll
-    for (int i = 0; i < kItems; ++i) {
-      o[0] |= k[i];
-      o[1] |= ~k[i];
-      o[2] |= v[i];
-      o[3] |= ~v[i];
-#pragma unroll
-      for (int q = 0; q < kMaxPasses; ++q) {
-        if (q < P.npass) {
-          const Digit D = digit_at(P, q);
-          atomicAdd(&hist[q * stride + digit_of(D.col ? v[i] : k[i], D.flip,
-                                                 D.shift, D.bits)],
-                    1);
-        }
-      }
-    }
+  for (int i = 0; i < kItems; ++i) {  // every load in flight before counting
+    const long long t = base + i * kTileThreads + threadIdx.x;
+    k[i] = (unsigned)kcol[t];
+    v[i] = need_v ? (unsigned)vcol[t] : 0u;
   }
+  unsigned o[4] = {0, 0, 0, 0};
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const unsigned w = warp_or(o[j]);
-    if ((threadIdx.x & 31) == 0) atomicOr(&sor[j], w);
+  for (int i = 0; i < kItems; ++i) {
+    atomicAdd(&hist[digit_of(c == 0 ? k[i] : v[i], flip, shift, bits)], 1);
+    o[0] |= k[i];
+    o[1] |= ~k[i];
+    o[2] |= v[i];
+    o[3] |= ~v[i];
+  }
+  if (first_kernel) {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const unsigned w = warp_or(o[j]);
+      if (lane == 0) atomicOr(&sor[j], w);
+    }
   }
   __syncthreads();
-  int* seg = state + kStateHead + (base >> log_seg) * nh;
-  for (int b = threadIdx.x; b < nh; b += blockDim.x) {
-    const int c = hist[b];
-    if (c) atomicAdd(&seg[b], c);
+  int* row = counts + (long long)blockIdx.x * R;
+  for (int b = threadIdx.x; b < R; b += blockDim.x) row[b] = hist[b];
+  if (first_kernel && threadIdx.x < 4)
+    atomicOr(&ors[threadIdx.x], sor[threadIdx.x]);
+}
+
+// For each segment and bin: the exclusive running count over the segment's
+// tiles, in place in counts, and the bin's total in segtot.
+__global__ void radix_scan(Plan P, const unsigned* ors, int* counts,
+                           int* segtot, int p, int tiles_per_seg, int groups) {
+  if (!route(P, ors, p).live) return;
+  const int R = 1 << digit_at(P, p).bits;
+  const long long seg = blockIdx.x / groups;
+  const int b = (blockIdx.x % groups) * kScanBins + threadIdx.x;
+  if (b >= R) return;
+  int* col = counts + seg * tiles_per_seg * R + b;
+  int run = 0;
+  for (int t0 = 0; t0 < tiles_per_seg; t0 += kScanBatch) {
+    int c[kScanBatch];
+#pragma unroll
+    for (int u = 0; u < kScanBatch; ++u)  // the batch's loads in flight
+      c[u] = t0 + u < tiles_per_seg ? col[(long long)(t0 + u) * R] : 0;
+#pragma unroll
+    for (int u = 0; u < kScanBatch; ++u) {
+      if (t0 + u < tiles_per_seg) col[(long long)(t0 + u) * R] = run;
+      run += c[u];
+    }
   }
-  if (threadIdx.x < 4)
-    atomicOr(reinterpret_cast<unsigned*>(state) + threadIdx.x,
-             sor[threadIdx.x]);
+  segtot[seg * R + b] = run;
 }
 
 // Blocks of the scatter kept resident per SM: the register cap that buys
@@ -433,114 +430,108 @@ __global__ void __launch_bounds__(kTileThreads)
 #ifndef RADIX_SCATTER_MINB
 #define RADIX_SCATTER_MINB 3
 #endif
-// Pass p: each block takes the next tile of the input (ids from a counter,
-// in the order blocks start, so every tile it waits on belongs to a block
-// that runs or has run), ranks it stably, reorders it in shared memory,
-// publishes its digit counts, learns the counts of the segment's earlier
-// tiles by decoupled look-back, and writes runs of one digit to segment base
-// + digit offset + tile offset.
+// Words of one stage of the scatter: the tile's moved columns, then the
+// segment's bin totals and the tile's offset in each bin.
+__host__ __device__ __forceinline__ int stage_words(int nops, int R) {
+  return nops * kTile + 2 * R;
+}
+
+// Persistent blocks, each walking tiles blockIdx.x, + gridDim.x, ...: while
+// one tile is ranked, reordered and written, cp.async brings the next one
+// (and its rows of totals and offsets) into the other stage.  A tile is
+// ranked stably, reordered in its stage so that global writes go out as runs
+// of one digit, and scattered to segment base + digit offset + tile offset.
 template <int NOPS>
 __global__ void __launch_bounds__(kTileThreads, RADIX_SCATTER_MINB)
-    radix_scatter(Plan P, Bufs B, int* state, int p, int log_seg, int stride,
-                  long long nseg) {
-  const unsigned* ors = reinterpret_cast<const unsigned*>(state);
+    radix_scatter(Plan P, Bufs B, const unsigned* ors, const int* counts,
+                  const int* segtot, int p, int log_seg, long long tiles) {
   const Route r = route(P, ors, p);
   if (!r.live) return;
-  extern __shared__ int smem[];
+  extern __shared__ __align__(16) int smem[];
   const Digit D = digit_at(P, p);
   const int c = D.col, shift = D.shift, bits = D.bits, R = 1 << bits;
   const unsigned flip = D.flip;
-  int* sk = smem;
-  int* sv = sk + kTile;
-  int* whist = sv + (NOPS == 2 ? kTile : 0);
+  const int sw = stage_words(NOPS, R);
+  int* whist = smem + 2 * sw;
   int* binstart = whist + (kTileThreads / 32) * (R + 1);
   int* rel = binstart + R + 1;
   int* wsum = rel + R + 1;
-  int* tile_id = wsum + 32;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) *tile_id = atomicAdd(state + 4 + p, 1);
-  __syncthreads();
-  const long long t = *tile_id;
-  const long long tile = t * kTile;
-  const long long seg = tile >> log_seg << log_seg;
-  const bool first_tile = tile == seg;
   const int* ik = src_keys(B, r.src);
   const int* iv = src_vals(B, r.src);
   const bool gen_rows = NOPS == 2 && r.first && P.rows_from_pos;
-
-  int key[kItems], val[kItems];
-  unsigned dig[kItems];
-#pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    const int pos = (warp * kItems + i) * 32 + lane;
-    key[i] = ik[tile + pos];
-    val[i] = NOPS == 2 ? (gen_rows ? (int)(tile - seg) + pos : iv[tile + pos])
-                       : 0;
-    dig[i] = digit_of((unsigned)(c == 0 ? key[i] : val[i]), flip, shift,
-                      bits);
-  }
-  // segment-relative start of each bin (scan of the segment's counts)
-  const int* segrow =
-      state + kStateHead + ((seg >> log_seg) * P.npass + p) * stride;
-  for (int b = threadIdx.x; b < R; b += blockDim.x) rel[b] = segrow[b];
-  __syncthreads();
-  block_scan_excl(rel, R, wsum);
-  int rank[kItems];
-  block_rank(dig, kTile, R, whist, binstart, wsum, rank);
-  unsigned* status = reinterpret_cast<unsigned*>(
-                         state + kStateHead + nseg * P.npass * stride) +
-                     t * stride;
-  const unsigned epoch = (unsigned)(p + 1) << kEpochShift;
-  for (int b = threadIdx.x; b < R; b += blockDim.x) {
-    const int cnt = (b + 1 < R ? binstart[b + 1] : kTile) - binstart[b];
-    st_relaxed(status + b, epoch | (first_tile ? kPrefix : 0u) | cnt);
-  }
-#pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    sk[rank[i]] = key[i];
-    if (NOPS == 2) sv[rank[i]] = val[i];
-  }
-  // look-back: the status words of up to kLookBack earlier tiles of the
-  // segment at once, summed back to the nearest inclusive prefix
-  const long long t0 = seg / kTile;  // the segment's first tile
-  const unsigned ep = (unsigned)(p + 1);
-  for (int b = threadIdx.x; b < R; b += blockDim.x) {
-    int excl = 0;
-    if (!first_tile) {
-      long long j = t - 1, spins = 0;
-      for (bool done = false; !done;) {
-        unsigned w[kLookBack];
-#pragma unroll
-        for (int u = 0; u < kLookBack; ++u)
-          w[u] = j - u >= t0 ? ld_relaxed(status + (j - u - t) * stride + b)
-                             : 0u;
-        int used = 0;
-#pragma unroll
-        for (int u = 0; u < kLookBack; ++u) {
-          if (done || used < u || (w[u] >> kEpochShift) != ep) continue;
-          excl += (int)(w[u] & kCountMask);
-          done = (w[u] & kPrefix) != 0;
-          used = u + 1;
-        }
-        j -= used;
-        if (used == 0 && ++spins > kSpinLimit) __trap();
-      }
-      const int cnt = (b + 1 < R ? binstart[b + 1] : kTile) - binstart[b];
-      st_relaxed(status + b, epoch | kPrefix | (unsigned)(excl + cnt));
-    }
-    rel[b] += excl - binstart[b];
-  }
-  __syncthreads();
+  const bool load_v = NOPS == 2 && !gen_rows;
   int* ok = keys_at(B, r.dst);
   int* ov = vals_at(B, r.dst);
-  for (int j = threadIdx.x; j < kTile; j += blockDim.x) {
-    const int k = sk[j];
-    const int v = NOPS == 2 ? sv[j] : 0;
-    const unsigned d = digit_of((unsigned)(c == 0 ? k : v), flip, shift,
-                                bits);
-    const long long gi = seg + rel[d] + j;
-    ok[gi] = k;
-    if (NOPS == 2) ov[gi] = v;
+
+  auto fetch = [&](long long t, int* st) {
+    const long long tile = t * kTile;
+    for (int q = 4 * threadIdx.x; q < kTile; q += 4 * blockDim.x) {
+      cp_async16(st + q, ik + tile + q);
+      if (load_v) cp_async16(st + kTile + q, iv + tile + q);
+    }
+    const int* segrow = segtot + (tile >> log_seg) * R;
+    const int* crow = counts + t * R;
+    for (int b = threadIdx.x; b < R; b += blockDim.x) {
+      cp_async4(st + NOPS * kTile + b, segrow + b);
+      cp_async4(st + NOPS * kTile + R + b, crow + b);
+    }
+  };
+
+  long long t = blockIdx.x;
+  if (t < tiles) fetch(t, smem);
+  cp_async_commit();
+  for (int it = 0; t < tiles; t += gridDim.x, ++it) {
+    int* cur = smem + (it & 1) * sw;
+    __syncthreads();  // the other stage's tile is written out
+    if (t + gridDim.x < tiles) fetch(t + gridDim.x, smem + (~it & 1) * sw);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // every thread's copies of this tile have landed
+    const long long tile = t * kTile;
+    const long long seg = tile >> log_seg << log_seg;
+    int key[kItems], val[kItems];
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      const int pos = (warp * kItems + i) * 32 + lane;
+      key[i] = cur[pos];
+      val[i] = NOPS == 2 ? (gen_rows ? (int)(tile - seg) + pos
+                                     : cur[kTile + pos])
+                         : 0;
+    }
+    // rel: the segment-relative start of each bin, then of the tile's run
+    const int* toff = cur + NOPS * kTile + R;
+    for (int b = threadIdx.x; b < R; b += blockDim.x)
+      rel[b] = cur[NOPS * kTile + b];
+    __syncthreads();
+    block_scan_excl(rel, R, wsum);
+    int rank[kItems];
+    block_rank(
+        [&](int i) {
+          return digit_of((unsigned)(c == 0 ? key[i] : val[i]), flip, shift,
+                          bits);
+        },
+        kTile, R, whist, binstart, wsum, rank);
+    // every thread has read the stage: reorder the tile in it
+    int* sk = cur;
+    int* sv = cur + kTile;
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      sk[rank[i]] = key[i];
+      if (NOPS == 2) sv[rank[i]] = val[i];
+    }
+    for (int b = threadIdx.x; b < R; b += blockDim.x)
+      rel[b] += toff[b] - binstart[b];
+    __syncthreads();
+    for (int j = threadIdx.x; j < kTile; j += blockDim.x) {
+      const int k = sk[j];
+      const int v = NOPS == 2 ? sv[j] : 0;
+      const unsigned d = digit_of((unsigned)(c == 0 ? k : v), flip, shift,
+                                  bits);
+      const long long gi = seg + rel[d] + j;
+      ok[gi] = k;
+      if (NOPS == 2) ov[gi] = v;
+    }
   }
 }
 
@@ -551,9 +542,8 @@ __global__ void __launch_bounds__(kTileThreads, RADIX_SCATTER_MINB)
   } while (0)
 
 size_t scatter_smem(int nops, int R) {
-  return sizeof(int) *
-         ((size_t)kTile * nops + (kTileThreads / 32) * (R + 1) + 2 * (R + 1) +
-          32 + 1);
+  return sizeof(int) * ((size_t)2 * stage_words(nops, R) +
+                        (kTileThreads / 32) * (R + 1) + 2 * (R + 1) + 32);
 }
 
 size_t segment_smem(int nops, int chunk, int threads, int R) {
@@ -562,37 +552,52 @@ size_t segment_smem(int nops, int chunk, int threads, int R) {
 }
 
 template <int NOPS>
-cudaError_t sort(const Plan& P, const Bufs& B, int* state, long long n,
-                 int log_seg, cudaStream_t st) {
+cudaError_t sort(const Plan& P, const Bufs& B, unsigned* ors, int* counts,
+                 int* segtot, long long n, int log_seg, cudaStream_t st) {
   const int chunk = 1 << log_seg;
   int max_bits = 1;
   for (int p = 0; p < P.npass; ++p)
     max_bits = std::max(max_bits, digit_at(P, p).bits);
-  const int stride = 1 << max_bits;
   if (chunk <= kOneBlockMax) {
     const int threads = std::max(32, chunk / kItems);
-    const size_t smem = segment_smem(NOPS, chunk, threads, stride);
+    const size_t smem = segment_smem(NOPS, chunk, threads, 1 << max_bits);
     const cudaError_t e = cudaFuncSetAttribute(
         radix_segment<NOPS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return e;
     radix_segment<NOPS><<<(unsigned)(n >> log_seg), threads, smem, st>>>(
-        P, B.in_k, B.in_v, B.out_k, B.out_v, chunk, stride);
+        P, B.in_k, B.in_v, B.out_k, B.out_v, chunk, 1 << max_bits);
     HJ3T_CHECK();
     return cudaSuccess;
   }
-  const cudaError_t e = cudaFuncSetAttribute(
+  const unsigned tiles = (unsigned)(n / kTile);
+  const int tiles_per_seg = chunk / kTile;
+  const long long nseg = n >> log_seg;
+  cudaError_t e = cudaFuncSetAttribute(
       radix_scatter<NOPS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)scatter_smem(NOPS, stride));
+      (int)scatter_smem(NOPS, 1 << max_bits));
+  int dev = 0, sms = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
-  radix_histogram<<<(unsigned)(n / kHistTile), kTileThreads, 0, st>>>(
-      P, B.in_k, B.in_v, state, log_seg, stride);
-  HJ3T_CHECK();
   for (int p = 0; p < P.npass; ++p) {
     const int R = 1 << digit_at(P, p).bits;
-    radix_scatter<NOPS><<<(unsigned)(n / kTile), kTileThreads,
-                          scatter_smem(NOPS, R), st>>>(
-        P, B, state, p, log_seg, stride, n >> log_seg);
+    const int groups = (R + kScanBins - 1) / kScanBins;
+    radix_upsweep<<<tiles, kTileThreads, 0, st>>>(P, B, ors, counts, p);
+    HJ3T_CHECK();
+    radix_scan<<<(unsigned)(nseg * groups), std::min(R, kScanBins), 0, st>>>(
+        P, ors, counts, segtot, p, tiles_per_seg, groups);
+    HJ3T_CHECK();
+    const size_t smem = scatter_smem(NOPS, R);
+    int per_sm = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, radix_scatter<NOPS>, kTileThreads, smem);
+    if (e != cudaSuccess) return e;
+    const unsigned grid =
+        (unsigned)std::min<long long>(tiles, (long long)sms * per_sm);
+    radix_scatter<NOPS><<<grid, kTileThreads, smem, st>>>(
+        P, B, ors, counts, segtot, p, log_seg, tiles);
     HJ3T_CHECK();
   }
   return cudaSuccess;
@@ -602,21 +607,21 @@ cudaError_t sort(const Plan& P, const Bufs& B, int* state, long long n,
 
 extern "C" {
 
-// K1 and K4.  keys int32[n], n a multiple of 2^log_seg (8 <= log_seg <= 26,
+// K1 and K4.  keys int32[n], n a multiple of 2^log_seg (8 <= log_seg <= 30,
 // n <= 2^31); payload int32[n] or NULL; out_payload NULL for a 1-op sort.
 // With rows_from_pos (K1) the payload is the segment-local position and
-// `payload` is NULL.  Segments above 8192 keys need scratch: tmp_keys and
-// tmp_payload (n each, tmp_payload for a 2-op sort) and state, zeroed, of
-// 12 + (n >> log_seg) * npass * 2^b + (n / 4096) * 2^b words, b the widest
-// digit.  plan: npass, the key and payload flips, then (column, shift,
-// bits) per pass, LSD first.
+// `payload` is NULL.  tmp_keys / tmp_payload (n each), counts (n / 4096 x
+// 2^max digit bits), segtot (segments x 2^max digit bits) and ors (4 words,
+// zeroed) are scratch, used by segments above 8192 only.  plan: npass, the
+// key and payload flips, then (column, shift, bits) per pass, LSD first.
 int hj3t_radix_sort_segmented(const void* keys, const void* payload,
                               void* out_keys, void* out_payload,
-                              void* tmp_keys, void* tmp_payload, void* state,
-                              const int* plan, long long n, int log_seg,
-                              int rows_from_pos, void* stream) {
+                              void* tmp_keys, void* tmp_payload, void* counts,
+                              void* segtot, void* ors, const int* plan,
+                              long long n, int log_seg, int rows_from_pos,
+                              void* stream) {
   const int nops = out_payload != nullptr ? 2 : 1;
-  if (log_seg < 8 || log_seg > 26 || n <= 0 || n % (1LL << log_seg) != 0 ||
+  if (log_seg < 8 || log_seg > 30 || n <= 0 || n % (1LL << log_seg) != 0 ||
       n > (1LL << 31) || plan == nullptr || plan[0] < 1 ||
       plan[0] > kMaxPasses || (nops == 2 && !rows_from_pos && !payload) ||
       (nops == 1 && (payload || rows_from_pos)))
@@ -637,7 +642,7 @@ int hj3t_radix_sort_segmented(const void* keys, const void* payload,
     if (col == 1) P.payload_digits = 1;
   }
   if ((1LL << log_seg) > kOneBlockMax &&
-      (!tmp_keys || !state || (nops == 2 && !tmp_payload)))
+      (!tmp_keys || !counts || !segtot || !ors || (nops == 2 && !tmp_payload)))
     return (int)cudaErrorInvalidValue;
   Bufs B{};
   B.in_k = static_cast<const int*>(keys);
@@ -647,9 +652,12 @@ int hj3t_radix_sort_segmented(const void* keys, const void* payload,
   B.tmp_k = static_cast<int*>(tmp_keys);
   B.tmp_v = static_cast<int*>(tmp_payload);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int* s = static_cast<int*>(state);
-  const cudaError_t e = nops == 2 ? sort<2>(P, B, s, n, log_seg, st)
-                                  : sort<1>(P, B, s, n, log_seg, st);
+  unsigned* o = static_cast<unsigned*>(ors);
+  int* cnt = static_cast<int*>(counts);
+  int* tot = static_cast<int*>(segtot);
+  const cudaError_t e =
+      nops == 2 ? sort<2>(P, B, o, cnt, tot, n, log_seg, st)
+                : sort<1>(P, B, o, cnt, tot, n, log_seg, st);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 

@@ -44,9 +44,6 @@ RADIX_ONE_BLOCK_MAX = 8192
 RADIX_MAX_BITS = 8
 RADIX_MAX_BITS_KERNEL = 10
 RADIX_MAX_PASSES = 8
-#: Leading words of the multi-tile state: four column ORs, then a tile
-#: counter per pass.
-RADIX_STATE_HEAD = 4 + RADIX_MAX_PASSES
 
 
 class RadixPass(NamedTuple):
@@ -76,17 +73,15 @@ class RadixPlan(NamedTuple):
     def scratch_words(self, n: int) -> dict:
         """int32 words of each scratch buffer for ``n`` keys (0: unused).
         The multi-tile path ping-pongs through ``tmp_keys`` (and
-        ``tmp_payload``) and keeps, zeroed, its ``state``: the column ORs
-        and a tile counter per pass (``RADIX_STATE_HEAD``), every pass's
-        digit counts per segment, and a look-back status word per tile and
-        bin."""
+        ``tmp_payload``), keeps per-tile digit counts and per-segment bin
+        totals, and ORs the columns into ``ors`` (zeroed)."""
         if self.one_block:
-            return dict(tmp_keys=0, tmp_payload=0, state=0)
+            return dict(tmp_keys=0, tmp_payload=0, counts=0, segtot=0,
+                        ors=0)
         bins = 1 << max(p.bits for p in self.passes)
-        state = (RADIX_STATE_HEAD + n // self.chunk * len(self.passes) * bins
-                 + n // RADIX_TILE * bins)
         return dict(tmp_keys=n, tmp_payload=n if self.nops == 2 else 0,
-                    state=state)
+                    counts=n // RADIX_TILE * bins,
+                    segtot=n // self.chunk * bins, ors=4)
 
 
 def _digits(column: int, bits: int, max_bits: int) -> list:
@@ -179,7 +174,7 @@ def _radix(name: str, plan: RadixPlan, keys: torch.Tensor,
     # held here until the launch is queued: a buffer dropped earlier goes
     # back to the allocator, which may hand its memory to the next one
     scratch = [None if not words else
-               (torch.zeros if key == "state" else torch.empty)(
+               (torch.zeros if key == "ors" else torch.empty)(
                    words, dtype=I32, device=dev)
                for key, words in plan.scratch_words(n).items()]
     words = plan.words()

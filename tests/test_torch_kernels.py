@@ -335,19 +335,20 @@ def test_radix_plan_passes(key_bits, nops, stable, widths):
 
 def test_radix_plan_scratch():
     """Scratch words: none for one-block segments; at the main shape (2^24
-    keys, 2^18 segments, 7-bit digits) the ping-pong pair and the zeroed
-    state -- 12 head words, 128 bins per pass and segment, 128 status words
-    per 4096-key tile: about 130 MiB beside the 128 MiB of output."""
+    keys, 2^18 segments, 7-bit digits) the ping-pong pair, 128 bins per
+    4096-key tile and per segment, and the four OR words -- about 130 MiB
+    beside the 128 MiB of output."""
     assert sum(radix_plan(20, 8192, 2, False).scratch_words(1 << 24)
                .values()) == 0
     size = radix_plan(20, 1 << 18, 2, False).scratch_words(1 << 24)
-    assert list(size) == ["tmp_keys", "tmp_payload", "state"]  # C order
+    assert list(size) == ["tmp_keys", "tmp_payload", "counts", "segtot",
+                          "ors"]  # the kernel's argument order
     assert size == dict(tmp_keys=1 << 24, tmp_payload=1 << 24,
-                        state=12 + 64 * 3 * 128 + (1 << 12) * 128)
+                        counts=(1 << 12) * 128, segtot=64 * 128, ors=4)
     assert radix_plan(20, 1 << 18, 2, False, max_bits=10).scratch_words(
-        1 << 24)["state"] == 12 + 64 * 2 * 1024 + (1 << 12) * 1024
+        1 << 24)["counts"] == (1 << 12) * 1024
     assert radix_plan(32, 1 << 14, 1, False).scratch_words(1 << 14) == dict(
-        tmp_keys=1 << 14, tmp_payload=0, state=12 + 4 * 256 + 4 * 256)
+        tmp_keys=1 << 14, tmp_payload=0, counts=4 * 256, segtot=256, ors=4)
     with pytest.raises(ValueError):
         radix_plan(32, 1 << 18, 2, True, max_bits=4)  # 16 passes
     with pytest.raises(ValueError):
