@@ -1,17 +1,10 @@
-// cp.async helpers shared by windowed.cu (K2b), probes.cu (P7, P8) and
-// radix.cu (K1, K4): global -> shared copies, grouped and awaited.
+// cp.async helpers shared by windowed.cu (K2b) and probes.cu (P7, P8):
+// 16-byte global -> shared copies that bypass L1, grouped and awaited.
 #pragma once
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-// A 4-byte copy (through L1: .cg takes 16 bytes only).
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
                "l"(gmem));
 }
 
@@ -23,10 +16,4 @@ __device__ __forceinline__ void cp_async_commit() {
 // Wait for every committed group of this thread.
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Wait until at most N of this thread's committed groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }

@@ -21,9 +21,13 @@
 //
 // What bounds it: bytes per pass.  Each digit pass reads the digit column
 // once (upsweep: per-tile digit counts), then reads and writes every moved
-// column once (scatter).  At the main shape K1 (2^24 keys < 2^20, two 10-bit
-// digits) moves about 0.6 GB; K4 2-op (four 8-bit digits, the top one
-// constant on the miss probe's keys and skipped) about 1 GB.
+// column once (scatter).  At the main shape K1 (2^24 keys < 2^20, digits of
+// 7, 7 and 6 bits) moves about 0.96 GB and K4 2-op take_min (four 8-bit
+// digits, the top one constant on the miss probe's keys and skipped) about
+// 1.06 GB: 0.33 and 0.36 ms at the H100's measured copy rate.  Digits are
+// at most 8 bits wide (ops/bitonic.py:RADIX_MAX_BITS): ranking 1024 bins and
+// writing runs of four keys made two 10-bit passes slower than three 7-bit
+// ones.
 //
 // The pass plan -- digit widths, bit offsets, the column each digit comes
 // from (payload digits first for a stable 2-op sort, then the key's), the
@@ -47,16 +51,15 @@
 //    Passes ping-pong between the output and scratch buffers; the live
 //    passes are counted from the end so that the last one writes the output.
 //
-// Stable ranking: warp-level multisplit (__match_any_sync) over elements in
-// index order, per-warp counters combined across warps in warp order -- no
-// shared-memory atomics in the rank, so equal digits keep their order.
+// Stable ranking: warp-level multisplit (one ballot per digit bit finds the
+// lanes that share a digit) over elements in index order, per-warp counters
+// combined across warps in warp order -- no shared-memory atomics in the
+// rank, so equal digits keep their order.
 
 #include <cuda_runtime.h>
 
 #include <algorithm>
 #include <cstdint>
-
-#include "cp_async.cuh"
 
 namespace {
 
@@ -194,12 +197,6 @@ __device__ void block_scan_excl(int* a, int n, int* wsum) {
   __syncthreads();
 }
 
-// Stable rank of the block's elements by digit.  Thread (warp w, lane l)
-// holds elements w*32*kItems + i*32 + l, i = 0..kItems-1 (index order is
-// (w, i, l)); elements at or past `valid` take no part.  On return rank[i]
-// is the element's position in the digit-sorted block and binstart[b] the
-// first position of digit b.  whist holds nwarps * (R + 1) ints, binstart
-// R + 1.
 // Lanes of the warp whose digit equals this lane's (digits below 2^nbits).
 __device__ __forceinline__ unsigned match_digit(unsigned d, int nbits) {
   unsigned m = kFull;
@@ -211,9 +208,15 @@ __device__ __forceinline__ unsigned match_digit(unsigned d, int nbits) {
   return m;
 }
 
-template <class DigitOf>
-__device__ void block_rank(DigitOf dig, int valid, int R, int* whist,
-                           int* binstart, int* wsum, int (&rank)[kItems]) {
+// Stable rank of the block's elements by digit.  Thread (warp w, lane l)
+// holds elements w*32*kItems + i*32 + l, i = 0..kItems-1 (index order is
+// (w, i, l)); elements at or past `valid` take no part.  On return rank[i]
+// is the element's position in the digit-sorted block and binstart[b] the
+// first position of digit b.  whist holds nwarps * (R + 1) ints, binstart
+// R + 1.
+__device__ void block_rank(const unsigned (&dig)[kItems], int valid, int R,
+                           int* whist, int* binstart, int* wsum,
+                           int (&rank)[kItems]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5, stride = R + 1;
   for (int b = threadIdx.x; b < nwarps * stride; b += blockDim.x) whist[b] = 0;
@@ -226,7 +229,7 @@ __device__ void block_rank(DigitOf dig, int valid, int R, int* whist,
 #pragma unroll
   for (int i = 0; i < kItems; ++i) {
     const int pos = (warp * kItems + i) * 32 + lane;
-    const unsigned d = pos < valid ? dig(i) : (unsigned)R;
+    const unsigned d = pos < valid ? dig[i] : (unsigned)R;
     const unsigned peers = match_digit(d, nbits);
     const int before = __popc(peers & lt);
     const int cnt = wh[d];
@@ -250,10 +253,7 @@ __device__ void block_rank(DigitOf dig, int valid, int R, int* whist,
 #pragma unroll
   for (int i = 0; i < kItems; ++i) {
     const int pos = (warp * kItems + i) * 32 + lane;
-    if (pos < valid) {
-      const unsigned d = dig(i);
-      rank[i] += binstart[d] + wh[d];
-    }
+    if (pos < valid) rank[i] += binstart[dig[i]] + wh[dig[i]];
   }
 }
 
@@ -307,13 +307,13 @@ __global__ void __launch_bounds__(kOneBlockMax / kItems)
     const int c = D.col, shift = D.shift, bits = D.bits;
     const unsigned flip = D.flip;
     if (!(((c ? dv : dk) >> shift) & ((1u << bits) - 1u))) continue;
+    unsigned dig[kItems];
     int rank[kItems];
-    block_rank(
-        [&](int i) {
-          return digit_of((unsigned)(c == 0 ? key[i] : val[i]), flip, shift,
-                          bits);
-        },
-        chunk, 1 << bits, whist, binstart, wsum, rank);
+#pragma unroll
+    for (int i = 0; i < kItems; ++i)
+      dig[i] = digit_of((unsigned)(c == 0 ? key[i] : val[i]), flip, shift,
+                        bits);
+    block_rank(dig, chunk, 1 << bits, whist, binstart, wsum, rank);
 #pragma unroll
     for (int i = 0; i < kItems; ++i) {
       const int pos = (warp * kItems + i) * 32 + lane;
@@ -430,108 +430,66 @@ __global__ void radix_scan(Plan P, const unsigned* ors, int* counts,
 #ifndef RADIX_SCATTER_MINB
 #define RADIX_SCATTER_MINB 3
 #endif
-// Words of one stage of the scatter: the tile's moved columns, then the
-// segment's bin totals and the tile's offset in each bin.
-__host__ __device__ __forceinline__ int stage_words(int nops, int R) {
-  return nops * kTile + 2 * R;
-}
-
-// Persistent blocks, each walking tiles blockIdx.x, + gridDim.x, ...: while
-// one tile is ranked, reordered and written, cp.async brings the next one
-// (and its rows of totals and offsets) into the other stage.  A tile is
-// ranked stably, reordered in its stage so that global writes go out as runs
-// of one digit, and scattered to segment base + digit offset + tile offset.
 template <int NOPS>
 __global__ void __launch_bounds__(kTileThreads, RADIX_SCATTER_MINB)
     radix_scatter(Plan P, Bufs B, const unsigned* ors, const int* counts,
-                  const int* segtot, int p, int log_seg, long long tiles) {
+                  const int* segtot, int p, int log_seg) {
   const Route r = route(P, ors, p);
   if (!r.live) return;
-  extern __shared__ __align__(16) int smem[];
+  extern __shared__ int smem[];
   const Digit D = digit_at(P, p);
   const int c = D.col, shift = D.shift, bits = D.bits, R = 1 << bits;
   const unsigned flip = D.flip;
-  const int sw = stage_words(NOPS, R);
-  int* whist = smem + 2 * sw;
+  int* sk = smem;
+  int* sv = sk + kTile;
+  int* whist = sv + (NOPS == 2 ? kTile : 0);
   int* binstart = whist + (kTileThreads / 32) * (R + 1);
   int* rel = binstart + R + 1;
   int* wsum = rel + R + 1;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long tile = (long long)blockIdx.x * kTile;
+  const long long seg = tile >> log_seg << log_seg;
   const int* ik = src_keys(B, r.src);
   const int* iv = src_vals(B, r.src);
   const bool gen_rows = NOPS == 2 && r.first && P.rows_from_pos;
-  const bool load_v = NOPS == 2 && !gen_rows;
+
+  int key[kItems], val[kItems];
+  unsigned dig[kItems];
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const int pos = (warp * kItems + i) * 32 + lane;
+    key[i] = ik[tile + pos];
+    val[i] = NOPS == 2 ? (gen_rows ? (int)(tile - seg) + pos : iv[tile + pos])
+                       : 0;
+    dig[i] = digit_of((unsigned)(c == 0 ? key[i] : val[i]), flip, shift,
+                      bits);
+  }
+  // segment-relative start of each bin (scan of the segment's totals)
+  const int* segrow = segtot + (seg >> log_seg) * R;
+  for (int b = threadIdx.x; b < R; b += blockDim.x) rel[b] = segrow[b];
+  __syncthreads();
+  block_scan_excl(rel, R, wsum);
+  int rank[kItems];
+  block_rank(dig, kTile, R, whist, binstart, wsum, rank);
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    sk[rank[i]] = key[i];
+    if (NOPS == 2) sv[rank[i]] = val[i];
+  }
+  const int* crow = counts + (long long)blockIdx.x * R;
+  for (int b = threadIdx.x; b < R; b += blockDim.x)
+    rel[b] += crow[b] - binstart[b];
+  __syncthreads();
   int* ok = keys_at(B, r.dst);
   int* ov = vals_at(B, r.dst);
-
-  auto fetch = [&](long long t, int* st) {
-    const long long tile = t * kTile;
-    for (int q = 4 * threadIdx.x; q < kTile; q += 4 * blockDim.x) {
-      cp_async16(st + q, ik + tile + q);
-      if (load_v) cp_async16(st + kTile + q, iv + tile + q);
-    }
-    const int* segrow = segtot + (tile >> log_seg) * R;
-    const int* crow = counts + t * R;
-    for (int b = threadIdx.x; b < R; b += blockDim.x) {
-      cp_async4(st + NOPS * kTile + b, segrow + b);
-      cp_async4(st + NOPS * kTile + R + b, crow + b);
-    }
-  };
-
-  long long t = blockIdx.x;
-  if (t < tiles) fetch(t, smem);
-  cp_async_commit();
-  for (int it = 0; t < tiles; t += gridDim.x, ++it) {
-    int* cur = smem + (it & 1) * sw;
-    __syncthreads();  // the other stage's tile is written out
-    if (t + gridDim.x < tiles) fetch(t + gridDim.x, smem + (~it & 1) * sw);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();  // every thread's copies of this tile have landed
-    const long long tile = t * kTile;
-    const long long seg = tile >> log_seg << log_seg;
-    int key[kItems], val[kItems];
-#pragma unroll
-    for (int i = 0; i < kItems; ++i) {
-      const int pos = (warp * kItems + i) * 32 + lane;
-      key[i] = cur[pos];
-      val[i] = NOPS == 2 ? (gen_rows ? (int)(tile - seg) + pos
-                                     : cur[kTile + pos])
-                         : 0;
-    }
-    // rel: the segment-relative start of each bin, then of the tile's run
-    const int* toff = cur + NOPS * kTile + R;
-    for (int b = threadIdx.x; b < R; b += blockDim.x)
-      rel[b] = cur[NOPS * kTile + b];
-    __syncthreads();
-    block_scan_excl(rel, R, wsum);
-    int rank[kItems];
-    block_rank(
-        [&](int i) {
-          return digit_of((unsigned)(c == 0 ? key[i] : val[i]), flip, shift,
-                          bits);
-        },
-        kTile, R, whist, binstart, wsum, rank);
-    // every thread has read the stage: reorder the tile in it
-    int* sk = cur;
-    int* sv = cur + kTile;
-#pragma unroll
-    for (int i = 0; i < kItems; ++i) {
-      sk[rank[i]] = key[i];
-      if (NOPS == 2) sv[rank[i]] = val[i];
-    }
-    for (int b = threadIdx.x; b < R; b += blockDim.x)
-      rel[b] += toff[b] - binstart[b];
-    __syncthreads();
-    for (int j = threadIdx.x; j < kTile; j += blockDim.x) {
-      const int k = sk[j];
-      const int v = NOPS == 2 ? sv[j] : 0;
-      const unsigned d = digit_of((unsigned)(c == 0 ? k : v), flip, shift,
-                                  bits);
-      const long long gi = seg + rel[d] + j;
-      ok[gi] = k;
-      if (NOPS == 2) ov[gi] = v;
-    }
+  for (int j = threadIdx.x; j < kTile; j += blockDim.x) {
+    const int k = sk[j];
+    const int v = NOPS == 2 ? sv[j] : 0;
+    const unsigned d = digit_of((unsigned)(c == 0 ? k : v), flip, shift,
+                                bits);
+    const long long gi = seg + rel[d] + j;
+    ok[gi] = k;
+    if (NOPS == 2) ov[gi] = v;
   }
 }
 
@@ -542,8 +500,9 @@ __global__ void __launch_bounds__(kTileThreads, RADIX_SCATTER_MINB)
   } while (0)
 
 size_t scatter_smem(int nops, int R) {
-  return sizeof(int) * ((size_t)2 * stage_words(nops, R) +
-                        (kTileThreads / 32) * (R + 1) + 2 * (R + 1) + 32);
+  return sizeof(int) *
+         ((size_t)kTile * nops + (kTileThreads / 32) * (R + 1) + 2 * (R + 1) +
+          32);
 }
 
 size_t segment_smem(int nops, int chunk, int threads, int R) {
@@ -573,13 +532,9 @@ cudaError_t sort(const Plan& P, const Bufs& B, unsigned* ors, int* counts,
   const unsigned tiles = (unsigned)(n / kTile);
   const int tiles_per_seg = chunk / kTile;
   const long long nseg = n >> log_seg;
-  cudaError_t e = cudaFuncSetAttribute(
+  const cudaError_t e = cudaFuncSetAttribute(
       radix_scatter<NOPS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)scatter_smem(NOPS, 1 << max_bits));
-  int dev = 0, sms = 0;
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
   for (int p = 0; p < P.npass; ++p) {
     const int R = 1 << digit_at(P, p).bits;
@@ -589,15 +544,8 @@ cudaError_t sort(const Plan& P, const Bufs& B, unsigned* ors, int* counts,
     radix_scan<<<(unsigned)(nseg * groups), std::min(R, kScanBins), 0, st>>>(
         P, ors, counts, segtot, p, tiles_per_seg, groups);
     HJ3T_CHECK();
-    const size_t smem = scatter_smem(NOPS, R);
-    int per_sm = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, radix_scatter<NOPS>, kTileThreads, smem);
-    if (e != cudaSuccess) return e;
-    const unsigned grid =
-        (unsigned)std::min<long long>(tiles, (long long)sms * per_sm);
-    radix_scatter<NOPS><<<grid, kTileThreads, smem, st>>>(
-        P, B, ors, counts, segtot, p, log_seg, tiles);
+    radix_scatter<NOPS><<<tiles, kTileThreads, scatter_smem(NOPS, R), st>>>(
+        P, B, ors, counts, segtot, p, log_seg);
     HJ3T_CHECK();
   }
   return cudaSuccess;

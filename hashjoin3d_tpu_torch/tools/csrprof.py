@@ -74,10 +74,10 @@ def stages(dev, logp: int = 24, logt: int = 20) -> list[Stage]:
               lambda: direct_probe_strand_sorted(tbl, pk, unique=True)),
         Stage(f"1 _sort_probes (checks + K1, segment {chunk})",
               lambda: _sort_probes(pk, domain=T), top=True),
-        Stage("1a sort_segmented alone (K4 2-op)",
+        Stage("1a sort_segmented alone (K4 radix, 2-op)",
               lambda: sort_segmented(pk, chunk)),
         Stage("1b is_sorted_ascending check", lambda: is_sorted_ascending(pk)),
-        Stage("1c K1 packed sort alone",
+        Stage("1c K1 radix sort alone (keys + rows)",
               lambda: bitonic_sort_packed_segmented(pk, chunk, key_bits)),
         Stage(f"2 safe_lookup(direct) W={Wk} (coverage + K2)",
               lambda: safe_lookup(tbl.direct, skey, W=Wk), top=True),

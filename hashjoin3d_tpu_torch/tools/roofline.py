@@ -205,7 +205,7 @@ def kernel_rows(d: dict) -> list[Row]:
     lid = torch.arange(n, dtype=I32, device=dev) % seg
 
     return [
-        Row(f"K1 bitonic_sort_packed_segmented ({n >> 20}Mi keys < 2^{log_t},"
+        Row(f"K1 radix sort, keys + rows ({n >> 20}Mi keys < 2^{log_t},"
             f" segments {seg})",
             lambda: bitonic.bitonic_sort_packed_segmented(idx, seg, log_t),
             (idx,), n, sort_keys_equal,
@@ -226,7 +226,7 @@ def kernel_rows(d: dict) -> list[Row]:
             library=lambda: (torch.cumsum(fwd[0], 0, dtype=I32),
                              torch.cummax(fwd[1], 0)),
             library_name="cumsum + cummax (two calls)"),
-        Row(f"K4 bitonic_sort_segmented (2-op take_min, {n >> 20}Mi keys, "
+        Row(f"K4 radix sort (2-op take_min, {n >> 20}Mi keys, "
             f"segments {seg})",
             lambda: bitonic.bitonic_sort_segmented(wide, seg, payload=lid,
                                                    stable=False),
