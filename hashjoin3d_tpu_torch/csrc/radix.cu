@@ -25,14 +25,16 @@
 // 7, 7 and 6 bits) moves about 0.96 GB and K4 2-op take_min (four 8-bit
 // digits, the top one constant on the miss probe's keys and skipped) about
 // 1.06 GB: 0.33 and 0.36 ms at the H100's measured copy rate.  Digits are
-// at most 8 bits wide (ops/bitonic.py:RADIX_MAX_BITS): ranking 1024 bins and
-// writing runs of four keys made two 10-bit passes slower than three 7-bit
-// ones.
+// at most 8 bits wide (kMaxBits, ops/bitonic.py:RADIX_MAX_BITS): ranking 1024
+// bins and writing runs of four keys made two 10-bit passes slower than
+// three 7-bit ones.
 //
 // The pass plan -- digit widths, bit offsets, the column each digit comes
 // from (payload digits first for a stable 2-op sort, then the key's), the
 // sign flips -- is computed in Python (ops/bitonic.py:radix_plan) and passed
-// in as int32 words.  Two paths:
+// in as int32 words, with the word counts of the scratch buffers that the
+// wrapper sized; the entry point rejects scratch smaller than kTile and
+// kOneBlockMax below need.  Two paths:
 //
 //  * one block per segment (segments up to kOneBlockMax): the segment lives
 //    in shared memory through every pass; passes whose digit is the same for
@@ -64,7 +66,7 @@
 namespace {
 
 constexpr int kMaxPasses = 8;
-constexpr int kMaxBits = 10;
+constexpr int kMaxBits = 8;
 constexpr int kItems = 16;                     // elements per thread
 constexpr int kTileThreads = 256;              // multi-tile passes
 constexpr int kTile = kTileThreads * kItems;   // 4096 elements a tile
@@ -425,13 +427,10 @@ __global__ void radix_scan(Plan P, const unsigned* ors, int* counts,
   segtot[seg * R + b] = run;
 }
 
-// Blocks of the scatter kept resident per SM: the register cap that buys
-// (3: at most 85 registers, no spill) measured fastest on the H100 (PERF.md).
-#ifndef RADIX_SCATTER_MINB
-#define RADIX_SCATTER_MINB 3
-#endif
+// Three blocks of the scatter resident per SM: the register cap that buys
+// (at most 85 registers, no spill) measured fastest on the H100 (PERF.md).
 template <int NOPS>
-__global__ void __launch_bounds__(kTileThreads, RADIX_SCATTER_MINB)
+__global__ void __launch_bounds__(kTileThreads, 3)
     radix_scatter(Plan P, Bufs B, const unsigned* ors, const int* counts,
                   const int* segtot, int p, int log_seg) {
   const Route r = route(P, ors, p);
@@ -512,11 +511,9 @@ size_t segment_smem(int nops, int chunk, int threads, int R) {
 
 template <int NOPS>
 cudaError_t sort(const Plan& P, const Bufs& B, unsigned* ors, int* counts,
-                 int* segtot, long long n, int log_seg, cudaStream_t st) {
+                 int* segtot, long long n, int log_seg, int max_bits,
+                 cudaStream_t st) {
   const int chunk = 1 << log_seg;
-  int max_bits = 1;
-  for (int p = 0; p < P.npass; ++p)
-    max_bits = std::max(max_bits, digit_at(P, p).bits);
   if (chunk <= kOneBlockMax) {
     const int threads = std::max(32, chunk / kItems);
     const size_t smem = segment_smem(NOPS, chunk, threads, 1 << max_bits);
@@ -558,20 +555,22 @@ extern "C" {
 // K1 and K4.  keys int32[n], n a multiple of 2^log_seg (8 <= log_seg <= 30,
 // n <= 2^31); payload int32[n] or NULL; out_payload NULL for a 1-op sort.
 // With rows_from_pos (K1) the payload is the segment-local position and
-// `payload` is NULL.  tmp_keys / tmp_payload (n each), counts (n / 4096 x
+// `payload` is NULL.  tmp_keys / tmp_payload (n each), counts (n / kTile x
 // 2^max digit bits), segtot (segments x 2^max digit bits) and ors (4 words,
-// zeroed) are scratch, used by segments above 8192 only.  plan: npass, the
-// key and payload flips, then (column, shift, bits) per pass, LSD first.
+// zeroed) are scratch, used by segments above kOneBlockMax only; sizes holds
+// their int32 word counts in that order.  plan: npass, the key and payload
+// flips, then (column, shift, bits) per pass, LSD first.
 int hj3t_radix_sort_segmented(const void* keys, const void* payload,
                               void* out_keys, void* out_payload,
                               void* tmp_keys, void* tmp_payload, void* counts,
                               void* segtot, void* ors, const int* plan,
-                              long long n, int log_seg, int rows_from_pos,
-                              void* stream) {
+                              const long long* sizes, long long n,
+                              int log_seg, int rows_from_pos, void* stream) {
   const int nops = out_payload != nullptr ? 2 : 1;
   if (log_seg < 8 || log_seg > 30 || n <= 0 || n % (1LL << log_seg) != 0 ||
-      n > (1LL << 31) || plan == nullptr || plan[0] < 1 ||
-      plan[0] > kMaxPasses || (nops == 2 && !rows_from_pos && !payload) ||
+      n > (1LL << 31) || plan == nullptr || sizes == nullptr ||
+      plan[0] < 1 || plan[0] > kMaxPasses ||
+      (nops == 2 && !rows_from_pos && !payload) ||
       (nops == 1 && (payload || rows_from_pos)))
     return (int)cudaErrorInvalidValue;
   Plan P{};
@@ -579,6 +578,7 @@ int hj3t_radix_sort_segmented(const void* keys, const void* payload,
   P.flip_k = (unsigned)plan[1];
   P.flip_v = (unsigned)plan[2];
   P.rows_from_pos = rows_from_pos;
+  int max_bits = 1;
   for (int p = 0; p < P.npass; ++p) {
     const int col = plan[3 + 3 * p], shift = plan[4 + 3 * p],
               bits = plan[5 + 3 * p];
@@ -588,9 +588,15 @@ int hj3t_radix_sort_segmented(const void* keys, const void* payload,
     const unsigned long long w = (unsigned)(col << 15 | shift << 4 | bits);
     (p < 4 ? P.pw0 : P.pw1) |= w << (16 * (p & 3));
     if (col == 1) P.payload_digits = 1;
+    max_bits = std::max(max_bits, bits);
   }
+  const long long bins = 1LL << max_bits;
   if ((1LL << log_seg) > kOneBlockMax &&
-      (!tmp_keys || !counts || !segtot || !ors || (nops == 2 && !tmp_payload)))
+      (!tmp_keys || !counts || !segtot || !ors ||
+       (nops == 2 && !tmp_payload) || sizes[0] < n ||
+       (nops == 2 && sizes[1] < n) ||
+       sizes[2] < n / kTile * bins || sizes[3] < (n >> log_seg) * bins ||
+       sizes[4] < 4))
     return (int)cudaErrorInvalidValue;
   Bufs B{};
   B.in_k = static_cast<const int*>(keys);
@@ -604,8 +610,8 @@ int hj3t_radix_sort_segmented(const void* keys, const void* payload,
   int* cnt = static_cast<int*>(counts);
   int* tot = static_cast<int*>(segtot);
   const cudaError_t e =
-      nops == 2 ? sort<2>(P, B, o, cnt, tot, n, log_seg, st)
-                : sort<1>(P, B, o, cnt, tot, n, log_seg, st);
+      nops == 2 ? sort<2>(P, B, o, cnt, tot, n, log_seg, max_bits, st)
+                : sort<1>(P, B, o, cnt, tot, n, log_seg, max_bits, st);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 

@@ -60,9 +60,9 @@ _SIGNATURES = {
     },
     "radix.cu": {
         # keys, payload, out_keys, out_payload, tmp_keys, tmp_payload,
-        # counts, segtot, ors, plan (host int32 words), n, log_seg,
-        # rows_from_pos, stream
-        "hj3t_radix_sort_segmented": ([_P] * 10 + [_L, _I, _I, _P], _I),
+        # counts, segtot, ors, plan (host int32 words), scratch sizes (host
+        # int64 words), n, log_seg, rows_from_pos, stream
+        "hj3t_radix_sort_segmented": ([_P] * 11 + [_L, _I, _I, _P], _I),
     },
     "probes.cu": {
         # arguments as in each entry point's comment there

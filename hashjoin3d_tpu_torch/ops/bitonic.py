@@ -13,7 +13,7 @@ package's, the kernels behind them are a segmented LSD radix sort
   row ids for keys below ``2^key_bits``, in (key, row) order.
 
 :func:`radix_plan` computes the kernels' passes: digit widths, bit offsets,
-the column each digit comes from, the ping-pong and the scratch sizes.  On
+the column each digit comes from, and the scratch sizes.  On
 CUDA tensors both wrappers launch ``csrc/radix.cu`` with that plan; on CPU
 tensors they run :func:`plain_sort_segmented`, a per-segment ``torch.sort``
 that is lexicographic by (key, payload) -- a valid result for every tie
@@ -35,22 +35,21 @@ from .layout import I32, I64, SIGN
 MAX_SEGMENT_BITONIC = 1 << 18
 
 #: Elements of one tile of a multi-tile pass (256 threads x 16) and the
-#: largest segment one block sorts whole in shared memory (512 threads x 16).
+#: largest segment one block sorts whole in shared memory (512 threads x 16):
+#: ``kTile`` and ``kOneBlockMax`` of ``csrc/radix.cu``, whose entry point
+#: rejects scratch smaller than its own layout needs.
 RADIX_TILE = 4096
 RADIX_ONE_BLOCK_MAX = 8192
-#: Widest digit: 8 bits (K4: four digits; K1 at 20 bits: 7 + 7 + 6).  The
-#: kernels take up to 10 (1024 bins); three 7-bit digits measured faster for
-#: K1 than two 10-bit ones on the H100 (PERF.md).
+#: Widest digit, ``kMaxBits`` there: 8 bits (K4: four digits; K1 at 20 bits:
+#: 7 + 7 + 6).  Three 7-bit digits measured faster for K1 than two 10-bit
+#: ones on the H100 (PERF.md).
 RADIX_MAX_BITS = 8
-RADIX_MAX_BITS_KERNEL = 10
-RADIX_MAX_PASSES = 8
 
 
 class RadixPass(NamedTuple):
     column: int   #: 0 the keys, 1 the payload
     shift: int    #: the digit's lowest bit
     bits: int     #: the digit's width
-    dest: str     #: "out", "scratch" (multi-tile ping-pong) or "shared"
 
 
 class RadixPlan(NamedTuple):
@@ -68,7 +67,7 @@ class RadixPlan(NamedTuple):
         """The plan as the kernel's int32 words: npass, the two flips, then
         (column, shift, bits) per pass."""
         return [len(self.passes), *self.flips,
-                *(w for p in self.passes for w in p[:3])]
+                *(w for p in self.passes for w in p)]
 
     def scratch_words(self, n: int) -> dict:
         """int32 words of each scratch buffer for ``n`` keys (0: unused).
@@ -84,23 +83,22 @@ class RadixPlan(NamedTuple):
                     segtot=n // self.chunk * bins, ors=4)
 
 
-def _digits(column: int, bits: int, max_bits: int) -> list:
-    """``bits`` low bits of a column in as few digits as ``max_bits``
-    allows, widths as even as possible (8-bit cap: 20 -> 7 + 7 + 6,
-    32 -> 4 x 8)."""
-    npass = -(-bits // max_bits)
+def _digits(column: int, bits: int) -> list:
+    """``bits`` low bits of a column in as few digits of at most
+    ``RADIX_MAX_BITS`` as will do, widths as even as possible (20 -> 7 + 7
+    + 6, 32 -> 4 x 8)."""
+    npass = -(-bits // RADIX_MAX_BITS)
     base, extra = divmod(bits, npass)
     out, shift = [], 0
     for i in range(npass):
         w = base + (i < extra)
-        out.append((column, shift, w))
+        out.append(RadixPass(column, shift, w))
         shift += w
     return out
 
 
 def radix_plan(key_bits: int, chunk: int, nops: int, stable: bool,
-               unsigned: bool = True,
-               max_bits: int | None = None) -> RadixPlan:
+               unsigned: bool = True) -> RadixPlan:
     """Pass plan of a segmented LSD radix sort of ``key_bits``-bit keys in
     ``chunk`` segments, moving ``nops`` columns.
 
@@ -109,28 +107,16 @@ def radix_plan(key_bits: int, chunk: int, nops: int, stable: bool,
     Otherwise only key digits run; a stable LSD sort keeps equal keys in
     input order, so K1's rows, which ascend on input, come out in (key, row)
     order.  Signed keys and payloads flip the sign bit before their digits
-    are taken.  On the multi-tile path pass ``i`` of ``npass`` writes the
-    output when ``npass - 1 - i`` is even, else the scratch, so the last
-    pass ends in the output; the kernel skips a pass whose digit is the
-    same for every key and counts the ping-pong over the passes that run.
+    are taken.  The ping-pong is not part of the plan: the kernel skips a
+    pass whose digit is the same for every key, found on the device, and
+    counts the parity over the passes that run, from the last one, which
+    writes the output.
     """
-    max_bits = max_bits or RADIX_MAX_BITS
-    if not 1 <= max_bits <= RADIX_MAX_BITS_KERNEL:
-        raise ValueError(f"digits of {max_bits} bits: the kernels take 1 to "
-                         f"{RADIX_MAX_BITS_KERNEL}")
     if not 1 <= key_bits <= 32 or nops not in (1, 2):
         raise ValueError(f"key_bits {key_bits} / nops {nops} out of range")
-    digits = _digits(1, 32, max_bits) if nops == 2 and stable else []
-    digits += _digits(0, key_bits, max_bits)
-    if len(digits) > RADIX_MAX_PASSES:
-        raise ValueError(f"{len(digits)} passes exceed {RADIX_MAX_PASSES}")
-    one_block = chunk <= RADIX_ONE_BLOCK_MAX
-    npass = len(digits)
-    passes = tuple(
-        RadixPass(c, s, b, "shared" if one_block else
-                  "out" if (npass - 1 - i) % 2 == 0 else "scratch")
-        for i, (c, s, b) in enumerate(digits))
-    return RadixPlan(passes, (0 if unsigned else SIGN, SIGN), chunk, nops)
+    digits = _digits(1, 32) if nops == 2 and stable else []
+    return RadixPlan(tuple(digits + _digits(0, key_bits)),
+                     (0 if unsigned else SIGN, SIGN), chunk, nops)
 
 
 def _check(keys: torch.Tensor, chunk: int, payload=None):
@@ -171,18 +157,21 @@ def _radix(name: str, plan: RadixPlan, keys: torch.Tensor,
     n, dev = keys.shape[0], keys.device
     out_k = torch.empty_like(keys)
     out_v = torch.empty_like(keys) if plan.nops == 2 else None
+    sizes = plan.scratch_words(n)
     # held here until the launch is queued: a buffer dropped earlier goes
     # back to the allocator, which may hand its memory to the next one
     scratch = [None if not words else
                (torch.zeros if key == "ors" else torch.empty)(
                    words, dtype=I32, device=dev)
-               for key, words in plan.scratch_words(n).items()]
+               for key, words in sizes.items()]
     words = plan.words()
     c_words = (ctypes.c_int * len(words))(*words)
+    c_sizes = (ctypes.c_longlong * len(sizes))(*sizes.values())
     rc = kernels.lib().hj3t_radix_sort_segmented(
         kernels.ptr(keys), kernels.ptr(payload), kernels.ptr(out_k),
         kernels.ptr(out_v), *map(kernels.ptr, scratch),
-        ctypes.cast(c_words, ctypes.c_void_p), n,
+        ctypes.cast(c_words, ctypes.c_void_p),
+        ctypes.cast(c_sizes, ctypes.c_void_p), n,
         plan.chunk.bit_length() - 1, int(rows_from_pos),
         kernels.stream(dev))
     kernels.count_launch(rc, name)

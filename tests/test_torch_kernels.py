@@ -313,8 +313,8 @@ def test_radix_plan_k1_matches_jax_kernel(key_bits, chunk, P):
     (31, 2, False, [8, 8, 8, 7]), (32, 1, True, [8, 8, 8, 8]),
     (32, 2, False, [8, 8, 8, 8]), (32, 2, True, [8] * 8)])
 def test_radix_plan_passes(key_bits, nops, stable, widths):
-    """Digits per key width, columns and offsets, and the ping-pong: the
-    last pass writes the output and the passes alternate before it."""
+    """Digits per key width, columns and offsets, and the kernel's words;
+    the passes do not depend on the segment size."""
     plan = radix_plan(key_bits, 1 << 18, nops, stable)
     assert [p.bits for p in plan.passes] == widths
     cols = [p.column for p in plan.passes]
@@ -325,12 +325,11 @@ def test_radix_plan_passes(key_bits, nops, stable, widths):
         bits = [p.bits for p in plan.passes if p.column == c]
         assert shifts == [sum(bits[:i]) for i in range(len(bits))]
     assert sum(p.bits for p in plan.passes if p.column == 0) == key_bits
-    dest = [p.dest for p in plan.passes]
-    assert dest[-1] == "out"
-    assert all(a != b for a, b in zip(dest, dest[1:]))
     assert plan.words() == [len(widths), 0, SIGN, *(
         w for p in plan.passes for w in (p.column, p.shift, p.bits))]
-    assert radix_plan(key_bits, 256, nops, stable).passes[0].dest == "shared"
+    small = radix_plan(key_bits, 256, nops, stable)
+    assert small.one_block and not plan.one_block
+    assert small.passes == plan.passes
 
 
 def test_radix_plan_scratch():
@@ -345,14 +344,13 @@ def test_radix_plan_scratch():
                           "ors"]  # the kernel's argument order
     assert size == dict(tmp_keys=1 << 24, tmp_payload=1 << 24,
                         counts=(1 << 12) * 128, segtot=64 * 128, ors=4)
-    assert radix_plan(20, 1 << 18, 2, False, max_bits=10).scratch_words(
-        1 << 24)["counts"] == (1 << 12) * 1024
+    assert radix_plan(32, 1 << 18, 2, True).scratch_words(1 << 24)[
+        "counts"] == (1 << 12) * 256  # eight 8-bit passes, one layout
     assert radix_plan(32, 1 << 14, 1, False).scratch_words(1 << 14) == dict(
         tmp_keys=1 << 14, tmp_payload=0, counts=4 * 256, segtot=256, ors=4)
-    with pytest.raises(ValueError):
-        radix_plan(32, 1 << 18, 2, True, max_bits=4)  # 16 passes
-    with pytest.raises(ValueError):
-        radix_plan(20, 1 << 18, 2, False, max_bits=11)  # 2048 bins
+    for bad in ((0, 1), (33, 1), (20, 3)):
+        with pytest.raises(ValueError):
+            radix_plan(bad[0], 1 << 18, bad[1], False)
 
 
 def test_bitonic_sort_packed_plain_matches_jax_kernel():
