@@ -29,9 +29,13 @@ probe 2^24 foreign keys).  Phases, any failure exits non-zero:
 4. launch counts, reset just before phase 2: K1, K2, K3 launched in phase 2,
    K4 in phase 3 (R20/S24 never misses, so its main path bypasses K4);
 5. the kernels only the measurement tools reach: K2b (the windowed lookup
-   with a pipelined ring window) bit-equal to K2 and to the plain lookup on phase 2's
-   table and K1-sorted probes at W = 8192, and on the same stream with -1
-   holes; P1-P9 (``ops/probes.py``) through the mosaic_probe runner, each
+   with TMA-fed keys and table reads from L2) bit-equal to K2 and to the
+   plain lookup on phase 2's table, at W = 8192 and 32768, on the K1-sorted
+   probes and five edge streams made from them (-1 holes, a base that moves
+   back, a base that jumps, an all-miss chunk whose base wraps, keys past
+   the table); P8 equal to its plain version at five (row offset, rows),
+   and its host and device time per call beside ``clone``'s;
+   P1-P9 (``ops/probes.py``) through the mosaic_probe runner, each
    equal to its plain version at the TPU probes' sizes, counts reset just
    before it: each P kernel must launch there; then the roofline and
    csrprof paths (``hashjoin3d_tpu_torch/tools``) driven once with a short
@@ -85,6 +89,8 @@ KERNELS = {
         "hashjoin3d_tpu/ops/windowed.py:115", "windowed_lookup_db"),
 }
 TOOL_MIN_TIME = 0.005
+#: P8's (row offset, rows) checks; -8 is the last 8 rows
+P8_CASES = ((3, 8), (0, 1), (7, 64), (-8, 8), (5, 13))
 
 
 class SmokeFailure(RuntimeError):
@@ -328,33 +334,84 @@ def same_join(got, want, what):
             f"{what}: result pairs differ from the plain run")
 
 
+def edge_streams(sk, T):
+    """The K2b edge streams at full size, from the K1-sorted probes ``sk``
+    (2^18-key segments, each sorted over [0, T)): sorted; 20% -1 holes
+    (seed 2); rolled by a third of a chunk, so each segment's first keys
+    fall mid-chunk and the base moves back there; half the keys in the
+    table's bottom quarter and half in its top (the base jumps past any
+    window); chunk 5 all ``I32_MIN + 3`` (``kmax - W`` wraps); the last
+    1.5 chunks past the table, the last 3 keys ``I32_MAX``."""
+    from hashjoin3d_tpu_torch.ops.windowed import DEFAULT_C as C
+
+    n, dev = sk.shape[0], sk.device
+    gen = torch.Generator(device=dev).manual_seed(2)
+    i = torch.arange(n, device=dev)
+    wrap = sk.clone()
+    wrap[5 * C:6 * C] = -2**31 + 3
+    past = sk.clone()
+    past[-3 * C // 2:] = T + torch.arange(3 * C // 2, device=dev,
+                                          dtype=sk.dtype)
+    past[-3:] = 2**31 - 1
+    return {
+        "sorted": sk,
+        "holes": torch.where(torch.rand(sk.shape, generator=gen,
+                                        device=dev) < 0.2, -1, sk),
+        "new_segment": torch.roll(sk, C // 3),
+        "gap": torch.where(i < n // 2, sk >> 2, (sk >> 2) + 3 * T // 4),
+        "all_miss_wrap": wrap,
+        "past_table": past}
+
+
 def phase5_k2b(direct, sa, dev):
-    """K2b vs K2 vs the plain lookup on the main path's covered stream and
-    on the same stream with 20% -1 holes (T = 2^20, 2^24 keys, W = 8192)."""
+    """K2b vs K2 vs the plain lookup, bit-equal, on every edge stream at
+    W = 8192 and W = 32768 (T = 2^20, 2^24 keys); times at W = 8192 on the
+    main path's sorted stream."""
     from hashjoin3d_tpu_torch.ops import bitonic, windowed
 
     sk, _ = bitonic.bitonic_sort_packed_segmented(sa, SEGMENT, KEY_BITS)
-    gen = torch.Generator(device=dev).manual_seed(2)
-    holes = torch.where(torch.rand(sk.shape, generator=gen, device=dev) < 0.2,
-                        -1, sk)
     err = 0
-    for keys, what in ((sk, "sorted"), (holes, "holes")):
-        db = windowed.windowed_lookup(direct, keys, W=WINDOW, db=True)
-        k2 = windowed.windowed_lookup(direct, keys, W=WINDOW)
-        plain = windowed.windowed_lookup_plain(direct, keys, W=WINDOW)
-        require(torch.equal(db, k2), f"K2b differs from K2 ({what})")
-        require(torch.equal(db, plain), f"K2b differs from plain ({what})")
-        err = max(err, max_abs_err(db, plain))
+    for what, keys in edge_streams(sk, direct.shape[0]).items():
+        for W in (WINDOW, 32768):
+            db = windowed.windowed_lookup(direct, keys, W=W, db=True)
+            k2 = windowed.windowed_lookup(direct, keys, W=W)
+            plain = windowed.windowed_lookup_plain(direct, keys, W=W)
+            require(torch.equal(db, k2), f"K2b differs from K2 ({what}, "
+                    f"W = {W})")
+            require(torch.equal(db, plain), f"K2b differs from plain "
+                    f"({what}, W = {W})")
+            err = max(err, max_abs_err(db, plain))
     return dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: windowed.windowed_lookup(direct, sk, W=WINDOW,
                                                     db=True)),
         k2_ms_same_call=cuda_ms(lambda: windowed.windowed_lookup(
             direct, sk, W=WINDOW)),
+        w32768_ms=cuda_ms(lambda: windowed.windowed_lookup(
+            direct, sk, W=32768, db=True)),
         plain_ms=cuda_ms(lambda: windowed.windowed_lookup_plain(
             direct, sk, W=WINDOW)),
         library_ms=cuda_ms(lambda: torch.index_select(direct, 0, sk)),
         **bound(direct, sk, sk))
+
+
+def phase5_p8(dev):
+    """P8 equal to its plain version at each (row offset, rows) checked,
+    on 2048 rows of 128 words; its host and device time per call beside
+    ``clone``'s of the same rows."""
+    from hashjoin3d_tpu_torch.ops import probes
+    from hashjoin3d_tpu_torch.utils.measure import host_device_us
+
+    src = torch.arange(1 << 18, dtype=torch.int32, device=dev).view(-1, 128)
+    for off, nrows in P8_CASES:
+        off = off % src.shape[0]
+        require(torch.equal(probes.row_copy(src, off, nrows),
+                            probes.row_copy_plain(src, off, nrows)),
+                f"P8 differs from plain at row {off}, {nrows} rows")
+    p8 = host_device_us(lambda: probes.row_copy(src, 3))
+    clone = host_device_us(lambda: src[3:11].clone())
+    return dict(p8_host_us=p8[0], p8_device_us=p8[1],
+                clone_host_us=clone[0], clone_device_us=clone[1])
 
 
 def phase5_probes(dev):
@@ -508,8 +565,12 @@ def main() -> int:
     results["K2b windowed_lookup db"] = phase5_k2b(table_gpu.direct, exp.sa,
                                                    dev)
     r = results["K2b windowed_lookup db"]
-    print(f"phase 5 K2b: bit-equal to K2 and plain, {r['ms']:.4f} ms vs K2 "
-          f"{r['k2_ms_same_call']:.4f} ms in the same call")
+    print(f"phase 5 K2b: bit-equal to K2 and plain on every edge stream at "
+          f"W = {WINDOW} and 32768, {r['ms']:.4f} ms vs K2 "
+          f"{r['k2_ms_same_call']:.4f} ms in the same call (W = 32768: "
+          f"{r['w32768_ms']:.4f} ms)")
+    p8 = phase5_p8(dev)
+    print(f"phase 5 P8 host/device per call on {card}: " + json.dumps(p8))
     probe_results, probe_tools = phase5_probes(dev)
     print(f"launches on the probe runner's path {probe_tools}")
     del exp, table_gpu, out_gpu, out3

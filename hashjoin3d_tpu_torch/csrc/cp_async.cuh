@@ -1,4 +1,4 @@
-// cp.async helpers shared by windowed.cu (K2b) and probes.cu (P7, P8):
+// cp.async helpers of probes.cu (P7):
 // 16-byte global -> shared copies that bypass L1, grouped and awaited.
 #pragma once
 

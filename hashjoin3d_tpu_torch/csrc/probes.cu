@@ -17,8 +17,9 @@
 // under the bf16 rate per byte moved, so P4 is memory bound too.
 //
 // Design per probe: a row of 128 words is one warp's work (4 words a lane);
-// shared memory replaces the TPU's lane gathers (P1, P2, P5); staged copies
-// (P7, P8) go through shared memory with cp.async 16-byte copies.
+// shared memory replaces the TPU's lane gathers (P1, P2, P5); P7's staged
+// copy goes through shared memory with cp.async 16-byte copies, P8 copies
+// global to global.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -218,20 +219,15 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// P8: out[i, :] = src[off + i, :] for i < nrows, staged through shared
-// memory with cp.async from a row offset that need not be aligned to 8 rows.
+// P8: out = n4 16-byte words from src (src[off:off + nrows] of rows of 512
+// bytes).  On Hopper a row offset that is not a multiple of 8 is no special
+// case: each thread copies one 16-byte word global to global, so 256
+// threads cover 8 rows, with no shared memory and no wait.
 __global__ void __launch_bounds__(kThreads)
-    row_copy_kernel(const int* __restrict__ src, int* __restrict__ out,
-                    long long off, int nrows) {
-  extern __shared__ int4 rows4[];
-  const int4* s = reinterpret_cast<const int4*>(src + off * kLanes);
-  const int n4 = nrows * kLanes / 4;
-  for (int i = threadIdx.x; i < n4; i += kThreads) cp_async16(rows4 + i, s + i);
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-  int4* o = reinterpret_cast<int4*>(out);
-  for (int i = threadIdx.x; i < n4; i += kThreads) o[i] = rows4[i];
+    row_copy_kernel(const int4* __restrict__ src, int4* __restrict__ out,
+                    int n4) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i < n4) out[i] = __ldg(src + i);
 }
 
 // P9: out[r, v] = #{j : x[r, j] == v} for v < 16, 0 in lanes 16..127.  One
@@ -384,9 +380,11 @@ int hj3t_probe_row_copy(const void* src, void* out, long long src_rows,
                         long long off, int nrows, void* stream) {
   if (nrows < 1 || nrows > 64 || off < 0 || off + nrows > src_rows)
     return (int)cudaErrorInvalidValue;
-  row_copy_kernel<<<1, kThreads, nrows * kLanes * sizeof(int),
+  const int n4 = nrows * kLanes / 4;
+  row_copy_kernel<<<(unsigned)((n4 + kThreads - 1) / kThreads), kThreads, 0,
                     as_stream(stream)>>>(
-      static_cast<const int*>(src), static_cast<int*>(out), off, nrows);
+      static_cast<const int4*>(src) + off * (kLanes / 4),
+      static_cast<int4*>(out), n4);
   return (int)cudaGetLastError();
 }
 

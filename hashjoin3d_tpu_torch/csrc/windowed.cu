@@ -20,46 +20,39 @@
 // indexed shared-memory load.  Nothing of the TPU's one-hot row-select loop
 // (windowed.py:93-111) remains: Hopper has a real indexed load.
 //
-// K2b (hj3t_windowed_lookup_db): the same function with the window load
-// pipelined.  Replaces hashjoin3d_tpu/ops/windowed.py:_windowed_kernel_db
-// (the same pallas_call with db=True), which started chunk j+1's window DMA
-// before chunk j's select loop over a sequential grid.  Here a persistent
-// grid (as many blocks as fit on the SMs) gives each block a contiguous run
-// of chunks.  The block keeps the table in a ring of S words of shared
-// memory (S the power of two >= 1.5 (W + 1024), db_ring_words; table word
-// p in slot p mod S) and three key slots.  While chunk j
-// resolves, cp.async 16-byte copies bring chunk j+2's keys and only the part
-// of chunk j+1's window that is not resident yet: consecutive chunks of a
-// sorted stream share most of their windows.  Chunk j+1's base (its key maximum) comes from its keys,
-// which landed one chunk earlier.  A base that moves back (a new sorted
-// segment) or jumps by more than S - (W + 1024) reloads the whole window
-// after chunk j's lookups.  Bound: keys in and words out (HBM) and the
-// window words staged from L2; the ring stages each table word about once
-// per sorted run instead of once per chunk.  What limits it in practice is
-// the per-chunk chain (keys land, block max, window copy, two barriers)
-// when few blocks fit an SM: at W = 8192 (76 KiB, two blocks per SM) it
-// only matches K2, at W <= 4096 it is faster.  512 threads a block were
-// slower at every W (PERF.md), so blocks keep 256.
+// K2b (hj3t_windowed_lookup_db): the same function, bit for bit, with the
+// next chunk's keys fed during this chunk's lookups.  Replaces
+// hashjoin3d_tpu/ops/windowed.py:_windowed_kernel_db (the same pallas_call
+// with db=True), which started chunk j+1's window DMA before chunk j's
+// select loop over a sequential grid.  The TPU staged the window because
+// Mosaic had no indexed load; Hopper has one, and the whole table (2^20
+// words = 4 MiB on the main path) stays in the 50 MB L2, so K2b stages no
+// window at all.  A persistent grid (as many blocks as fit on the SMs)
+// gives each block a contiguous run of chunks.  One elected thread feeds
+// chunk c+2's keys into shared memory by a 1-D TMA bulk copy on an mbarrier
+// while chunk c resolves (three key slots with phase bits); the chunk's base
+// comes from a block max over its landed keys, and each key in its window
+// reads table[key] through the read-only path (__ldg): a sorted 1024-key
+// chunk of a 2^18-key segment spans about 4096 words, so a warp's 128 keys
+// fall in about 16 lines of 128 bytes.  A key outside its window reads
+// nothing and yields 0, so no read leaves [0, T).  Results go out as
+// 16-byte stores.  Shared memory is only the key slots (12 KiB at
+// C = 1024), so blocks fill the SMs and W is not limited by shared memory.
+// Bound: keys in, words out, the table once (HBM).  The device queries, the
+// occupancy and the shared-memory attribute are taken once per device and
+// chunk size, not on every call.
 
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <climits>
 #include <cstdint>
-
-#include "cp_async.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-
-// K2b's ring of table words: the power of two >= 1.5 (W + 1024), so a
-// window's base may advance by half a window without waiting.
-int db_ring_words(int W) {
-  const int R = W + 1024;
-  int S = 1024;
-  while (S < R + R / 2) S *= 2;
-  return S;
-}
+constexpr int kSlots = 3;         // K2b's key slots: two chunks in flight
+constexpr int kMaxDevices = 64;
 
 // chunk_bases in int32: kmax - W wraps exactly as the reference's i32 math
 __device__ __forceinline__ int window_base(int kmax, int W, long long T) {
@@ -105,99 +98,109 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// K2b.  Chunks [first, last) of this block; the ring holds table words
-// [lo, hi) (hi - lo <= S); key slot c % 3 holds chunk c's keys.  Iteration
-// c: wait for the copies issued in iteration c-1 (chunk c's missing window
-// words, chunk c+1's keys), take chunk c+1's base, issue its missing window
-// words unless they would overwrite chunk c's window, issue chunk c+2's
-// keys, resolve chunk c, and reload chunk c+1's window whole if it had to
-// wait.  The barrier at the top of iteration c also retires iteration c-1's
-// reads of the key slot that iteration c refills.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// One thread: `bar` expects `bytes`, and a 1-D TMA bulk copy brings them
+// from global `src` to shared `dst` (both 16-byte aligned, bytes % 16 == 0).
+__device__ __forceinline__ void tma_load(void* dst, const void* src,
+                                         unsigned bytes,
+                                         unsigned long long* bar) {
+  const unsigned b = smem_addr(bar);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(b)
+      : "memory");
+}
+
+// Wait until phase `parity` of `bar` has completed.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  const unsigned b = smem_addr(bar);
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(b), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// K2b's lookup: table[key] for a key in [base, base + R), else 0 (no read).
+__device__ __forceinline__ int db_lookup(const int* __restrict__ table,
+                                         int key, int base, unsigned R) {
+  return (unsigned)key - (unsigned)base < R ? __ldg(table + key) : 0;
+}
+
+// K2b.  Chunks [first, last) of this block; chunk c's keys land in slot
+// (c - first) % kSlots, whose mbarrier completes one phase per use.  Thread
+// 0 feeds the first kSlots chunks, then, in iteration c, chunk c - 1 +
+// kSlots into the slot chunk c - 1 used: the barriers of iteration c's block
+// max come after every thread's last read of that slot.
 __global__ void __launch_bounds__(kThreads)
     windowed_db_kernel(const int* __restrict__ table,
                        const int* __restrict__ keys, int* __restrict__ out,
-                       long long T, int C, int W, int S, long long nchunks) {
-  extern __shared__ int4 smem4[];
+                       long long T, int C, int W, long long nchunks) {
+  extern __shared__ int4 slot4[];  // kSlots chunks of C keys
+  __shared__ __align__(8) unsigned long long landed[kSlots];
   __shared__ int warp_max[kThreads / 32];
-  const int R = W + 1024;
-  int* ring = reinterpret_cast<int*>(smem4);
-  int* key_slots = ring + S;
-
   const long long first = (long long)blockIdx.x * nchunks / gridDim.x;
   const long long last = ((long long)blockIdx.x + 1) * nchunks / gridDim.x;
   if (first >= last) return;
-
-  auto kslot = [&](long long c) { return key_slots + (int)(c % 3) * C; };
-  auto load_keys = [&](long long c) {
-    const int4* src = reinterpret_cast<const int4*>(keys + c * C);
-    int4* dst = reinterpret_cast<int4*>(kslot(c));
-    for (int i = threadIdx.x; i < C / 4; i += kThreads)
-      cp_async16(dst + i, src + i);
+  const int C4 = C / 4;
+  const unsigned R = (unsigned)W + 1024u;
+  auto feed = [&](long long c) {
+    const int s = (int)((c - first) % kSlots);
+    tma_load(slot4 + s * C4, keys + c * C, (unsigned)C * 4u, &landed[s]);
   };
-  // table words [a, b), both multiples of 4, into their ring slots
-  auto load_words = [&](int a, int b) {
-    for (int p = a + 4 * (int)threadIdx.x; p < b; p += 4 * kThreads)
-      cp_async16(ring + (p & (S - 1)), table + p);
-  };
-  auto base_of = [&](long long c) {
-    const int* k = kslot(c);
-    int kmax = INT_MIN;
-    for (int i = threadIdx.x; i < C; i += kThreads) kmax = max(kmax, k[i]);
-    return window_base(block_max(kmax, warp_max), W, T);
-  };
-
-  int lo, hi;  // resident table words, the same in every thread
-  // Load what window [b, b + R) lacks without touching the slots of
-  // window [busy, busy + R); false if that is not possible.
-  auto extend = [&](int b, int busy) {
-    if (b >= lo && b + R <= hi) return true;
-    if (b < lo || (long long)b + R - S > busy) return false;
-    load_words(b > hi ? b : hi, b + R);
-    lo = b > hi ? b : max(lo, b + R - S);
-    hi = b + R;
-    return true;
-  };
-  auto reload = [&](int b) {
-    load_words(b, b + R);
-    lo = b;
-    hi = b + R;
-  };
-
-  // prologue: chunk first's keys, then its window and chunk first+1's keys
-  load_keys(first);
-  cp_async_commit();
-  cp_async_wait_all();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSlots; ++s) mbar_init(&landed[s]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (long long c = first; c < last && c < first + kSlots; ++c) feed(c);
+  }
   __syncthreads();
-  int base = base_of(first);
-  reload(base);
-  if (first + 1 < last) load_keys(first + 1);
-  cp_async_commit();
 
+  int4* out4 = reinterpret_cast<int4*>(out);
   for (long long c = first; c < last; ++c) {
-    cp_async_wait_all();
-    __syncthreads();
-    int next_base = 0;
-    bool wait = false;
-    if (c + 1 < last) {
-      next_base = base_of(c + 1);
-      wait = !extend(next_base, base);
-      if (c + 2 < last) load_keys(c + 2);
-      cp_async_commit();
+    const long long k = c - first;
+    const int s = (int)(k % kSlots);
+    mbar_wait(&landed[s], (unsigned)(k / kSlots) & 1u);
+    const int4* kk = slot4 + s * C4;
+    int kmax = INT_MIN;
+    for (int i = threadIdx.x; i < C4; i += kThreads) {
+      const int4 v = kk[i];
+      kmax = max(kmax, max(max(v.x, v.y), max(v.z, v.w)));
     }
-    const int* k = kslot(c);
-    int* o = out + c * C;
-    for (int i = threadIdx.x; i < C; i += kThreads) {
-      const unsigned delta = (unsigned)k[i] - (unsigned)base;
-      o[i] = delta < (unsigned)R ? ring[k[i] & (S - 1)] : 0;
+    const int base = window_base(block_max(kmax, warp_max), W, T);
+    if (threadIdx.x == 0 && k > 0 && c - 1 + kSlots < last) feed(c - 1 + kSlots);
+    int4* o = out4 + c * C4;
+    for (int i = threadIdx.x; i < C4; i += kThreads) {
+      const int4 v = kk[i];
+      o[i] = make_int4(db_lookup(table, v.x, base, R),
+                       db_lookup(table, v.y, base, R),
+                       db_lookup(table, v.z, base, R),
+                       db_lookup(table, v.w, base, R));
     }
-    if (wait) {
-      __syncthreads();
-      reload(next_base);
-      cp_async_commit();
-    }
-    base = next_base;
   }
 }
+
+// K2b's grid per device, for the key slots' size it was taken at:
+// (slot bytes << 32) | blocks, 0 until the device's first call.  A racing
+// first call computes and stores the same word.
+std::atomic<unsigned long long> g_db_grid[kMaxDevices];
 
 }  // namespace
 
@@ -226,42 +229,44 @@ int hj3t_windowed_lookup(const void* table, const void* keys, void* out,
   return (int)cudaGetLastError();
 }
 
-// K2b: as hj3t_windowed_lookup, results bit-equal; keys 16-byte aligned and
-// C a multiple of 4; the ring and three key chunks, (S + 3 C) * 4 bytes,
-// must fit one block's shared memory (W <= 16384 at C = 1024), else
-// cudaErrorInvalidValue.
+// K2b: as hj3t_windowed_lookup, results bit-equal; keys and out 16-byte
+// aligned, C a multiple of 4, T <= INT_MAX; the kSlots key chunks
+// (12 C bytes) must fit one block's shared memory, else the attribute call's
+// error.
 int hj3t_windowed_lookup_db(const void* table, const void* keys, void* out,
                             long long T, long long n, int C, int W,
                             void* stream) {
-  if (C <= 0 || C % 4 != 0 || n % C != 0 || W < 1024 || W > (1 << 20) ||
+  if (C <= 0 || C % 4 != 0 || n % C != 0 || W < 1024 ||
       T < (long long)W + 1024 || T % 1024 != 0 || T > INT_MAX)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaGetLastError();
-  const int S = db_ring_words(W);
-  int dev = 0, sms = 0, smem_max = 0, per_sm = 0;
+  int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  const unsigned long long smem = (unsigned long long)kSlots * C * sizeof(int);
+  unsigned long long grid_word = g_db_grid[dev].load(std::memory_order_relaxed);
+  if (grid_word >> 32 != smem) {
+    int sms = 0, per_sm = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(
-        &smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return (int)err;
-  const size_t smem = ((size_t)S + 3 * (size_t)C) * sizeof(int);
-  if (smem > (size_t)smem_max) return (int)cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(windowed_db_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, windowed_db_kernel, kThreads, smem);
-  if (err != cudaSuccess) return (int)err;
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(windowed_db_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, windowed_db_kernel, kThreads, (size_t)smem);
+    if (err != cudaSuccess) return (int)err;
+    grid_word = smem << 32 | (unsigned long long)sms * (per_sm > 0 ? per_sm : 1);
+    g_db_grid[dev].store(grid_word, std::memory_order_relaxed);
+  }
   const long long nchunks = n / C;
-  long long grid = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  long long grid = (long long)(grid_word & 0xffffffffu);
   if (grid > nchunks) grid = nchunks;
-  windowed_db_kernel<<<(unsigned)grid, kThreads, smem,
+  windowed_db_kernel<<<(unsigned)grid, kThreads, (size_t)smem,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(table), static_cast<const int*>(keys),
-      static_cast<int*>(out), T, C, W, S, nchunks);
+      static_cast<int*>(out), T, C, W, nchunks);
   return (int)cudaGetLastError();
 }
 

@@ -5,11 +5,18 @@ Each ``csrc/*.cu`` compiles with its own ``nvcc`` call for ``sm_90a`` into
 test host has no ``nvcc``; the hash covers the shared ``csrc/*.cuh``
 headers too); the calls run side by side, and the libraries
 load through ``ctypes``.  Each C entry point takes its pointers and the CUDA
-stream as ``void*`` and returns ``cudaGetLastError()``; :func:`count_launch`
-raises on a non-zero code.  Kernels launch on PyTorch's current stream,
-never synchronise and allocate nothing: the Python wrappers (``ops/scan.py``,
-``ops/windowed.py``, ``ops/bitonic.py``, ``ops/probes.py``) allocate outputs
-and scratch with ``torch.empty`` or ``torch.zeros``.
+stream as ``void*`` and returns ``cudaGetLastError()``.  Kernels launch on
+PyTorch's current stream, never synchronise and allocate nothing: the Python
+wrappers (``ops/scan.py``, ``ops/windowed.py``, ``ops/bitonic.py``,
+``ops/probes.py``) allocate outputs and scratch with ``torch.empty`` or
+``torch.zeros``.
+
+The launch path every wrapper shares is kept short, because a small kernel's
+call costs more on the host than on the card: :func:`kernel_device` checks
+the device rule in one pass over the operands, each wrapper holds its entry
+point as a module-level :class:`Kernel` (bound once, at its first call),
+pointers go to ctypes as ``data_ptr()`` integers and the stream handle comes
+from :func:`stream`.
 
 ``LAUNCHES`` counts, per wrapper, the calls that launched its kernel; a run
 resets it with :func:`reset_launch_counts` to show which kernels a path went
@@ -115,13 +122,28 @@ def lib() -> types.SimpleNamespace:
     return _lib
 
 
-def count_launch(rc: int, name: str) -> None:
-    """Raise if a kernel entry point returned a CUDA error, else count one
-    launch for the wrapper ``name``."""
-    if rc != 0:
-        msg = lib().hj3t_error_string(rc).decode()
-        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
-    LAUNCHES[name] += 1
+class Kernel:
+    """One C entry point of ``_SIGNATURES``.  ``kernel(key, *args)`` calls
+    it with ``args`` (pointers as ``data_ptr()`` integers or None, the
+    stream from :func:`stream`), raises on a non-zero CUDA error and counts
+    one launch under ``LAUNCHES[key]``.  The typed ctypes function is bound
+    at the first call, which builds the libraries."""
+
+    __slots__ = ("name", "_fn")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._fn = None
+
+    def __call__(self, key: str, *args) -> None:
+        fn = self._fn
+        if fn is None:
+            fn = self._fn = getattr(lib(), self.name)
+        rc = fn(*args)
+        if rc != 0:
+            msg = lib().hj3t_error_string(rc).decode()
+            raise RuntimeError(f"{key}: CUDA error {rc} ({msg})")
+        LAUNCHES[key] += 1
 
 
 def reset_launch_counts() -> None:
@@ -129,22 +151,33 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
-def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
+def stream(index: int) -> int:
+    """The handle of PyTorch's current stream on CUDA device ``index``."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
-def stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
-def require_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """A kernel wrapper's device rule: every operand a contiguous tensor on
-    one CUDA device (CPU operands were routed to the plain version before)."""
-    dev = tensors[0].device
+def kernel_device(name: str, *tensors: torch.Tensor, align: int = 1) -> int:
+    """A kernel wrapper's device rule, in one pass over its operands: -1 if
+    every operand lies on the CPU (the wrapper takes the plain version);
+    else the index of the one CUDA device that holds every operand, each
+    contiguous and ``align``-byte aligned.  Anything else raises."""
+    t0 = tensors[0]
+    if t0.is_cuda:
+        index = t0.get_device()
+        for t in tensors:
+            if not t.is_cuda or t.get_device() != index:
+                raise ValueError(f"{name}: operands on {t.device} and "
+                                 f"{t0.device}")
+            if not t.is_contiguous():
+                raise ValueError(f"{name}: operands must be contiguous")
+            if t.data_ptr() % align:
+                raise ValueError(f"{name}: operands must be {align}-byte "
+                                 f"aligned")
+        return index
+    dev = t0.device
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: operands on {t.device} and {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: operands must be contiguous")
-    if dev.type != "cuda":
+    if dev.type != "cpu":
         raise ValueError(f"{name}: no kernel for device {dev}")
+    return -1

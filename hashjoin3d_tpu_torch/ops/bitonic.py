@@ -30,6 +30,8 @@ import torch
 from .. import kernels
 from .layout import I32, I64, SIGN
 
+_RADIX = kernels.Kernel("hj3t_radix_sort_segmented")
+
 #: Largest segment the segmented kernels take (the TPU kernel's cap, kept so
 #: the probe strands choose the same segment and window sizes).
 MAX_SEGMENT_BITONIC = 1 << 18
@@ -150,11 +152,11 @@ def plain_sort_segmented(keys: torch.Tensor, chunk: int,
     return (sk ^ SIGN if unsigned else sk, sv)
 
 
-def _radix(name: str, plan: RadixPlan, keys: torch.Tensor,
+def _radix(name: str, plan: RadixPlan, dev: int, keys: torch.Tensor,
            payload: torch.Tensor | None, rows_from_pos: bool):
     """Allocate the outputs and the plan's scratch, launch ``csrc/radix.cu``
-    and count the launch under ``name``."""
-    n, dev = keys.shape[0], keys.device
+    on CUDA device ``dev`` and count the launch under ``name``."""
+    n = keys.shape[0]
     out_k = torch.empty_like(keys)
     out_v = torch.empty_like(keys) if plan.nops == 2 else None
     sizes = plan.scratch_words(n)
@@ -162,19 +164,17 @@ def _radix(name: str, plan: RadixPlan, keys: torch.Tensor,
     # back to the allocator, which may hand its memory to the next one
     scratch = [None if not words else
                (torch.zeros if key == "ors" else torch.empty)(
-                   words, dtype=I32, device=dev)
+                   words, dtype=I32, device=keys.device)
                for key, words in sizes.items()]
     words = plan.words()
     c_words = (ctypes.c_int * len(words))(*words)
     c_sizes = (ctypes.c_longlong * len(sizes))(*sizes.values())
-    rc = kernels.lib().hj3t_radix_sort_segmented(
-        kernels.ptr(keys), kernels.ptr(payload), kernels.ptr(out_k),
-        kernels.ptr(out_v), *map(kernels.ptr, scratch),
-        ctypes.cast(c_words, ctypes.c_void_p),
-        ctypes.cast(c_sizes, ctypes.c_void_p), n,
-        plan.chunk.bit_length() - 1, int(rows_from_pos),
-        kernels.stream(dev))
-    kernels.count_launch(rc, name)
+    _RADIX(name, *[None if t is None else t.data_ptr() for t in
+                   (keys, payload, out_k, out_v, *scratch)],
+           ctypes.cast(c_words, ctypes.c_void_p),
+           ctypes.cast(c_sizes, ctypes.c_void_p), n,
+           plan.chunk.bit_length() - 1, int(rows_from_pos),
+           kernels.stream(dev))
     return (out_k,) if out_v is None else (out_k, out_v)
 
 
@@ -185,13 +185,12 @@ def bitonic_sort_segmented(keys: torch.Tensor, chunk: int,
     or ``(sorted_keys, sorted_payload)``.  On CUDA: four 8-bit key digits,
     after four payload digits when ``stable``."""
     _check(keys, chunk, payload)
-    if keys.device.type == "cpu" and (payload is None
-                                      or payload.device.type == "cpu"):
-        return plain_sort_segmented(keys, chunk, payload, unsigned)
     ops = (keys,) if payload is None else (keys, payload)
-    kernels.require_cuda("bitonic_sort_segmented", *ops)
+    dev = kernels.kernel_device("bitonic_sort_segmented", *ops)
+    if dev < 0:
+        return plain_sort_segmented(keys, chunk, payload, unsigned)
     plan = radix_plan(32, chunk, len(ops), stable, unsigned)
-    return _radix("bitonic_sort_segmented", plan, keys, payload, False)
+    return _radix("bitonic_sort_segmented", plan, dev, keys, payload, False)
 
 
 def bitonic_sort_packed_segmented(keys: torch.Tensor, chunk: int,
@@ -207,9 +206,10 @@ def bitonic_sort_packed_segmented(keys: torch.Tensor, chunk: int,
     _check(keys, chunk)
     if not 1 <= key_bits <= 31:
         raise ValueError(f"key_bits must be in [1, 31], got {key_bits}")
-    if keys.device.type == "cpu":
+    dev = kernels.kernel_device("bitonic_sort_packed_segmented", keys)
+    if dev < 0:
         lid = torch.arange(keys.shape[0], dtype=I32) % chunk
         return plain_sort_segmented(keys, chunk, lid, unsigned=True)
-    kernels.require_cuda("bitonic_sort_packed_segmented", keys)
     plan = radix_plan(key_bits, chunk, 2, False)
-    return _radix("bitonic_sort_packed_segmented", plan, keys, None, True)
+    return _radix("bitonic_sort_packed_segmented", plan, dev, keys, None,
+                  True)

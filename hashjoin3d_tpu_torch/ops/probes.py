@@ -30,15 +30,11 @@ from .layout import I32
 LANES = 128
 
 
-def _on_cpu(name: str, *tensors: torch.Tensor) -> bool:
-    """True if every operand lies on the CPU (take the plain version); else
-    the kernel's device rule must hold (and 16-byte alignment)."""
-    if all(t.device.type == "cpu" for t in tensors):
-        return True
-    kernels.require_cuda(name, *tensors)
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{name}: operands must be 16-byte aligned")
-    return False
+def _device(name: str, *tensors: torch.Tensor) -> int:
+    """-1 if every operand lies on the CPU (take the plain version); else
+    the CUDA device index, after the kernel's device rule (and 16-byte
+    alignment)."""
+    return kernels.kernel_device(name, *tensors, align=16)
 
 
 def _rows_of(x: torch.Tensor, what: str) -> int:
@@ -47,19 +43,27 @@ def _rows_of(x: torch.Tensor, what: str) -> int:
     return x.shape[0]
 
 
-def _launch(name: str, entry: str, *args) -> None:
-    kernels.count_launch(getattr(kernels.lib(), entry)(*args), name)
+_ROLL = kernels.Kernel("hj3t_probe_roll")
+_ROTATE = kernels.Kernel("hj3t_probe_rotate")
+_CUMSUM = kernels.Kernel("hj3t_probe_cumsum")
+_ONEHOT_MATMUL = kernels.Kernel("hj3t_probe_onehot_matmul")
+_PERMUTE = kernels.Kernel("hj3t_probe_permute")
+_MASKED_STORE = kernels.Kernel("hj3t_probe_masked_store")
+_BLOCK_COPY = kernels.Kernel("hj3t_probe_block_copy")
+_ROW_COPY = kernels.Kernel("hj3t_probe_row_copy")
+_DIGIT_HISTOGRAM = kernels.Kernel("hj3t_probe_digit_histogram")
 
 
 # ------------------------------------------------------------------ P1, P2
 def roll(x: torch.Tensor, shift: int) -> torch.Tensor:
     """P1: ``np.roll(x, shift, axis=1)`` for a runtime ``shift``."""
     rows = _rows_of(x, "roll")
-    if _on_cpu("probe_roll", x):
+    dev = _device("probe_roll", x)
+    if dev < 0:
         return roll_plain(x, shift)
     out = torch.empty_like(x)
-    _launch("probe_roll", "hj3t_probe_roll", kernels.ptr(x), kernels.ptr(out),
-            rows, int(shift) % LANES, kernels.stream(x.device))
+    _ROLL("probe_roll", x.data_ptr(), out.data_ptr(), rows,
+          int(shift) % LANES, kernels.stream(dev))
     return out
 
 
@@ -73,12 +77,12 @@ def rotate(x: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
     rows = _rows_of(x, "rotate")
     if shifts.dtype != I32 or shifts.shape != (rows,):
         raise ValueError("rotate: shifts must be int32 of shape (rows,)")
-    if _on_cpu("probe_rotate", x, shifts):
+    dev = _device("probe_rotate", x, shifts)
+    if dev < 0:
         return rotate_plain(x, shifts)
     out = torch.empty_like(x)
-    _launch("probe_rotate", "hj3t_probe_rotate", kernels.ptr(x),
-            kernels.ptr(shifts), kernels.ptr(out), rows,
-            kernels.stream(x.device))
+    _ROTATE("probe_rotate", x.data_ptr(), shifts.data_ptr(), out.data_ptr(),
+            rows, kernels.stream(dev))
     return out
 
 
@@ -98,12 +102,12 @@ def cumsum(x: torch.Tensor, axis: int, block_rows: int = 512) -> torch.Tensor:
     if axis == 0 and (block_rows % 8 or rows % block_rows):
         raise ValueError(f"cumsum: block_rows {block_rows} must be a "
                          f"multiple of 8 dividing rows {rows}")
-    if _on_cpu("probe_cumsum", x):
+    dev = _device("probe_cumsum", x)
+    if dev < 0:
         return cumsum_plain(x, axis, block_rows)
     out = torch.empty_like(x)
-    _launch("probe_cumsum", "hj3t_probe_cumsum", kernels.ptr(x),
-            kernels.ptr(out), rows, axis, block_rows,
-            kernels.stream(x.device))
+    _CUMSUM("probe_cumsum", x.data_ptr(), out.data_ptr(), rows, axis,
+            block_rows, kernels.stream(dev))
     return out
 
 
@@ -126,11 +130,12 @@ def onehot_matmul(x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     if rows % 16:
         raise ValueError(f"onehot_matmul: rows {rows} must be a multiple "
                          f"of 16")
-    if _on_cpu("probe_onehot_matmul", x, p):
+    dev = _device("probe_onehot_matmul", x, p)
+    if dev < 0:
         return onehot_matmul_plain(x, p)
     out = torch.empty_like(x)
-    _launch("probe_onehot_matmul", "hj3t_probe_onehot_matmul", kernels.ptr(x),
-            kernels.ptr(p), kernels.ptr(out), rows, kernels.stream(x.device))
+    _ONEHOT_MATMUL("probe_onehot_matmul", x.data_ptr(), p.data_ptr(),
+                   out.data_ptr(), rows, kernels.stream(dev))
     return out
 
 
@@ -155,12 +160,12 @@ def permute(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     if C % LANES or C > 8192 or x.numel() % C:
         raise ValueError(f"permute: C = {C} must be a multiple of 128, at "
                          f"most 8192, dividing {x.numel()}")
-    if _on_cpu("probe_permute", x, perm):
+    dev = _device("probe_permute", x, perm)
+    if dev < 0:
         return permute_plain(x, perm)
     out = torch.empty_like(x)
-    _launch("probe_permute", "hj3t_probe_permute", kernels.ptr(x),
-            kernels.ptr(perm), kernels.ptr(out), x.numel(), C,
-            kernels.stream(x.device))
+    _PERMUTE("probe_permute", x.data_ptr(), perm.data_ptr(), out.data_ptr(),
+             x.numel(), C, kernels.stream(dev))
     return out
 
 
@@ -180,11 +185,12 @@ def masked_store(x: torch.Tensor, off: int, out_rows: int = 32,
         raise ValueError(f"masked_store: need 8 <= rows, 0 <= off <= "
                          f"out_rows - 8 and 0 <= lanes <= 128 (rows {rows}, "
                          f"off {off}, out_rows {out_rows}, lanes {lanes})")
-    if _on_cpu("probe_masked_store", x):
+    dev = _device("probe_masked_store", x)
+    if dev < 0:
         return masked_store_plain(x, off, out_rows, lanes)
-    out = torch.empty((out_rows, LANES), dtype=I32, device=x.device)
-    _launch("probe_masked_store", "hj3t_probe_masked_store", kernels.ptr(x),
-            kernels.ptr(out), out_rows, off, lanes, kernels.stream(x.device))
+    out = x.new_empty((out_rows, LANES))
+    _MASKED_STORE("probe_masked_store", x.data_ptr(), out.data_ptr(),
+                  out_rows, off, lanes, kernels.stream(dev))
     return out
 
 
@@ -204,11 +210,12 @@ def block_copy(src: torch.Tensor, B: int) -> torch.Tensor:
     if src.dtype != I32 or B % LANES or n % B or (B > 8192 and B % 8192):
         raise ValueError(f"block_copy: int32 src, B = {B} a multiple of 128 "
                          f"dividing {n}, at most 8192 or a multiple of it")
-    if _on_cpu("probe_block_copy", src):
+    dev = _device("probe_block_copy", src)
+    if dev < 0:
         return block_copy_plain(src, B)
     out = torch.empty_like(src)
-    _launch("probe_block_copy", "hj3t_probe_block_copy", kernels.ptr(src),
-            kernels.ptr(out), n, B, kernels.stream(src.device))
+    _BLOCK_COPY("probe_block_copy", src.data_ptr(), out.data_ptr(), n, B,
+                kernels.stream(dev))
     return out
 
 
@@ -222,18 +229,20 @@ def block_copy_plain(src: torch.Tensor, B: int) -> torch.Tensor:
 
 # ---------------------------------------------------------------------- P8
 def row_copy(src: torch.Tensor, off: int, nrows: int = 8) -> torch.Tensor:
-    """P8: ``src[off:off + nrows]`` (1 <= nrows <= 64), staged through
-    shared memory from a row offset that need not be a multiple of 8."""
+    """P8: ``src[off:off + nrows]`` (1 <= nrows <= 64) from a row offset
+    that need not be a multiple of 8, copied global to global, one 16-byte
+    word a thread."""
     rows = _rows_of(src, "row_copy")
     if not 1 <= nrows <= 64 or not 0 <= off <= rows - nrows:
         raise ValueError(f"row_copy: need 1 <= nrows <= 64 and 0 <= off <= "
                          f"rows - nrows (rows {rows}, off {off}, nrows "
                          f"{nrows})")
-    if _on_cpu("probe_row_copy", src):
+    dev = _device("probe_row_copy", src)
+    if dev < 0:
         return row_copy_plain(src, off, nrows)
-    out = torch.empty((nrows, LANES), dtype=I32, device=src.device)
-    _launch("probe_row_copy", "hj3t_probe_row_copy", kernels.ptr(src),
-            kernels.ptr(out), rows, off, nrows, kernels.stream(src.device))
+    out = src.new_empty((nrows, LANES))
+    _ROW_COPY("probe_row_copy", src.data_ptr(), out.data_ptr(), rows, off,
+              nrows, kernels.stream(dev))
     return out
 
 
@@ -246,11 +255,12 @@ def digit_histogram(x: torch.Tensor) -> torch.Tensor:
     """P9: ``out[r, v]`` = count of v in row r for v in 0..15, zeros in
     lanes 16..127 (values outside 0..15 are not counted)."""
     rows = _rows_of(x, "digit_histogram")
-    if _on_cpu("probe_digit_histogram", x):
+    dev = _device("probe_digit_histogram", x)
+    if dev < 0:
         return digit_histogram_plain(x)
     out = torch.empty_like(x)
-    _launch("probe_digit_histogram", "hj3t_probe_digit_histogram",
-            kernels.ptr(x), kernels.ptr(out), rows, kernels.stream(x.device))
+    _DIGIT_HISTOGRAM("probe_digit_histogram", x.data_ptr(), out.data_ptr(),
+                     rows, kernels.stream(dev))
     return out
 
 

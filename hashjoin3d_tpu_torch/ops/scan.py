@@ -20,6 +20,8 @@ from .layout import I32, I64, i64_to_u32
 _OP_CODES = {"sum": 0, "max": 1, "min": 2, "maxpair": 3}
 _ARITY = {"sum": 1, "max": 1, "min": 1, "maxpair": 2}
 _MAX_SLOTS = 4
+_K3 = kernels.Kernel("hj3t_multi_scan")
+_TILE = None
 
 
 def _validate(arrays, ops):
@@ -44,27 +46,32 @@ def multi_scan(arrays, ops, reverse: bool = False):
     """Inclusive prefix scans of parallel int32 columns; returns the flat
     tuple of scanned columns (``reverse=True`` scans right to left)."""
     arrays, ops = _validate(arrays, ops)
-    if arrays[0].device.type == "cpu":
+    dev = kernels.kernel_device("multi_scan", *arrays)
+    if dev < 0:
         return multi_scan_plain(arrays, ops, reverse)
-    kernels.require_cuda("multi_scan", *arrays)
     if len(arrays) > _MAX_SLOTS:
         raise ValueError(f"at most {_MAX_SLOTS} columns per fused scan")
     n = arrays[0].shape[0]
     outs = tuple(torch.empty_like(a) for a in arrays)
     if n == 0:
         return outs
-    lib = kernels.lib()
-    nblocks = -(-n // lib.hj3t_scan_tile())
+    nblocks = -(-n // _scan_tile())
     scratch = torch.empty(2 * len(ops) * nblocks, dtype=I32,
                           device=arrays[0].device)
     pad = [None] * (_MAX_SLOTS - len(arrays))
     codes = [_OP_CODES[op] for op in ops] + [-1] * (_MAX_SLOTS - len(ops))
-    rc = lib.hj3t_multi_scan(
-        *map(kernels.ptr, list(arrays) + pad), *map(kernels.ptr, list(outs) + pad),
-        *codes, n, int(reverse), kernels.ptr(scratch),
-        kernels.stream(arrays[0].device))
-    kernels.count_launch(rc, "multi_scan")
+    _K3("multi_scan", *[a.data_ptr() for a in arrays], *pad,
+        *[o.data_ptr() for o in outs], *pad, *codes, n, int(reverse),
+        scratch.data_ptr(), kernels.stream(dev))
     return outs
+
+
+def _scan_tile() -> int:
+    """Keys per block of ``csrc/scan.cu`` (asked once)."""
+    global _TILE
+    if _TILE is None:
+        _TILE = kernels.lib().hj3t_scan_tile()
+    return _TILE
 
 
 def multi_scan_plain(arrays, ops, reverse: bool = False):

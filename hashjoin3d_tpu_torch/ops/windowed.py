@@ -7,9 +7,11 @@ outside its chunk's window (negative, past the table, or too far below the
 chunk's maximum) yields 0, the miss marker.  :func:`windowed_coverage_ok`
 says whether every in-range key of a stream is covered.
 
-On CUDA tensors :func:`windowed_lookup` launches ``csrc/windowed.cu`` (K2, or
-with ``db=True`` K2b, the double-buffered window load; the results are the
-same); on CPU tensors it runs :func:`windowed_lookup_plain`.
+On CUDA tensors :func:`windowed_lookup` launches ``csrc/windowed.cu``: K2,
+which stages each chunk's window in shared memory, or with ``db=True`` K2b,
+which feeds the next chunk's keys by TMA while this chunk's in-window keys
+read the table straight from L2 (no window staged; the results are the
+same).  On CPU tensors it runs :func:`windowed_lookup_plain`.
 """
 
 from __future__ import annotations
@@ -21,9 +23,9 @@ from .layout import I32, I64
 
 DEFAULT_C = 1024
 DEFAULT_W = 1024
-#: K2b's largest window: its ring of table words must fit one block's
-#: 227 KB of shared memory (``csrc/windowed.cu`` sizes and checks it)
-DB_MAX_W = 16384
+
+_K2 = kernels.Kernel("hj3t_windowed_lookup")
+_K2B = kernels.Kernel("hj3t_windowed_lookup_db")
 
 
 def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
@@ -40,8 +42,7 @@ def chunk_bases(keys_sorted: torch.Tensor, T: int, C: int,
     return base.clamp(0, max(T - (W + 1024), 0)).to(I32)
 
 
-def _check(table: torch.Tensor, keys: torch.Tensor, C: int, W: int,
-           db: bool):
+def _check(table: torch.Tensor, keys: torch.Tensor, C: int, W: int):
     T, n = table.shape[0], keys.shape[0]
     if table.dtype != I32 or keys.dtype != I32:
         raise ValueError("table and keys must be int32 carriers")
@@ -52,9 +53,6 @@ def _check(table: torch.Tensor, keys: torch.Tensor, C: int, W: int,
     if T < W + 1024 or T % 1024:
         raise ValueError(f"table size {T} must be a multiple of 1024 and "
                          f">= W + 1024")
-    if db and W > DB_MAX_W:
-        raise ValueError(f"db=True: W = {W} > {DB_MAX_W}, the window ring "
-                         f"would not fit one block's shared memory")
 
 
 def windowed_lookup(table: torch.Tensor, keys_sorted: torch.Tensor,
@@ -66,23 +64,21 @@ def windowed_lookup(table: torch.Tensor, keys_sorted: torch.Tensor,
     ``keys_sorted``: int32[n], n % C == 0, nearly nondecreasing (-1 holes
     are fine).  Coverage of in-range keys is the caller's to check
     (:func:`windowed_coverage_ok`, ``strands_windowed.safe_lookup``).
-    ``db=True`` launches K2b, which overlaps the next chunk's window load
-    with this chunk's lookups (same results; W <= 16384).
+    ``db=True`` launches K2b, which feeds the next chunk's keys while this
+    chunk resolves (same results, every W that K2 takes).
     """
-    _check(table, keys_sorted, C, W, db)
-    if table.device.type == "cpu" and keys_sorted.device.type == "cpu":
-        return windowed_lookup_plain(table, keys_sorted, C, W)
+    _check(table, keys_sorted, C, W)
     name = "windowed_lookup_db" if db else "windowed_lookup"
-    kernels.require_cuda(name, table, keys_sorted)
+    dev = kernels.kernel_device(name, table, keys_sorted)
+    if dev < 0:
+        return windowed_lookup_plain(table, keys_sorted, C, W)
     if table.data_ptr() % 16 or (db and keys_sorted.data_ptr() % 16):
         raise ValueError(f"{name}: table (and with db, keys) must be "
                          f"16-byte aligned")
     out = torch.empty_like(keys_sorted)
-    args = (kernels.ptr(table), kernels.ptr(keys_sorted), kernels.ptr(out),
-            table.shape[0], keys_sorted.shape[0], C, W)
-    lib = kernels.lib()
-    entry = lib.hj3t_windowed_lookup_db if db else lib.hj3t_windowed_lookup
-    kernels.count_launch(entry(*args, kernels.stream(table.device)), name)
+    (_K2B if db else _K2)(name, table.data_ptr(), keys_sorted.data_ptr(),
+                          out.data_ptr(), table.shape[0],
+                          keys_sorted.shape[0], C, W, kernels.stream(dev))
     return out
 
 

@@ -9,7 +9,9 @@ the device's work for that run, not its enqueue.
 
 The measurement tools (``tools/roofline.py``, ``tools/csrprof.py``,
 ``tools/mosaic_probe.py``) time on CUDA events with :func:`events_ms`, name
-the card with :func:`card`, and state each bound with :func:`bound_ms`.
+the card with :func:`card`, and state each bound with :func:`bound_ms`;
+:func:`host_device_us` splits a small call's time into its host and device
+parts.
 """
 
 from __future__ import annotations
@@ -86,6 +88,34 @@ def events_ms(fn, min_time_s: float) -> float:
         if ms >= min_time_s * 1e3:
             return ms / reps
         reps = max(2 * reps, int(reps * min_time_s * 1e3 / max(ms, 1e-3)) + 1)
+
+
+def host_device_us(fn, calls: int = 10_000,
+                   profiled: int = 200) -> tuple[float, float]:
+    """``(host, device)`` microseconds per call of ``fn``: the host's
+    ``time.perf_counter`` over ``calls`` calls issued back to back with no
+    synchronisation, and the device time of every kernel and copy the
+    calls run, under ``torch.profiler`` over ``profiled`` calls.  A call
+    whose host time exceeds its device time is host-bound: back-to-back
+    CUDA-event timing (:func:`events_ms`) then reads its host time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(profiled):
+            fn()
+        torch.cuda.synchronize()
+    device = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+    return host, device / profiled
 
 
 def nbytes(*tensors: torch.Tensor) -> int:

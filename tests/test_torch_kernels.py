@@ -117,19 +117,91 @@ def test_windowed_lookup_db_plain_matches_jax_db_kernel():
     assert (want[keys == -1] == 0).all()
 
 
-def test_windowed_lookup_db_window_limit():
-    """Two windows and three key chunks must fit one block's shared memory:
-    W = 16384 passes, W = 32768 raises (K2 alone still takes it)."""
-    keys = torch.zeros(1024, dtype=torch.int32)
-    for W, ok in ((16384, True), (32768, False)):
-        table = torch.arange(W + 1024, dtype=torch.int32)
-        if ok:
-            assert torch.equal(windowed_lookup(table, keys, W=W, db=True),
-                               windowed_lookup(table, keys, W=W))
-        else:
-            with pytest.raises(ValueError, match="db=True"):
-                windowed_lookup(table, keys, W=W, db=True)
-            windowed_lookup(table, keys, W=W)
+@pytest.mark.parametrize("W", [1024, 2048, 4096, 8192, 16384, 32768])
+def test_windowed_lookup_db_window_limit(W):
+    """K2b takes every W that K2 takes (it stages no window, so shared
+    memory sets no limit) and equals K2 and the gather on a covered stream
+    with a -1 hole and a key past the table; W = 65536 raises for both."""
+    rng = np.random.default_rng(19)
+    T, C, n = W + 2048, 1024, 4096
+    table = t32(rng.integers(1, 2**32, T, np.uint64).astype(np.uint32))
+    keys = np.sort(rng.integers(0, T, n)).astype(np.int32)
+    keys[[100, 2000]] = -1
+    keys[-1] = T + 1
+    k = torch.from_numpy(keys)
+    assert windowed_coverage_ok(k, T, C, W)
+    got = windowed_lookup(table, k, C=C, W=W, db=True)
+    assert torch.equal(got, windowed_lookup(table, k, C=C, W=W))
+    want = np.where((keys >= 0) & (keys < T),
+                    table.numpy()[np.clip(keys, 0, T - 1)], 0)
+    assert np.array_equal(got.numpy(), want)
+    if W == 32768:
+        for db in (False, True):
+            with pytest.raises(ValueError, match="W must be"):
+                windowed_lookup(table, k, C=C, W=2 * W, db=db)
+
+
+EDGE_STREAMS = ["sorted", "holes", "new_segment", "gap", "all_miss_wrap",
+                "past_table"]
+
+
+def _edge_stream(kind, rng, T, n, C):
+    """A sorted stream, or one with the edge ``kind`` names: 20% -1 holes;
+    a second sorted run from the middle of a chunk on (the base moves
+    back); half the keys in the table's bottom quarter and half in its top
+    quarter (the base jumps past the window); an all-miss chunk of
+    ``I32_MIN + 3`` (``kmax - W`` wraps); a tail of keys >= T."""
+    keys = np.sort(rng.integers(0, T, n)).astype(np.int32)
+    if kind == "holes":
+        keys[rng.random(n) < 0.2] = -1
+    elif kind == "new_segment":
+        cut = n // 2 + C // 3
+        keys[cut:] = np.sort(rng.integers(0, T, n - cut))
+    elif kind == "gap":
+        keys[:n // 2] = np.sort(rng.integers(0, T // 4, n // 2))
+        keys[n // 2:] = np.sort(rng.integers(3 * T // 4, T, n - n // 2))
+    elif kind == "all_miss_wrap":
+        keys[5 * C:6 * C] = I32_MIN + 3
+    elif kind == "past_table":
+        tail = 3 * C // 2
+        keys[-tail:] = np.sort(rng.integers(T, T + 4 * C, tail))
+        keys[-3:] = I32_MAX
+    return keys
+
+
+@pytest.mark.parametrize("db", [False, True])
+@pytest.mark.parametrize("stream", EDGE_STREAMS)
+def test_windowed_lookup_edge_streams_match_jax_kernel(stream, db):
+    """K2 and K2b (``db``) against the Pallas kernel of the same ``db`` in
+    interpret mode, bit-equal, on each edge stream; each stream shows the
+    edge it is for (a base that moves back or jumps, misses as 0)."""
+    rng = np.random.default_rng(18)
+    T, n, C, W = 8192, 4096, 128, 1024
+    table = rng.integers(1, 2**32, T, np.uint64).astype(np.uint32)
+    keys = _edge_stream(stream, rng, T, n, C)
+    want = np.asarray(jax_windowed_lookup(jnp.asarray(table),
+                                          jnp.asarray(keys), C=C, W=W,
+                                          interpret=True, db=db))
+    got = windowed_lookup(t32(table), torch.from_numpy(keys), C=C, W=W,
+                          db=db).numpy().view(np.uint32)
+    assert np.array_equal(got, want)
+    bases = chunk_bases(torch.from_numpy(keys), T, C, W).numpy()
+    in_range = (keys >= 0) & (keys < T)
+    assert (got[~in_range] == 0).all()
+    if stream == "new_segment":
+        assert (np.diff(bases) < 0).any()
+    elif stream == "gap":
+        assert np.diff(bases).max() > W + 1024
+    elif stream == "all_miss_wrap":
+        # kmax - W wraps to a large positive base, clamped to the top
+        assert (got[5 * C:6 * C] == 0).all()
+        assert bases[5] == T - (W + 1024)
+    elif stream == "past_table":
+        assert not in_range[-C:].any() and in_range[-2 * C:-C].any()
+    elif stream == "holes":
+        assert (keys == -1).mean() > 0.15
+    if stream != "new_segment":  # the others are covered: every key hits
+        assert (got[in_range] == table[keys[in_range]]).all()
 
 
 @pytest.mark.parametrize("case,ok", [("sorted", True), ("ragged", True),

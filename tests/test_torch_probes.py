@@ -108,10 +108,13 @@ def test_block_copy_in_reversed_block_order_is_a_copy(B):
     assert np.array_equal(got, src)
 
 
-def test_row_copy_from_an_unaligned_row_offset():
+@pytest.mark.parametrize("off,nrows", [(3, 8), (0, 1), (7, 64),
+                                       (120, 8),  # the last 8 of 128 rows
+                                       (5, 13)])
+def test_row_copy_from_an_unaligned_row_offset(off, nrows):
     src = np.arange(1 << 14, dtype=np.int32).reshape(-1, 128)
-    got = probes.row_copy(t(src), 3).numpy()
-    assert np.array_equal(got, src[3:11])
+    got = probes.row_copy(t(src), off, nrows).numpy()
+    assert np.array_equal(got, src[off:off + nrows])
 
 
 def test_digit_histogram_counts_each_row_into_lanes_0_to_15():

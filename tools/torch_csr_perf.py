@@ -11,17 +11,21 @@ prints the card and its power limit (``nvidia-smi``) first.
   K1 (the packed probe sort of S.a), K4 2-op take_min (2^24 keys over
   [0, 2^20 + 2^18), numpy seed 0), K4 1-op signed (S.a's bucket ids with
   30% -1 markers, numpy seed 1), K4 stable with a payload over
-  [-2^15, 2^15) (numpy seed 2) and K1 at 8192-key segments: each the mean
-  of 20 launches on CUDA events after one warm-up launch.  The Csr probe
-  strand: the median host time of 20 runs, each between two
-  ``torch.cuda.synchronize()`` calls.
+  [-2^15, 2^15) (numpy seed 2), K1 at 8192-key segments, K2 and K2b
+  (W = 8192) and ``index_select`` on the K1-sorted S.a over the build's
+  direct words (T = 2^20), P8 (8 rows from row 3 of 2048) and ``clone`` of
+  the same rows: each the mean of 20 calls on CUDA events after one
+  warm-up call.  The Csr build and probe strands: the median host time of
+  20 runs, each between two ``torch.cuda.synchronize()`` calls; and
+  ``Experiment1``'s ``t_buildStr`` and ``t_probeStr`` (ns, the reference's
+  repetition protocol).
   ``--root`` imports the port from another tree (a ``git archive`` of a
   commit), so one machine compares two trees: run parent, change, change,
   parent, each in its own process.
 
 ``profile``: where the time of the build and the probe strand goes::
 
-    python3 tools/torch_csr_perf.py profile [--reps 10]
+    python3 tools/torch_csr_perf.py profile [--reps 10] [--root TREE]
 
   Each strand runs ``reps`` times in one ``torch.profiler`` window, between
   two synchronisations.  Printed per rep: the window's host wall time, the
@@ -30,6 +34,19 @@ prints the card and its power limit (``nvidia-smi``) first.
   the device time and count by kernel name; the top host ops by self time.
   The median unprofiled wall time of the same strand, in the same process,
   stands beside it (the profiler itself slows the host).
+
+``launch``: the host cost of a kernel wrapper's launch path, one JSON line::
+
+    python3 tools/torch_csr_perf.py launch
+
+  Host microseconds per call (``time.perf_counter`` over 10^4 calls, no
+  synchronisation) of each step a wrapper may take: two ways to get the
+  current stream's handle, a ``ctypes.c_void_p`` against a plain
+  ``data_ptr()``, the device rule, two ways to allocate the output, the
+  bound P8 entry point called with fixed arguments (ctypes and the launch
+  alone); then P8 (``probes.row_copy``) and ``clone`` of the same 8 rows,
+  each split into host and device time per call
+  (``utils.measure.host_device_us``).
 """
 
 from __future__ import annotations
@@ -47,7 +64,7 @@ import numpy as np
 import torch
 
 LOG2_R, LOG2_S = 20, 24
-SEGMENT, KEY_BITS = 1 << 18, 20
+SEGMENT, KEY_BITS, WINDOW = 1 << 18, 20, 8192
 
 
 def card() -> str:
@@ -107,11 +124,11 @@ def strands(dev):
 
 
 def times(side: str, dev) -> dict:
-    from hashjoin3d_tpu_torch.ops import bitonic
+    from hashjoin3d_tpu_torch.ops import bitonic, probes, windowed
     from hashjoin3d_tpu_torch.ops.hashing import bucket_of, hash_key
     from hashjoin3d_tpu_torch.ops.layout import I32, from_numpy_u32
 
-    _, probe, sa = strands(dev)
+    build, probe, sa = strands(dev)
     n = 1 << LOG2_S
     lid = torch.arange(n, dtype=I32, device=dev) % SEGMENT
     wide = from_numpy_u32(np.random.default_rng(0).integers(
@@ -120,6 +137,9 @@ def times(side: str, dev) -> dict:
     ids = torch.where(dead, -1, bucket_of(hash_key(sa), 1 << LOG2_R))
     pay = torch.from_numpy(np.random.default_rng(2).integers(
         -2**15, 2**15, n, dtype=np.int32)).to(dev)
+    sk, _ = bitonic.bitonic_sort_packed_segmented(sa, SEGMENT, KEY_BITS)
+    direct = build().direct
+    src8 = torch.arange(1 << 18, dtype=I32, device=dev).view(-1, 128)
     return dict(
         side=side,
         k1_ms=events_ms(lambda: bitonic.bitonic_sort_packed_segmented(
@@ -132,7 +152,78 @@ def times(side: str, dev) -> dict:
             wide, SEGMENT, payload=pay)),
         k1_8192_ms=events_ms(lambda: bitonic.bitonic_sort_packed_segmented(
             sa, 8192, KEY_BITS)),
-        probe_ms_median=statistics.median(host_ms(probe)))
+        k2_ms=events_ms(lambda: windowed.windowed_lookup(
+            direct, sk, W=WINDOW)),
+        k2b_ms=events_ms(lambda: windowed.windowed_lookup(
+            direct, sk, W=WINDOW, db=True)),
+        index_select_ms=events_ms(lambda: torch.index_select(direct, 0, sk)),
+        p8_ms=events_ms(lambda: probes.row_copy(src8, 3)),
+        clone_ms=events_ms(lambda: src8[3:11].clone()),
+        build_ms_median=statistics.median(host_ms(build)),
+        probe_ms_median=statistics.median(host_ms(probe)),
+        **exp1_times(dev))
+
+
+def exp1_times(dev) -> dict:
+    """``t_buildStr`` and ``t_probeStr`` (ns) of ``Experiment1`` plan Csr at
+    R20/S24, from its CSV row."""
+    import csv
+    import io
+
+    from hashjoin3d_tpu_torch.models.exp1 import Experiment1
+
+    buf = io.StringIO()
+    exp = Experiment1(LOG2_R, LOG2_S, skew=False, t=0, b=1, plans=("Csr",),
+                      measure_file=buf, device=dev)
+    exp.init()
+    exp.run()
+    rows = list(csv.reader(io.StringIO(buf.getvalue()), delimiter=";"))
+    row = dict(zip(rows[0], rows[1]))
+    return {c: int(row[c]) for c in ("t_buildStr", "t_probeStr")}
+
+
+def launch_costs(dev) -> dict:
+    """Host microseconds per call of each launch-path step, and P8's and
+    ``clone``'s host and device time per call."""
+    import ctypes
+
+    from hashjoin3d_tpu_torch import kernels
+    from hashjoin3d_tpu_torch.ops import probes
+    from hashjoin3d_tpu_torch.utils.measure import host_device_us
+
+    src8 = torch.arange(1 << 18, dtype=torch.int32, device=dev).view(-1, 128)
+    out = probes.row_copy(src8, 3)
+    entry = kernels.lib().hj3t_probe_row_copy
+    args = (src8.data_ptr(), out.data_ptr(), src8.shape[0], 3, 8)
+    index = dev.index
+
+    def us(fn, calls=10_000):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        us_per_call = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+        return us_per_call
+
+    steps = dict(
+        current_stream_cuda_stream=lambda: torch.cuda.current_stream(
+            dev).cuda_stream,
+        raw_stream=lambda: torch._C._cuda_getCurrentRawStream(index),
+        c_void_p=lambda: ctypes.c_void_p(src8.data_ptr()),
+        data_ptr=lambda: src8.data_ptr(),
+        kernel_device=lambda: kernels.kernel_device("p", src8, align=16),
+        torch_empty=lambda: torch.empty((8, 128), dtype=torch.int32,
+                                        device=dev),
+        new_empty=lambda: src8.new_empty((8, 128)),
+        slice_rows=lambda: src8[3:11],
+        entry_call=lambda: entry(*args, torch._C._cuda_getCurrentRawStream(
+            index)))
+    res = {f"{k}_us": us(fn) for k, fn in steps.items()}
+    for name, fn in (("p8", lambda: probes.row_copy(src8, 3)),
+                     ("clone", lambda: src8[3:11].clone())):
+        res[f"{name}_host_us"], res[f"{name}_device_us"] = host_device_us(fn)
+    return res
 
 
 def busy_us(intervals) -> float:
@@ -187,18 +278,19 @@ def profile_strand(name: str, fn, reps: int) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="mode", required=True)
+    here = Path(__file__).resolve().parents[1]
     t = sub.add_parser("times")
     t.add_argument("--side", required=True)
-    t.add_argument("--root", type=Path,
-                   default=Path(__file__).resolve().parents[1])
+    t.add_argument("--root", type=Path, default=here)
     p = sub.add_parser("profile")
     p.add_argument("--reps", type=int, default=10)
+    p.add_argument("--root", type=Path, default=here)
+    sub.add_parser("launch")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_csr_perf: needs a CUDA GPU", file=sys.stderr)
         return 2
-    root = (args.root if args.mode == "times"
-            else Path(__file__).resolve().parents[1]).resolve()
+    root = getattr(args, "root", here).resolve()
     sys.path.insert(0, str(root))
     import hashjoin3d_tpu_torch
     if Path(hashjoin3d_tpu_torch.__file__).resolve().parents[1] != root:
@@ -209,6 +301,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     if args.mode == "times":
         print(json.dumps(times(args.side, dev)))
+    elif args.mode == "launch":
+        print(json.dumps(launch_costs(dev)))
     else:
         build, probe, _ = strands(dev)
         profile_strand("build", build, args.reps)
