@@ -173,7 +173,6 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  int4* out4 = reinterpret_cast<int4*>(out);
   for (long long c = first; c < last; ++c) {
     const long long k = c - first;
     const int s = (int)(k % kSlots);
@@ -186,14 +185,10 @@ __global__ void __launch_bounds__(kThreads)
     }
     const int base = window_base(block_max(kmax, warp_max), W, T);
     if (threadIdx.x == 0 && k > 0 && c - 1 + kSlots < last) feed(c - 1 + kSlots);
-    int4* o = out4 + c * C4;
-    for (int i = threadIdx.x; i < C4; i += kThreads) {
-      const int4 v = kk[i];
-      o[i] = make_int4(db_lookup(table, v.x, base, R),
-                       db_lookup(table, v.y, base, R),
-                       db_lookup(table, v.z, base, R),
-                       db_lookup(table, v.w, base, R));
-    }
+    const int* k1 = reinterpret_cast<const int*>(kk);
+    int* o = out + c * C;
+    for (int i = threadIdx.x; i < C; i += kThreads)
+      o[i] = db_lookup(table, k1[i], base, R);
   }
 }
 
