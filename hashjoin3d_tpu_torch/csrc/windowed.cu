@@ -157,6 +157,9 @@ __global__ void __launch_bounds__(kThreads)
   extern __shared__ int4 slot4[];  // kSlots chunks of C keys
   __shared__ __align__(8) unsigned long long landed[kSlots];
   __shared__ int warp_max[kThreads / 32];
+  __shared__ int4 stage4[kThreads];  // 128 results a warp
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int* my_stage = reinterpret_cast<int*>(stage4 + 32 * warp);
   const long long first = (long long)blockIdx.x * nchunks / gridDim.x;
   const long long last = ((long long)blockIdx.x + 1) * nchunks / gridDim.x;
   if (first >= last) return;
@@ -185,10 +188,19 @@ __global__ void __launch_bounds__(kThreads)
     }
     const int base = window_base(block_max(kmax, warp_max), W, T);
     if (threadIdx.x == 0 && k > 0 && c - 1 + kSlots < last) feed(c - 1 + kSlots);
+    // warp w resolves 128-key pieces w, w + 8, ...: lane-consecutive
+    // lookups into its stage, then one 16-byte store a lane
     const int* k1 = reinterpret_cast<const int*>(kk);
-    int* o = out + c * C;
-    for (int i = threadIdx.x; i < C; i += kThreads)
-      o[i] = db_lookup(table, k1[i], base, R);
+    int4* o = reinterpret_cast<int4*>(out + c * C);
+    for (int q = warp; q < C / 128; q += kThreads / 32) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        my_stage[32 * j + lane] = db_lookup(table, k1[128 * q + 32 * j + lane],
+                                            base, R);
+      __syncwarp();
+      o[32 * q + lane] = reinterpret_cast<const int4*>(my_stage)[lane];
+      __syncwarp();
+    }
   }
 }
 
@@ -231,7 +243,7 @@ int hj3t_windowed_lookup(const void* table, const void* keys, void* out,
 int hj3t_windowed_lookup_db(const void* table, const void* keys, void* out,
                             long long T, long long n, int C, int W,
                             void* stream) {
-  if (C <= 0 || C % 4 != 0 || n % C != 0 || W < 1024 ||
+  if (C <= 0 || C % 128 != 0 || n % C != 0 || W < 1024 ||
       T < (long long)W + 1024 || T % 1024 != 0 || T > INT_MAX)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaGetLastError();
