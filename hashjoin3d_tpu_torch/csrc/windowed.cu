@@ -48,6 +48,8 @@
 #include <climits>
 #include <cstdint>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -155,7 +157,6 @@ __global__ void __launch_bounds__(kThreads)
                        const int* __restrict__ keys, int* __restrict__ out,
                        long long T, int C, int W, long long nchunks) {
   extern __shared__ int4 slot4[];  // kSlots chunks of C keys
-  __shared__ __align__(8) unsigned long long landed[kSlots];
   __shared__ int warp_max[kThreads / 32];
   __shared__ int4 stage4[kThreads];  // 128 results a warp
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -165,21 +166,23 @@ __global__ void __launch_bounds__(kThreads)
   if (first >= last) return;
   const int C4 = C / 4;
   const unsigned R = (unsigned)W + 1024u;
+  // every thread copies its part of chunk c's keys; one group a chunk
   auto feed = [&](long long c) {
-    const int s = (int)((c - first) % kSlots);
-    tma_load(slot4 + s * C4, keys + c * C, (unsigned)C * 4u, &landed[s]);
+    if (c < last) {
+      const int4* src = reinterpret_cast<const int4*>(keys + c * C);
+      int4* dst = slot4 + (int)((c - first) % kSlots) * C4;
+      for (int i = threadIdx.x; i < C4; i += kThreads)
+        cp_async16(dst + i, src + i);
+    }
+    cp_async_commit();
   };
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kSlots; ++s) mbar_init(&landed[s]);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    for (long long c = first; c < last && c < first + kSlots; ++c) feed(c);
-  }
-  __syncthreads();
+  for (long long c = first; c < first + kSlots; ++c) feed(c);
 
   for (long long c = first; c < last; ++c) {
     const long long k = c - first;
     const int s = (int)(k % kSlots);
-    mbar_wait(&landed[s], (unsigned)(k / kSlots) & 1u);
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncthreads();
     const int4* kk = slot4 + s * C4;
     int kmax = INT_MIN;
     for (int i = threadIdx.x; i < C4; i += kThreads) {
@@ -187,7 +190,7 @@ __global__ void __launch_bounds__(kThreads)
       kmax = max(kmax, max(max(v.x, v.y), max(v.z, v.w)));
     }
     const int base = window_base(block_max(kmax, warp_max), W, T);
-    if (threadIdx.x == 0 && k > 0 && c - 1 + kSlots < last) feed(c - 1 + kSlots);
+    if (k > 0) feed(c - 1 + kSlots);
     // warp w resolves 128-key pieces w, w + 8, ...: lane-consecutive
     // lookups into its stage, then one 16-byte store a lane
     const int* k1 = reinterpret_cast<const int*>(kk);
