@@ -48,8 +48,6 @@
 #include <climits>
 #include <cstdint>
 
-#include "cp_async.cuh"
-
 namespace {
 
 constexpr int kThreads = 256;
@@ -156,54 +154,28 @@ __global__ void __launch_bounds__(kThreads)
     windowed_db_kernel(const int* __restrict__ table,
                        const int* __restrict__ keys, int* __restrict__ out,
                        long long T, int C, int W, long long nchunks) {
-  extern __shared__ int4 slot4[];  // kSlots chunks of C keys
   __shared__ int warp_max[kThreads / 32];
   __shared__ int4 stage4[kThreads];  // 128 results a warp
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int* my_stage = reinterpret_cast<int*>(stage4 + 32 * warp);
-  const long long first = (long long)blockIdx.x * nchunks / gridDim.x;
-  const long long last = ((long long)blockIdx.x + 1) * nchunks / gridDim.x;
-  if (first >= last) return;
-  const int C4 = C / 4;
   const unsigned R = (unsigned)W + 1024u;
-  // every thread copies its part of chunk c's keys; one group a chunk
-  auto feed = [&](long long c) {
-    if (c < last) {
-      const int4* src = reinterpret_cast<const int4*>(keys + c * C);
-      int4* dst = slot4 + (int)((c - first) % kSlots) * C4;
-      for (int i = threadIdx.x; i < C4; i += kThreads)
-        cp_async16(dst + i, src + i);
-    }
-    cp_async_commit();
-  };
-  for (long long c = first; c < first + kSlots; ++c) feed(c);
-
-  for (long long c = first; c < last; ++c) {
-    const long long k = c - first;
-    const int s = (int)(k % kSlots);
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-    __syncthreads();
-    const int4* kk = slot4 + s * C4;
-    int kmax = INT_MIN;
-    for (int i = threadIdx.x; i < C4; i += kThreads) {
-      const int4 v = kk[i];
-      kmax = max(kmax, max(max(v.x, v.y), max(v.z, v.w)));
-    }
-    const int base = window_base(block_max(kmax, warp_max), W, T);
-    if (k > 0) feed(c - 1 + kSlots);
-    // warp w resolves 128-key pieces w, w + 8, ...: lane-consecutive
-    // lookups into its stage, then one 16-byte store a lane
-    const int* k1 = reinterpret_cast<const int*>(kk);
-    int4* o = reinterpret_cast<int4*>(out + c * C);
-    for (int q = warp; q < C / 128; q += kThreads / 32) {
+  const long long c = blockIdx.x;
+  const int* k1 = keys + c * C;
+  int kmax = INT_MIN;
+  for (int i = threadIdx.x; i < C / 4; i += kThreads) {
+    const int4 v = reinterpret_cast<const int4*>(k1)[i];
+    kmax = max(kmax, max(max(v.x, v.y), max(v.z, v.w)));
+  }
+  const int base = window_base(block_max(kmax, warp_max), W, T);
+  int4* o = reinterpret_cast<int4*>(out + c * C);
+  for (int q = warp; q < C / 128; q += kThreads / 32) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        my_stage[32 * j + lane] = db_lookup(table, k1[128 * q + 32 * j + lane],
-                                            base, R);
-      __syncwarp();
-      o[32 * q + lane] = reinterpret_cast<const int4*>(my_stage)[lane];
-      __syncwarp();
-    }
+    for (int j = 0; j < 4; ++j)
+      my_stage[32 * j + lane] = db_lookup(table, k1[128 * q + 32 * j + lane],
+                                          base, R);
+    __syncwarp();
+    o[32 * q + lane] = reinterpret_cast<const int4*>(my_stage)[lane];
+    __syncwarp();
   }
 }
 
@@ -271,9 +243,9 @@ int hj3t_windowed_lookup_db(const void* table, const void* keys, void* out,
     g_db_grid[dev].store(grid_word, std::memory_order_relaxed);
   }
   const long long nchunks = n / C;
-  long long grid = (long long)(grid_word & 0xffffffffu);
-  if (grid > nchunks) grid = nchunks;
-  windowed_db_kernel<<<(unsigned)grid, kThreads, (size_t)smem,
+  const long long grid = nchunks;  // one block a chunk
+  (void)grid_word;
+  windowed_db_kernel<<<(unsigned)grid, kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(table), static_cast<const int*>(keys),
       static_cast<int*>(out), T, C, W, nchunks);
