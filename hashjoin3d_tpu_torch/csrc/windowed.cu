@@ -155,9 +155,6 @@ __global__ void __launch_bounds__(kThreads)
                        const int* __restrict__ keys, int* __restrict__ out,
                        long long T, int C, int W, long long nchunks) {
   __shared__ int warp_max[kThreads / 32];
-  __shared__ int4 stage4[kThreads];  // 128 results a warp
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int* my_stage = reinterpret_cast<int*>(stage4 + 32 * warp);
   const unsigned R = (unsigned)W + 1024u;
   const long long c = blockIdx.x;
   const int* k1 = keys + c * C;
@@ -167,16 +164,9 @@ __global__ void __launch_bounds__(kThreads)
     kmax = max(kmax, max(max(v.x, v.y), max(v.z, v.w)));
   }
   const int base = window_base(block_max(kmax, warp_max), W, T);
-  int4* o = reinterpret_cast<int4*>(out + c * C);
-  for (int q = warp; q < C / 128; q += kThreads / 32) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      my_stage[32 * j + lane] = db_lookup(table, k1[128 * q + 32 * j + lane],
-                                          base, R);
-    __syncwarp();
-    o[32 * q + lane] = reinterpret_cast<const int4*>(my_stage)[lane];
-    __syncwarp();
-  }
+  int* o = out + c * C;
+  for (int i = threadIdx.x; i < C; i += kThreads)
+    o[i] = db_lookup(table, k1[i], base, R);
 }
 
 // K2b's grid per device, for the key slots' size it was taken at:

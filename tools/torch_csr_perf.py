@@ -15,7 +15,8 @@ prints the card and its power limit (``nvidia-smi``) first.
   (W = 8192) and ``index_select`` on the K1-sorted S.a over the build's
   direct words (T = 2^20), P8 (8 rows from row 3 of 2048) and ``clone`` of
   the same rows: each the mean of 20 calls on CUDA events after one
-  warm-up call.  The Csr build and probe strands: the median host time of
+  warm-up call; and whether K2b equals the plain lookup on that stream
+  and on it with the keys divisible by 5 made -1 holes.  The Csr build and probe strands: the median host time of
   20 runs, each between two ``torch.cuda.synchronize()`` calls; and
   ``Experiment1``'s ``t_buildStr`` and ``t_probeStr`` (ns, the reference's
   repetition protocol).
@@ -42,9 +43,11 @@ prints the card and its power limit (``nvidia-smi``) first.
   Host microseconds per call (``time.perf_counter`` over 10^4 calls, no
   synchronisation) of each step a wrapper may take: two ways to get the
   current stream's handle, a ``ctypes.c_void_p`` against a plain
-  ``data_ptr()``, the device rule, two ways to allocate the output, the
-  bound P8 entry point called with fixed arguments (ctypes and the launch
-  alone); then P8 (``probes.row_copy``) and ``clone`` of the same 8 rows,
+  ``data_ptr()``, the device rule, two ways to allocate the output, a
+  row slice, a ctypes call with no arguments, the bound P8 entry point
+  called with fixed arguments that it rejects (no rows: ctypes, argument
+  conversion and the checks, no launch) and that it launches; then P8
+  (``probes.row_copy``) and ``clone`` of the same 8 rows,
   each split into host and device time per call
   (``utils.measure.host_device_us``).
 """
@@ -156,6 +159,10 @@ def times(side: str, dev) -> dict:
             direct, sk, W=WINDOW)),
         k2b_ms=events_ms(lambda: windowed.windowed_lookup(
             direct, sk, W=WINDOW, db=True)),
+        k2b_bit_equal=all(torch.equal(
+            windowed.windowed_lookup(direct, keys, W=WINDOW, db=True),
+            windowed.windowed_lookup_plain(direct, keys, W=WINDOW))
+            for keys in (sk, torch.where(sk % 5 == 0, -1, sk))),
         index_select_ms=events_ms(lambda: torch.index_select(direct, 0, sk)),
         p8_ms=events_ms(lambda: probes.row_copy(src8, 3)),
         clone_ms=events_ms(lambda: src8[3:11].clone()),
@@ -217,6 +224,8 @@ def launch_costs(dev) -> dict:
                                         device=dev),
         new_empty=lambda: src8.new_empty((8, 128)),
         slice_rows=lambda: src8[3:11],
+        ctypes_no_args=lambda: kernels.lib().hj3t_scan_tile(),
+        entry_rejected=lambda: entry(*args[:4], 0, 0),
         entry_call=lambda: entry(*args, torch._C._cuda_getCurrentRawStream(
             index)))
     res = {f"{k}_us": us(fn) for k, fn in steps.items()}
