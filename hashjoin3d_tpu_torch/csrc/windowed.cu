@@ -150,23 +150,41 @@ __device__ __forceinline__ int db_lookup(const int* __restrict__ table,
 // 0 feeds the first kSlots chunks, then, in iteration c, chunk c - 1 +
 // kSlots into the slot chunk c - 1 used: the barriers of iteration c's block
 // max come after every thread's last read of that slot.
+// One thread: a 1-D TMA bulk prefetch of `bytes` from global `src` into L2.
+__device__ __forceinline__ void tma_prefetch_l2(const void* src,
+                                                unsigned bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+constexpr int kAhead = 2;  // chunks of keys prefetched ahead
+
 __global__ void __launch_bounds__(kThreads)
     windowed_db_kernel(const int* __restrict__ table,
                        const int* __restrict__ keys, int* __restrict__ out,
                        long long T, int C, int W, long long nchunks) {
   __shared__ int warp_max[kThreads / 32];
+  const long long first = (long long)blockIdx.x * nchunks / gridDim.x;
+  const long long last = ((long long)blockIdx.x + 1) * nchunks / gridDim.x;
   const unsigned R = (unsigned)W + 1024u;
-  const long long c = blockIdx.x;
-  const int* k1 = keys + c * C;
-  int kmax = INT_MIN;
-  for (int i = threadIdx.x; i < C / 4; i += kThreads) {
-    const int4 v = reinterpret_cast<const int4*>(k1)[i];
-    kmax = max(kmax, max(max(v.x, v.y), max(v.z, v.w)));
+  if (threadIdx.x == 0)
+    for (long long c = first + 1; c < last && c <= first + kAhead; ++c)
+      tma_prefetch_l2(keys + c * C, (unsigned)C * 4u);
+  for (long long c = first; c < last; ++c) {
+    if (threadIdx.x == 0 && c + kAhead < last)
+      tma_prefetch_l2(keys + (c + kAhead) * C, (unsigned)C * 4u);
+    const int* k1 = keys + c * C;
+    int kmax = INT_MIN;
+    for (int i = threadIdx.x; i < C / 4; i += kThreads) {
+      const int4 v = reinterpret_cast<const int4*>(k1)[i];
+      kmax = max(kmax, max(max(v.x, v.y), max(v.z, v.w)));
+    }
+    const int base = window_base(block_max(kmax, warp_max), W, T);
+    int* o = out + c * C;
+    for (int i = threadIdx.x; i < C; i += kThreads)
+      o[i] = db_lookup(table, k1[i], base, R);
   }
-  const int base = window_base(block_max(kmax, warp_max), W, T);
-  int* o = out + c * C;
-  for (int i = threadIdx.x; i < C; i += kThreads)
-    o[i] = db_lookup(table, k1[i], base, R);
 }
 
 // K2b's grid per device, for the key slots' size it was taken at:
@@ -216,9 +234,9 @@ int hj3t_windowed_lookup_db(const void* table, const void* keys, void* out,
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  const unsigned long long smem = (unsigned long long)kSlots * C * sizeof(int);
+  const unsigned long long smem = 0;
   unsigned long long grid_word = g_db_grid[dev].load(std::memory_order_relaxed);
-  if (grid_word >> 32 != smem) {
+  if (grid_word == 0) {
     int sms = 0, per_sm = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
@@ -233,8 +251,8 @@ int hj3t_windowed_lookup_db(const void* table, const void* keys, void* out,
     g_db_grid[dev].store(grid_word, std::memory_order_relaxed);
   }
   const long long nchunks = n / C;
-  const long long grid = nchunks;  // one block a chunk
-  (void)grid_word;
+  long long grid = (long long)(grid_word & 0xffffffffu);
+  if (grid > nchunks) grid = nchunks;
   windowed_db_kernel<<<(unsigned)grid, kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(table), static_cast<const int*>(keys),
