@@ -168,12 +168,7 @@ __global__ void __launch_bounds__(kThreads)
   const long long first = (long long)blockIdx.x * nchunks / gridDim.x;
   const long long last = ((long long)blockIdx.x + 1) * nchunks / gridDim.x;
   const unsigned R = (unsigned)W + 1024u;
-  if (threadIdx.x == 0)
-    for (long long c = first + 1; c < last && c <= first + kAhead; ++c)
-      tma_prefetch_l2(keys + c * C, (unsigned)C * 4u);
   for (long long c = first; c < last; ++c) {
-    if (threadIdx.x == 0 && c + kAhead < last)
-      tma_prefetch_l2(keys + (c + kAhead) * C, (unsigned)C * 4u);
     const int* k1 = keys + c * C;
     int kmax = INT_MIN;
     for (int i = threadIdx.x; i < C / 4; i += kThreads) {
