@@ -17,14 +17,12 @@ from pathlib import Path
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 
-def build_library(cmd: list[str], sources: list[Path], stem: str,
-                  headers: list[Path] = ()) -> Path:
+def build_library(cmd: list[str], sources: list[Path], stem: str) -> Path:
     """Compile ``sources`` with ``cmd`` (compiler and flags, without ``-o``)
     into ``_build/lib<stem>-<hash>.so`` unless it exists; return its path.
-    ``headers`` the sources include enter the hash, not the command.  A
-    failed compile raises with the compiler's output."""
+    A failed compile raises with the compiler's output."""
     h = hashlib.sha256(" ".join(cmd).encode())
-    for src in [*sources, *headers]:
+    for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     out = BUILD_DIR / f"lib{stem}-{h.hexdigest()[:16]}.so"

@@ -26,8 +26,6 @@
 
 #include <cstdint>
 
-#include "cp_async.cuh"
-
 namespace {
 
 constexpr int kLanes = 128;
@@ -193,6 +191,24 @@ __global__ void __launch_bounds__(kThreads)
     const int r = i / kLanes - off, j = i % kLanes;
     out[i] = (r >= 0 && r < 8 && j < lanes) ? x[r * kLanes + j] : 0;
   }
+}
+
+// P7's cp.async helpers: 16-byte global -> shared copies that bypass L1,
+// grouped and awaited.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+// Close the group of copies issued since the last commit.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait for every committed group of this thread.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // P7: out = src, copied block by block of B words in reversed block order

@@ -20,39 +20,37 @@
 // indexed shared-memory load.  Nothing of the TPU's one-hot row-select loop
 // (windowed.py:93-111) remains: Hopper has a real indexed load.
 //
-// K2b (hj3t_windowed_lookup_db): the same function, bit for bit, with the
-// next chunk's keys fed during this chunk's lookups.  Replaces
-// hashjoin3d_tpu/ops/windowed.py:_windowed_kernel_db (the same pallas_call
-// with db=True), which started chunk j+1's window DMA before chunk j's
-// select loop over a sequential grid.  The TPU staged the window because
-// Mosaic had no indexed load; Hopper has one, and the whole table (2^20
-// words = 4 MiB on the main path) stays in the 50 MB L2, so K2b stages no
-// window at all.  A persistent grid (as many blocks as fit on the SMs)
-// gives each block a contiguous run of chunks.  One elected thread feeds
-// chunk c+2's keys into shared memory by a 1-D TMA bulk copy on an mbarrier
-// while chunk c resolves (three key slots with phase bits); the chunk's base
-// comes from a block max over its landed keys, and each key in its window
-// reads table[key] through the read-only path (__ldg): a sorted 1024-key
-// chunk of a 2^18-key segment spans about 4096 words, so a warp's 128 keys
-// fall in about 16 lines of 128 bytes.  A key outside its window reads
-// nothing and yields 0, so no read leaves [0, T).  Results go out as
-// 16-byte stores.  Shared memory is only the key slots (12 KiB at
-// C = 1024), so blocks fill the SMs and W is not limited by shared memory.
-// Bound: keys in, words out, the table once (HBM).  The device queries, the
-// occupancy and the shared-memory attribute are taken once per device and
-// chunk size, not on every call.
+// K2b (hj3t_windowed_lookup_db): the same function, bit for bit, as a
+// gather from L2.  Replaces hashjoin3d_tpu/ops/windowed.py:
+// _windowed_kernel_db (the same pallas_call with db=True), which started
+// chunk j+1's window DMA before chunk j's select loop over a sequential
+// grid.  The TPU staged the window because Mosaic had no indexed load;
+// Hopper has one, and the whole table (2^20 words = 4 MiB on the main path)
+// stays in the 50 MB L2, so K2b stages nothing.  One block resolves one
+// C-key chunk: 16-byte loads of its keys give the block max and the base,
+// then each key in its window reads table[key] through the read-only path
+// (__ldg), lane by lane, and its word goes out in a coalesced 4-byte store.
+// A sorted 1024-key chunk of a 2^18-key segment spans about 4096 words, so
+// a warp's 32 consecutive keys fall in about 4 lines of 128 bytes.  A key
+// outside its window reads nothing and yields 0, so no read leaves [0, T).
+// With no shared memory to speak of, eight blocks fill each SM, and while
+// one block waits for its keys the others resolve theirs: that is the
+// card's version of the TPU's "fetch the next chunk during this chunk's
+// compute", and it needs no host-side query or attribute at all.  W is
+// not limited.  Bound: keys in, words out, the table once (HBM).  Measured
+// against designs that feed the keys ahead inside persistent blocks (TMA
+// bulk copies into shared-memory slots on mbarriers, cp.async, a TMA
+// prefetch into L2) and against 16-byte stores staged per warp: each of
+// those was slower (PERF.md).
 
 #include <cuda_runtime.h>
 
-#include <atomic>
 #include <climits>
 #include <cstdint>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kSlots = 3;         // K2b's key slots: two chunks in flight
-constexpr int kMaxDevices = 64;
 
 // chunk_bases in int32: kmax - W wraps exactly as the reference's i32 math
 __device__ __forceinline__ int window_base(int kmax, int W, long long T) {
@@ -98,94 +96,29 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-// One thread: `bar` expects `bytes`, and a 1-D TMA bulk copy brings them
-// from global `src` to shared `dst` (both 16-byte aligned, bytes % 16 == 0).
-__device__ __forceinline__ void tma_load(void* dst, const void* src,
-                                         unsigned bytes,
-                                         unsigned long long* bar) {
-  const unsigned b = smem_addr(bar);
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
-               "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(b)
-      : "memory");
-}
-
-// Wait until phase `parity` of `bar` has completed.
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
-                                          unsigned parity) {
-  const unsigned b = smem_addr(bar);
-  unsigned done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(b), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
 // K2b's lookup: table[key] for a key in [base, base + R), else 0 (no read).
 __device__ __forceinline__ int db_lookup(const int* __restrict__ table,
                                          int key, int base, unsigned R) {
   return (unsigned)key - (unsigned)base < R ? __ldg(table + key) : 0;
 }
 
-// K2b.  Chunks [first, last) of this block; chunk c's keys land in slot
-// (c - first) % kSlots, whose mbarrier completes one phase per use.  Thread
-// 0 feeds the first kSlots chunks, then, in iteration c, chunk c - 1 +
-// kSlots into the slot chunk c - 1 used: the barriers of iteration c's block
-// max come after every thread's last read of that slot.
-// One thread: a 1-D TMA bulk prefetch of `bytes` from global `src` into L2.
-__device__ __forceinline__ void tma_prefetch_l2(const void* src,
-                                                unsigned bytes) {
-  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src),
-               "r"(bytes)
-               : "memory");
-}
-
-constexpr int kAhead = 2;  // chunks of keys prefetched ahead
-
 __global__ void __launch_bounds__(kThreads)
     windowed_db_kernel(const int* __restrict__ table,
                        const int* __restrict__ keys, int* __restrict__ out,
-                       long long T, int C, int W, long long nchunks) {
+                       long long T, int C, int W) {
   __shared__ int warp_max[kThreads / 32];
-  const long long first = (long long)blockIdx.x * nchunks / gridDim.x;
-  const long long last = ((long long)blockIdx.x + 1) * nchunks / gridDim.x;
   const unsigned R = (unsigned)W + 1024u;
-  for (long long c = first; c < last; ++c) {
-    const int* k1 = keys + c * C;
-    int kmax = INT_MIN;
-    for (int i = threadIdx.x; i < C / 4; i += kThreads) {
-      const int4 v = reinterpret_cast<const int4*>(k1)[i];
-      kmax = max(kmax, max(max(v.x, v.y), max(v.z, v.w)));
-    }
-    const int base = window_base(block_max(kmax, warp_max), W, T);
-    int* o = out + c * C;
-    for (int i = threadIdx.x; i < C; i += kThreads)
-      o[i] = db_lookup(table, k1[i], base, R);
+  const long long c0 = (long long)blockIdx.x * C;
+  const int* k = keys + c0;
+  int kmax = INT_MIN;
+  for (int i = threadIdx.x; i < C / 4; i += kThreads) {
+    const int4 v = reinterpret_cast<const int4*>(k)[i];
+    kmax = max(kmax, max(max(v.x, v.y), max(v.z, v.w)));
   }
+  const int base = window_base(block_max(kmax, warp_max), W, T);
+  for (int i = threadIdx.x; i < C; i += kThreads)
+    out[c0 + i] = db_lookup(table, k[i], base, R);
 }
-
-// K2b's grid per device, for the key slots' size it was taken at:
-// (slot bytes << 32) | blocks, 0 until the device's first call.  A racing
-// first call computes and stores the same word.
-std::atomic<unsigned long long> g_db_grid[kMaxDevices];
 
 }  // namespace
 
@@ -214,44 +147,20 @@ int hj3t_windowed_lookup(const void* table, const void* keys, void* out,
   return (int)cudaGetLastError();
 }
 
-// K2b: as hj3t_windowed_lookup, results bit-equal; keys and out 16-byte
-// aligned, C a multiple of 4, T <= INT_MAX; the kSlots key chunks
-// (12 C bytes) must fit one block's shared memory, else the attribute call's
-// error.
+// K2b: as hj3t_windowed_lookup, results bit-equal; keys 16-byte aligned,
+// C a multiple of 4, T <= INT_MAX.
 int hj3t_windowed_lookup_db(const void* table, const void* keys, void* out,
                             long long T, long long n, int C, int W,
                             void* stream) {
-  if (C <= 0 || C % 128 != 0 || n % C != 0 || W < 1024 ||
-      T < (long long)W + 1024 || T % 1024 != 0 || T > INT_MAX)
+  if (C <= 0 || C % 4 != 0 || n % C != 0 || W < 1024 ||
+      T < (long long)W + 1024 || T % 1024 != 0 || T > INT_MAX ||
+      n / C > INT_MAX)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaGetLastError();
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  const unsigned long long smem = 0;
-  unsigned long long grid_word = g_db_grid[dev].load(std::memory_order_relaxed);
-  if (grid_word == 0) {
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(windowed_db_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, windowed_db_kernel, kThreads, (size_t)smem);
-    if (err != cudaSuccess) return (int)err;
-    grid_word = smem << 32 | (unsigned long long)sms * (per_sm > 0 ? per_sm : 1);
-    g_db_grid[dev].store(grid_word, std::memory_order_relaxed);
-  }
-  const long long nchunks = n / C;
-  long long grid = (long long)(grid_word & 0xffffffffu);
-  if (grid > nchunks) grid = nchunks;
-  windowed_db_kernel<<<(unsigned)grid, kThreads, 0,
+  windowed_db_kernel<<<(unsigned)(n / C), kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(table), static_cast<const int*>(keys),
-      static_cast<int*>(out), T, C, W, nchunks);
+      static_cast<int*>(out), T, C, W);
   return (int)cudaGetLastError();
 }
 

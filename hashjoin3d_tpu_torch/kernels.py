@@ -2,8 +2,7 @@
 
 Each ``csrc/*.cu`` compiles with its own ``nvcc`` call for ``sm_90a`` into
 ``_build/libhj3<source>-<hash>.so`` at first use (never at import: the CPU
-test host has no ``nvcc``; the hash covers the shared ``csrc/*.cuh``
-headers too); the calls run side by side, and the libraries
+test host has no ``nvcc``); the calls run side by side, and the libraries
 load through ``ctypes``.  Each C entry point takes its pointers and the CUDA
 stream as ``void*`` and returns ``cudaGetLastError()``.  Kernels launch on
 PyTorch's current stream, never synchronise and allocate nothing: the Python
@@ -105,11 +104,10 @@ def lib() -> types.SimpleNamespace:
     global _lib
     if _lib is None:
         cmd = [nvcc(), *NVCC_FLAGS]
-        headers = sorted(CSRC.glob("*.cuh"))
         with ThreadPoolExecutor(len(_SIGNATURES)) as pool:
             built = pool.map(
                 lambda src: build_library(cmd, [CSRC / src],
-                                          f"hj3{Path(src).stem}", headers),
+                                          f"hj3{Path(src).stem}"),
                 _SIGNATURES)
         ns = types.SimpleNamespace()
         for so, entries in zip(built, _SIGNATURES.values()):

@@ -9,9 +9,9 @@ says whether every in-range key of a stream is covered.
 
 On CUDA tensors :func:`windowed_lookup` launches ``csrc/windowed.cu``: K2,
 which stages each chunk's window in shared memory, or with ``db=True`` K2b,
-which feeds the next chunk's keys by TMA while this chunk's in-window keys
-read the table straight from L2 (no window staged; the results are the
-same).  On CPU tensors it runs :func:`windowed_lookup_plain`.
+which stages nothing: each in-window key reads its word straight from the
+table, which stays in L2 (the results are the same).  On CPU tensors it
+runs :func:`windowed_lookup_plain`.
 """
 
 from __future__ import annotations
@@ -64,16 +64,16 @@ def windowed_lookup(table: torch.Tensor, keys_sorted: torch.Tensor,
     ``keys_sorted``: int32[n], n % C == 0, nearly nondecreasing (-1 holes
     are fine).  Coverage of in-range keys is the caller's to check
     (:func:`windowed_coverage_ok`, ``strands_windowed.safe_lookup``).
-    ``db=True`` launches K2b, which feeds the next chunk's keys while this
-    chunk resolves (same results, every W that K2 takes).
+    ``db=True`` launches K2b, the gather from L2 with no window staged
+    (same results, every W that K2 takes).
     """
     _check(table, keys_sorted, C, W)
     name = "windowed_lookup_db" if db else "windowed_lookup"
     dev = kernels.kernel_device(name, table, keys_sorted)
     if dev < 0:
         return windowed_lookup_plain(table, keys_sorted, C, W)
-    if table.data_ptr() % 16 or (db and keys_sorted.data_ptr() % 16):
-        raise ValueError(f"{name}: table (and with db, keys) must be "
+    if (keys_sorted if db else table).data_ptr() % 16:  # 16-byte loads
+        raise ValueError(f"{name}: {'keys' if db else 'table'} must be "
                          f"16-byte aligned")
     out = torch.empty_like(keys_sorted)
     (_K2B if db else _K2)(name, table.data_ptr(), keys_sorted.data_ptr(),
