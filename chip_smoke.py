@@ -29,7 +29,7 @@ probe 2^24 foreign keys).  Phases, any failure exits non-zero:
 4. launch counts, reset just before phase 2: K1, K2, K3 launched in phase 2,
    K4 in phase 3 (R20/S24 never misses, so its main path bypasses K4);
 5. the kernels only the measurement tools reach: K2b (the windowed lookup
-   with TMA-fed keys and table reads from L2) bit-equal to K2 and to the
+   as a gather from L2, no window staged) bit-equal to K2 and to the
    plain lookup on phase 2's table, at W = 8192 and 32768, on the K1-sorted
    probes and five edge streams made from them (-1 holes, a base that moves
    back, a base that jumps, an all-miss chunk whose base wraps, keys past
