@@ -49,7 +49,8 @@ prints the card and its power limit (``nvidia-smi``) first.
   conversion and the checks, no launch) and that it launches; then P8
   (``probes.row_copy``) and ``clone`` of the same 8 rows,
   each split into host and device time per call
-  (``utils.measure.host_device_us``).
+  (``utils.measure.host_device_us``), and their time per call on CUDA
+  events over 20 and over 2000 calls issued back to back.
 """
 
 from __future__ import annotations
@@ -232,6 +233,8 @@ def launch_costs(dev) -> dict:
     for name, fn in (("p8", lambda: probes.row_copy(src8, 3)),
                      ("clone", lambda: src8[3:11].clone())):
         res[f"{name}_host_us"], res[f"{name}_device_us"] = host_device_us(fn)
+        for reps in (20, 2000):
+            res[f"{name}_events_{reps}_us"] = events_ms(fn, reps) * 1e3
     return res
 
 
