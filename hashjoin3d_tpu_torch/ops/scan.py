@@ -21,7 +21,6 @@ _OP_CODES = {"sum": 0, "max": 1, "min": 2, "maxpair": 3}
 _ARITY = {"sum": 1, "max": 1, "min": 1, "maxpair": 2}
 _MAX_SLOTS = 4
 _K3 = kernels.Kernel("hj3t_multi_scan")
-_TILE = None
 
 
 def _validate(arrays, ops):
@@ -55,7 +54,7 @@ def multi_scan(arrays, ops, reverse: bool = False):
     outs = tuple(torch.empty_like(a) for a in arrays)
     if n == 0:
         return outs
-    nblocks = -(-n // _scan_tile())
+    nblocks = -(-n // kernels.lib().hj3t_scan_tile())
     scratch = torch.empty(2 * len(ops) * nblocks, dtype=I32,
                           device=arrays[0].device)
     pad = [None] * (_MAX_SLOTS - len(arrays))
@@ -64,14 +63,6 @@ def multi_scan(arrays, ops, reverse: bool = False):
         *[o.data_ptr() for o in outs], *pad, *codes, n, int(reverse),
         scratch.data_ptr(), kernels.stream(dev))
     return outs
-
-
-def _scan_tile() -> int:
-    """Keys per block of ``csrc/scan.cu`` (asked once)."""
-    global _TILE
-    if _TILE is None:
-        _TILE = kernels.lib().hj3t_scan_tile()
-    return _TILE
 
 
 def multi_scan_plain(arrays, ops, reverse: bool = False):
