@@ -12,7 +12,9 @@ probe 2^24 foreign keys).  Phases, any failure exits non-zero:
 
 0. the card and its power limit (``nvidia-smi``), the kernel build time;
 1. each kernel against its plain PyTorch version on the same CUDA tensors at
-   the main-path shapes, bit-equal: K2, K3, and the radix sorts K1 (keys and
+   the main-path shapes, bit-equal: K2 (words, its per-chunk coverage
+   flags and their count, as ``safe_lookup`` calls it), K3, and the radix
+   sorts K1 (keys and
    rows) and K4 (1-op, take_min with an ascending payload, stable with a
    shuffled payload); then K1 and K4 at other segment sizes (256 .. 8192 on
    the one-block path, 2^14 and 2^15 on the multi-tile path) and key
@@ -28,18 +30,22 @@ probe 2^24 foreign keys).  Phases, any failure exits non-zero:
    CPU plain run;
 4. launch counts, reset just before phase 2: K1, K2, K3 launched in phase 2,
    K4 in phase 3 (R20/S24 never misses, so its main path bypasses K4);
-5. the kernels only the measurement tools reach: K2b (the windowed lookup
-   as a gather from L2, no window staged) bit-equal to K2 and to the
-   plain lookup on phase 2's table, at W = 8192 and 32768, on the K1-sorted
-   probes and five edge streams made from them (-1 holes, a base that moves
-   back, a base that jumps, an all-miss chunk whose base wraps, keys past
-   the table); P8 equal to its plain version at five (row offset, rows),
+5. K2b, the kernel only the measurement tools reach, bit-equal to K2 (with
+   and without coverage) and to the plain lookup on phase 2's table, at
+   W = 8192 and 32768, on the K1-sorted probes and five edge streams made
+   from them (-1 holes, a base that moves back, a base that jumps, an
+   all-miss chunk whose base wraps, keys past the table), at W = 65536 on a
+   2^17-word table, on a zero-padded table (Tv < T) and on a key view at
+   element offset 1; ``safe_lookup`` on the card equal to its CPU run on a
+   route-1 stream (64 uncovered chunks) and a route-2 stream (the unsorted
+   S.a); P8 equal to its plain version at five (row offset, rows),
    and its host and device time per call beside ``clone``'s;
    P1-P9 (``ops/probes.py``) through the mosaic_probe runner, each
    equal to its plain version at the TPU probes' sizes, counts reset just
    before it: each P kernel must launch there; then the roofline and
    csrprof paths (``hashjoin3d_tpu_torch/tools``) driven once with a short
-   minimum time, counts reset just before them: K2b must launch there.
+   minimum time, counts reset just before them: K2b must launch there, and
+   csrprof's ``safe_lookup`` stages print.
 
 Prints one JSON line of per-kernel results, then, last,
 ``{"ok": true, "device": {...}}``.  ``launches`` there is the main path's
@@ -222,18 +228,25 @@ def phase1_kernels(rk, sa, ops):
         library_ms=cuda_ms(lambda: torch.sort(sa.view(K, SEGMENT), dim=1)),
         **bound(sa, sk, rows))
 
-    # K2: the packed direct words of the sorted probes (T = 2^20, W = 8192)
+    # K2: the packed direct words of the sorted probes and the chunks its
+    # windows miss, as safe_lookup calls it (T = Tv = 2^20, W = 8192)
     direct = ops["table"].direct
-    got = windowed.windowed_lookup(direct, sk, W=WINDOW)
-    want = windowed.windowed_lookup_plain(direct, sk, W=WINDOW)
-    require(torch.equal(got, want), "K2: differs from the plain lookup")
+    T = direct.shape[0]
+    got = windowed.windowed_lookup_covered(direct, sk, T, W=WINDOW)
+    want = windowed.windowed_lookup_covered_plain(direct, sk, T, W=WINDOW)
+    require(same(got, want), "K2: words, bad or nbad differ from the plain "
+            "lookup")
+    require(int(got[2]) == 0, "K2: the main stream has uncovered chunks")
     results["K2 windowed_lookup"] = dict(
-        max_abs_err=max_abs_err(got, want),
-        ms=cuda_ms(lambda: windowed.windowed_lookup(direct, sk, W=WINDOW)),
-        plain_ms=cuda_ms(lambda: windowed.windowed_lookup_plain(
-            direct, sk, W=WINDOW)),
+        max_abs_err=max(max_abs_err(g, w) for g, w in zip(got, want)),
+        ms=cuda_ms(lambda: windowed.windowed_lookup_covered(
+            direct, sk, T, W=WINDOW)),
+        k2b_ms_same_call=cuda_ms(lambda: windowed.windowed_lookup(
+            direct, sk, W=WINDOW, db=True)),
+        plain_ms=cuda_ms(lambda: windowed.windowed_lookup_covered_plain(
+            direct, sk, T, W=WINDOW)),
         library_ms=cuda_ms(lambda: torch.index_select(direct, 0, sk)),
-        **bound(direct, sk, got))
+        **bound(direct, sk, got[0], got[1]))
 
     # K3: run_boundaries' scans over the build's sorted bucket column
     b = bucket_of(hash_key(rk), 1 << LOG2_R)
@@ -363,36 +376,100 @@ def edge_streams(sk, T):
         "past_table": past}
 
 
+def lookup_cases(direct, sk):
+    """(label, table, keys, Tv, W) of phase 5's lookup checks: every edge
+    stream at W = 8192 and 32768 (T = 2^20, 2^24 keys); W = 65536 on a
+    2^17-word table (the keys >> 3, each segment's last keys moved below
+    its chunk's window); a table of 2^20 - 300 values zero-padded to 2^20
+    (Tv < T) on the rolled stream; the rolled stream as a key view at
+    element offset 1 (4-byte key loads)."""
+    from hashjoin3d_tpu_torch.ops.strands_windowed import _pad_table
+    from hashjoin3d_tpu_torch.ops.windowed import DEFAULT_C as C
+
+    T = direct.shape[0]
+    streams = edge_streams(sk, T)
+    out = [(f"{what}, W = {W}", direct, keys, T, W)
+           for what, keys in streams.items() for W in (WINDOW, 32768)]
+    small = (sk >> 3).view(-1, SEGMENT)
+    small[:, -C // 2:] = 0
+    out.append(("W = 65536, T = 2^17", direct[:1 << 17].clone(),
+                small.view(-1), 1 << 17, 65536))
+    rolled = streams["new_segment"]
+    out.append(("padded table, Tv = 2^20 - 300",
+                _pad_table(direct[:T - 300], WINDOW), rolled, T - 300, WINDOW))
+    view = torch.empty(rolled.shape[0] + 1, dtype=rolled.dtype,
+                       device=rolled.device)
+    view[1:] = rolled
+    require(view[1:].data_ptr() % 16 == 4, "the key view is not unaligned")
+    out.append(("key view at offset 1", direct, view[1:], T, WINDOW))
+    return out
+
+
 def phase5_k2b(direct, sa, dev):
-    """K2b vs K2 vs the plain lookup, bit-equal, on every edge stream at
-    W = 8192 and W = 32768 (T = 2^20, 2^24 keys); times at W = 8192 on the
-    main path's sorted stream."""
+    """K2 (words, bad, nbad), K2 without coverage and K2b bit-equal to each
+    other and to the plain lookup on every case of :func:`lookup_cases`;
+    times at W = 8192 on the main path's sorted stream."""
     from hashjoin3d_tpu_torch.ops import bitonic, windowed
 
     sk, _ = bitonic.bitonic_sort_packed_segmented(sa, SEGMENT, KEY_BITS)
     err = 0
-    for what, keys in edge_streams(sk, direct.shape[0]).items():
-        for W in (WINDOW, 32768):
-            db = windowed.windowed_lookup(direct, keys, W=W, db=True)
-            k2 = windowed.windowed_lookup(direct, keys, W=W)
-            plain = windowed.windowed_lookup_plain(direct, keys, W=W)
-            require(torch.equal(db, k2), f"K2b differs from K2 ({what}, "
-                    f"W = {W})")
-            require(torch.equal(db, plain), f"K2b differs from plain "
-                    f"({what}, W = {W})")
-            err = max(err, max_abs_err(db, plain))
+    for what, table, keys, Tv, W in lookup_cases(direct, sk):
+        db = windowed.windowed_lookup(table, keys, W=W, db=True)
+        k2 = windowed.windowed_lookup(table, keys, W=W)
+        cov = windowed.windowed_lookup_covered(table, keys, Tv, W=W)
+        plain = windowed.windowed_lookup_covered_plain(table, keys, Tv, W=W)
+        require(torch.equal(db, k2), f"K2b differs from K2 ({what})")
+        require(torch.equal(db, plain[0]), f"K2b differs from plain ({what})")
+        require(same(cov, plain), f"K2 with coverage differs from plain "
+                f"({what}): nbad {int(cov[2])} vs {int(plain[2])}")
+        err = max(err, max_abs_err(db, plain[0]))
     return dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: windowed.windowed_lookup(direct, sk, W=WINDOW,
                                                     db=True)),
         k2_ms_same_call=cuda_ms(lambda: windowed.windowed_lookup(
             direct, sk, W=WINDOW)),
+        k2_covered_ms_same_call=cuda_ms(lambda: windowed.
+                                        windowed_lookup_covered(
+                                            direct, sk, direct.shape[0],
+                                            W=WINDOW)),
         w32768_ms=cuda_ms(lambda: windowed.windowed_lookup(
             direct, sk, W=32768, db=True)),
         plain_ms=cuda_ms(lambda: windowed.windowed_lookup_plain(
             direct, sk, W=WINDOW)),
         library_ms=cuda_ms(lambda: torch.index_select(direct, 0, sk)),
         **bound(direct, sk, sk))
+
+
+def phase5_safe_lookup(direct, sa):
+    """``safe_lookup`` on the card equal, in words, ``route_worst`` and
+    ``route_nbad``, to the same call on CPU copies (plain versions): the
+    K1-sorted probes rolled by a third of a chunk (one uncovered chunk at
+    each of the 64 segment starts, under the patch cap of 256: route 1) and
+    the unsorted S.a (every chunk uncovered: route 2)."""
+    from hashjoin3d_tpu_torch.ops import bitonic
+    from hashjoin3d_tpu_torch.ops import strands_windowed as sw
+
+    sk, _ = bitonic.bitonic_sort_packed_segmented(sa, SEGMENT, KEY_BITS)
+    rolled = edge_streams(sk, direct.shape[0])["new_segment"]
+    lookup = sw._with_route(lambda v, k: {"out": sw.safe_lookup(
+        v, k, W=WINDOW)})
+    routes = {}
+    for what, keys, route in (("rolled", rolled, sw.ROUTE_PATCHED),
+                              ("unsorted", sa, sw.ROUTE_GATHER)):
+        got = lookup(direct, keys)
+        want = lookup(direct.cpu(), keys.cpu())
+        require(torch.equal(got["out"].cpu(), want["out"]),
+                f"safe_lookup ({what}): words differ from the CPU run")
+        for k in ("route_worst", "route_nbad"):
+            require(got[k] == want[k], f"safe_lookup ({what}): {k} "
+                    f"{got[k]} vs {want[k]} on the CPU")
+        require(got["route_worst"] == route, f"safe_lookup ({what}): route "
+                f"{got['route_worst']}, not {route}")
+        routes[what] = (got["route_worst"], got["route_nbad"])
+    require(routes["rolled"][1] == 1 << (LOG2_S - 18),
+            f"safe_lookup (rolled): {routes['rolled'][1]} uncovered chunks")
+    return routes
 
 
 def phase5_p8(dev):
@@ -467,7 +544,7 @@ def phase5_tools(dev):
     torch.cuda.synchronize()
     require(all(torch.isfinite(torch.tensor(list(times.values())))),
             "csrprof: a stage time is not finite")
-    return dict(kernels.LAUNCHES)
+    return dict(kernels.LAUNCHES), times
 
 
 def main() -> int:
@@ -560,25 +637,37 @@ def main() -> int:
             "bitonic_sort_segmented not launched in phase 3")
     print(f"launches after phase 2 {after2}, after phase 3 {after3}")
 
-    # phase 5: K2b, P1-P9, and the measurement tools' path
+    # phase 5: K2 and K2b edge cases, safe_lookup's routes on the card, P8,
+    # P1-P9, and the measurement tools' path
     from hashjoin3d_tpu_torch.tools.mosaic_probe import PROBES
     results["K2b windowed_lookup db"] = phase5_k2b(table_gpu.direct, exp.sa,
                                                    dev)
     r = results["K2b windowed_lookup db"]
-    print(f"phase 5 K2b: bit-equal to K2 and plain on every edge stream at "
-          f"W = {WINDOW} and 32768, {r['ms']:.4f} ms vs K2 "
-          f"{r['k2_ms_same_call']:.4f} ms in the same call (W = 32768: "
-          f"{r['w32768_ms']:.4f} ms)")
+    print(f"phase 5 K2b: bit-equal to K2 (words, bad, nbad) and plain on "
+          f"every edge stream at W = {WINDOW} and 32768, at W = 65536, on a "
+          f"padded table and on an unaligned key view; {r['ms']:.4f} ms vs "
+          f"K2 {r['k2_ms_same_call']:.4f} ms, K2 with coverage "
+          f"{r['k2_covered_ms_same_call']:.4f} ms in the same call "
+          f"(W = 32768: {r['w32768_ms']:.4f} ms)")
+    k2 = results["K2 windowed_lookup"]
+    print(f"phase 1 K2 with coverage on {card}: " + json.dumps({
+        k: k2[k] for k in ("ms", "k2b_ms_same_call", "library_ms",
+                           "bound_ms")}))
+    routes = phase5_safe_lookup(table_gpu.direct, exp.sa)
+    print(f"phase 5 safe_lookup equal to the CPU run, (route, nbad): "
+          f"{routes}")
     p8 = phase5_p8(dev)
     print(f"phase 5 P8 host/device per call on {card}: " + json.dumps(p8))
     probe_results, probe_tools = phase5_probes(dev)
     print(f"launches on the probe runner's path {probe_tools}")
     del exp, table_gpu, out_gpu, out3
     torch.cuda.empty_cache()
-    tools = phase5_tools(dev)
+    tools, stage_ms = phase5_tools(dev)
     require(tools["windowed_lookup_db"] > 0,
             "windowed_lookup_db not launched on the tools' path")
     print(f"launches on the tools' path {tools}")
+    print("phase 5 csrprof stage 2 on " + card + ": " + json.dumps(
+        {k: v for k, v in stage_ms.items() if k.startswith("2")}))
 
     entries = [
         dict(name=name, route="cuda", source=src, replaces=rep,

@@ -17,8 +17,7 @@
 // under the bf16 rate per byte moved, so P4 is memory bound too.
 //
 // Design per probe: a row of 128 words is one warp's work (4 words a lane);
-// shared memory replaces the TPU's lane gathers (P1, P2, P5); P7's staged
-// copy goes through shared memory with cp.async 16-byte copies, P8 copies
+// shared memory replaces the TPU's lane gathers (P1, P2, P5); P7 and P8 copy
 // global to global.
 
 #include <cuda_bf16.h>
@@ -193,46 +192,31 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// P7's cp.async helpers: 16-byte global -> shared copies that bypass L1,
-// grouped and awaited.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-// Close the group of copies issued since the last commit.
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Wait for every committed group of this thread.
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// P7: out = src, copied block by block of B words in reversed block order
-// (CUDA block j copies block K-1-j), staged through shared memory in pieces
-// of at most kPiece words with cp.async.
-constexpr int kPiece = 8192;
+// P7: out = src, in reversed order of B-word blocks: position p of the copy
+// (16-byte words, K = n4 / B4 blocks of B4) is word (K-1 - p / B4) B4 +
+// p % B4, so the lowest CUDA blocks copy the last B-block.  The positions
+// fall in fixed tiles of kCopyLoads x kThreads words, one a CUDA block,
+// whatever B is; each thread holds its kCopyLoads 16-byte loads in flight
+// before its stores, global to global, with no shared memory.  A warp's 32
+// consecutive positions are 512 contiguous bytes (B4 is a multiple of 32).
+constexpr int kCopyLoads = 8;
+constexpr unsigned kCopyTile4 = kCopyLoads * kThreads;
 __global__ void __launch_bounds__(kThreads)
-    block_copy_kernel(const int* __restrict__ src, int* __restrict__ out,
-                      int B) {
-  extern __shared__ int4 stage4[];
-  const long long blk = (long long)gridDim.x - 1 - blockIdx.x;
-  const int piece = B < kPiece ? B : kPiece;
-  for (int p0 = 0; p0 < B; p0 += piece) {
-    const long long off = blk * B + p0;
-    const int4* s = reinterpret_cast<const int4*>(src + off);
-    for (int i = threadIdx.x; i < piece / 4; i += kThreads)
-      cp_async16(stage4 + i, s + i);
-    cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();
-    int4* o = reinterpret_cast<int4*>(out + off);
-    for (int i = threadIdx.x; i < piece / 4; i += kThreads) o[i] = stage4[i];
-    __syncthreads();
+    block_copy_kernel(const int4* __restrict__ src, int4* __restrict__ out,
+                      unsigned n4, unsigned B4) {
+  const unsigned K = n4 / B4;
+  const unsigned p0 = blockIdx.x * kCopyTile4 + threadIdx.x;
+  unsigned at[kCopyLoads];
+  int4 v[kCopyLoads];
+#pragma unroll
+  for (int u = 0; u < kCopyLoads; ++u) {
+    const unsigned p = p0 + u * kThreads;
+    at[u] = p < n4 ? (K - 1 - p / B4) * B4 + p % B4 : n4;
+    if (p < n4) v[u] = __ldg(src + at[u]);
   }
+#pragma unroll
+  for (int u = 0; u < kCopyLoads; ++u)
+    if (at[u] < n4) out[at[u]] = v[u];
 }
 
 // P8: out = n4 16-byte words from src (src[off:off + nrows] of rows of 512
@@ -372,21 +356,18 @@ int hj3t_probe_masked_store(const void* x, void* out, int out_rows, int off,
   return (int)cudaGetLastError();
 }
 
-// P7: src, out int32[n]; B a multiple of 4 dividing n, and B <= 8192 or a
-// multiple of 8192.  out = src, copied in reversed block order.
+// P7: src, out int32[n], n < 2^33; B a multiple of 128 dividing n.  out =
+// src, copied in reversed block order.
 int hj3t_probe_block_copy(const void* src, void* out, long long n, int B,
                           void* stream) {
-  if (B <= 0 || B % 4 || n < 0 || n % B || (B > kPiece && B % kPiece) ||
-      n / B > 0x7fffffffLL)
+  if (B <= 0 || B % 128 || n < 0 || n % B || n / 4 >= 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaGetLastError();
-  const size_t smem = (size_t)(B < kPiece ? B : kPiece) * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      block_copy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  block_copy_kernel<<<(unsigned)(n / B), kThreads, smem, as_stream(stream)>>>(
-      static_cast<const int*>(src), static_cast<int*>(out), B);
+  const unsigned n4 = (unsigned)(n / 4);
+  block_copy_kernel<<<(n4 + kCopyTile4 - 1) / kCopyTile4, kThreads, 0,
+                      as_stream(stream)>>>(static_cast<const int4*>(src),
+                                           static_cast<int4*>(out), n4,
+                                           (unsigned)B / 4);
   return (int)cudaGetLastError();
 }
 

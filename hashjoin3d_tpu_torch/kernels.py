@@ -60,8 +60,9 @@ _SIGNATURES = {
         "hj3t_error_string": ([_I], _S),
     },
     "windowed.cu": {
-        # table, keys, out, T, n, C, W, stream
-        "hj3t_windowed_lookup": ([_P, _P, _P, _L, _L, _I, _I, _P], _I),
+        # table, keys, out, [bad,] T, [Tv,] n, C, W, stream
+        "hj3t_windowed_lookup": ([_P, _P, _P, _P, _L, _L, _L, _I, _I, _P],
+                                 _I),
         "hj3t_windowed_lookup_db": ([_P, _P, _P, _L, _L, _I, _I, _P], _I),
     },
     "radix.cu": {

@@ -203,13 +203,12 @@ def masked_store_plain(x: torch.Tensor, off: int, out_rows: int = 32,
 
 # ---------------------------------------------------------------------- P7
 def block_copy(src: torch.Tensor, B: int) -> torch.Tensor:
-    """P7: a copy of ``src`` made block by block of ``B`` words in reversed
-    block order (B a multiple of 128, at most 8192 or a multiple of 8192,
-    dividing the size): the result equals ``src``."""
+    """P7: a copy of ``src`` made in reversed order of its ``B``-word blocks
+    (B a multiple of 128 dividing the size): the result equals ``src``."""
     n = src.numel()
-    if src.dtype != I32 or B % LANES or n % B or (B > 8192 and B % 8192):
+    if src.dtype != I32 or B <= 0 or B % LANES or n % B:
         raise ValueError(f"block_copy: int32 src, B = {B} a multiple of 128 "
-                         f"dividing {n}, at most 8192 or a multiple of it")
+                         f"dividing {n}")
     dev = _device("probe_block_copy", src)
     if dev < 0:
         return block_copy_plain(src, B)

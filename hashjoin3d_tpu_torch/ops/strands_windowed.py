@@ -27,7 +27,7 @@ from .hashing import bucket_of, hash_key
 from .layout import I32, I64, SIGN, is_sorted_ascending, shr
 from .sort import (probe_sort_chunk, sort_segmented, sort_segmented_1op,
                    window_for_chunk)
-from .windowed import DEFAULT_C, DEFAULT_W, chunk_bases, windowed_lookup
+from .windowed import DEFAULT_C, DEFAULT_W, windowed_lookup_covered
 
 ROUTE_WINDOWED, ROUTE_PATCHED, ROUTE_GATHER = 0, 1, 2
 
@@ -84,41 +84,37 @@ def safe_lookup(values: torch.Tensor, keys: torch.Tensor,
                 max_patch: int = 64) -> torch.Tensor:
     """``values[keys]`` with miss-as-0 (keys < 0 or >= len(values)).
 
-    Route 0: every chunk covered, one windowed lookup.  Route 1: at most
-    ``cap`` chunks uncovered; the windowed lookup runs and those chunks are
-    re-resolved by a small gather.  Route 2: too many uncovered chunks; a
-    plain gather answers the whole stream.
+    One windowed lookup (K2) answers the keys and flags the chunks whose
+    in-range keys its windows miss; their count comes back in one read and
+    picks the route.  Route 0: every chunk covered, K2's words stand.
+    Route 1: at most ``cap`` chunks uncovered; those chunks are re-resolved
+    by a small gather.  Route 2: too many uncovered chunks; K2's words are
+    dropped and a plain gather answers the whole stream.  K2 never reads
+    outside the table, so running it before the route is known is safe.
     """
     values, keys = values.contiguous(), keys.contiguous()
     T = values.shape[0]
     n = keys.shape[0]
     pad = (-n) % C
     kp = torch.cat([keys, keys.new_full((pad,), -1)]) if pad else keys
-    vp = _pad_table(values, W)
-
-    k2 = kp.view(-1, C).to(I64)
-    nchunks = k2.shape[0]
-    delta = k2 - chunk_bases(kp, vp.shape[0], C, W).to(I64)[:, None]
-    in_range = (k2 >= 0) & (k2 < T)
-    covered = ~in_range | ((delta >= 0) & (delta < W + 1024))
-    bad = ~covered.all(dim=1)
-    nbad = int(bad.sum())
+    nchunks = kp.shape[0] // C
+    out, bad, nbad = windowed_lookup_covered(_pad_table(values, W), kp, T,
+                                             C=C, W=W)
+    nbad = int(nbad)
     cap = min(max(max_patch, nchunks // 64), nchunks)
     route = (ROUTE_WINDOWED if nbad == 0 else
              ROUTE_PATCHED if nbad <= cap else ROUTE_GATHER)
     _record_route(route, nbad)
 
     if route == ROUTE_GATHER:
-        out = torch.where(in_range.view(-1),
+        out = torch.where((kp >= 0) & (kp < T),
                           values[kp.clamp(0, T - 1).long()], 0)
-    else:
-        out = windowed_lookup(vp, kp, C=C, W=W)
-        if route == ROUTE_PATCHED:
-            rows = (torch.nonzero(bad).view(-1, 1) * C
-                    + torch.arange(C, device=kp.device)).view(-1)
-            pk = kp[rows]
-            ok = (pk >= 0) & (pk < T)
-            out[rows] = torch.where(ok, values[pk.clamp(0, T - 1).long()], 0)
+    elif route == ROUTE_PATCHED:
+        rows = (torch.nonzero(bad).view(-1, 1) * C
+                + torch.arange(C, device=kp.device)).view(-1)
+        pk = kp[rows]
+        ok = (pk >= 0) & (pk < T)
+        out[rows] = torch.where(ok, values[pk.clamp(0, T - 1).long()], 0)
     return out[:n] if pad else out
 
 

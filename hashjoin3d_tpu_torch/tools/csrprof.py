@@ -4,10 +4,12 @@ Port of ``tools/csrprof.py`` (lines 29-124): each stage of
 ``ops/strands_windowed.py:direct_probe_strand_sorted`` at R20/S24 (2^24
 probes of the reference's generator over a 2^20 dense-direct table) is
 timed alone, on CUDA events, against the port's own functions: the probe
-sort and its parts, ``safe_lookup`` and the raw windowed lookups K2 and K2b
-at the strand's window and at W = 1024, ``chunk_bases``, the decode of the
-packed words, ``_miss_chain_cmps``, the counter sums and the emission
-``where``s.  The residual is the full strand minus the sum of its top-level
+sort and its parts, ``safe_lookup`` (K2 with its coverage and one read),
+K2 with coverage alone, the raw windowed lookups K2 and K2b at the strand's
+window and at W = 1024, the decode of the packed words,
+``_miss_chain_cmps``, the counter sums and the emission ``where``s.  Two
+reference stages show what K2's coverage replaced: ``chunk_bases`` and the
+unfused coverage check (per-key tensors over the stream, one read).  The residual is the full strand minus the sum of its top-level
 stages (1, 2, 3, 3a, 3b, 4): what the stages alone do not explain
 (launch gaps, host syncs).
 
@@ -30,7 +32,8 @@ from ..ops.sort import probe_sort_chunk, sort_segmented, window_for_chunk
 from ..ops.strands_windowed import (_miss_chain_cmps, _pad_table,
                                     _sort_probes, direct_probe_strand_sorted,
                                     safe_lookup)
-from ..ops.windowed import chunk_bases, windowed_lookup
+from ..ops.windowed import (chunk_bases, windowed_lookup,
+                            windowed_lookup_covered)
 from ..utils.gen import exp1_data
 from ..utils.measure import card, events_ms, require_cuda
 
@@ -69,6 +72,16 @@ def stages(dev, logp: int = 24, logt: int = 20) -> list[Stage]:
     def same_as(key):
         return lambda out: torch.equal(out, raw[key]())
 
+    def unfused_coverage():
+        """The coverage check as safe_lookup made it before K2 reported
+        it: per-key int64 tensors over the whole stream, one read."""
+        k2 = skey.view(-1, 1024).to(I64)
+        delta = k2 - chunk_bases(skey, direct[Wk].shape[0], 1024,
+                                 Wk).to(I64)[:, None]
+        in_range = (k2 >= 0) & (k2 < T)
+        covered = ~in_range | ((delta >= 0) & (delta < Wk + 1024))
+        return int((~covered.all(dim=1)).sum())
+
     return [
         Stage("FULL Csr strand (unique)",
               lambda: direct_probe_strand_sorted(tbl, pk, unique=True)),
@@ -79,14 +92,18 @@ def stages(dev, logp: int = 24, logt: int = 20) -> list[Stage]:
         Stage("1b is_sorted_ascending check", lambda: is_sorted_ascending(pk)),
         Stage("1c K1 radix sort alone (keys + rows)",
               lambda: bitonic_sort_packed_segmented(pk, chunk, key_bits)),
-        Stage(f"2 safe_lookup(direct) W={Wk} (coverage + K2)",
+        Stage(f"2 safe_lookup(direct) W={Wk} (K2 + coverage, 1 read)",
               lambda: safe_lookup(tbl.direct, skey, W=Wk), top=True),
-        Stage(f"2a K2 raw W={Wk}", raw[Wk, 0]),
+        Stage(f"2a K2 + coverage W={Wk} (no read)",
+              lambda: windowed_lookup_covered(direct[Wk], skey, T, W=Wk),
+              check=lambda out: torch.equal(out[0], raw[Wk, 0]())),
         Stage(f"2b K2b raw W={Wk} db", raw[Wk, 1], check=same_as((Wk, 0))),
         Stage("2c K2 raw W=1024 (global-sort W)", raw[1024, 0]),
         Stage("2d K2b raw W=1024 db", raw[1024, 1], check=same_as((1024, 0))),
-        Stage("2e chunk_bases",
+        Stage("2e reference: chunk_bases",
               lambda: chunk_bases(skey, direct[Wk].shape[0], 1024, Wk)),
+        Stage("2f reference: unfused coverage check + read",
+              unfused_coverage, check=lambda nbad: nbad == 0),
         Stage("3 decode packed word (3 elementwise)", lambda: decode(d),
               top=True),
         Stage("3a _miss_chain_cmps (0 misses)",

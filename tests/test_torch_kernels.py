@@ -38,7 +38,8 @@ from hashjoin3d_tpu_torch.ops.bitonic import (bitonic_sort_packed_segmented,
 from hashjoin3d_tpu_torch.ops.layout import SIGN, from_numpy_u32
 from hashjoin3d_tpu_torch.ops.scan import multi_scan
 from hashjoin3d_tpu_torch.ops.windowed import (chunk_bases, windowed_lookup,
-                                               windowed_coverage_ok)
+                                               windowed_coverage_ok,
+                                               windowed_lookup_covered)
 
 I32_MIN, I32_MAX = -2**31, 2**31 - 1
 
@@ -119,9 +120,10 @@ def test_windowed_lookup_db_plain_matches_jax_db_kernel():
 
 @pytest.mark.parametrize("W", [1024, 2048, 4096, 8192, 16384, 32768])
 def test_windowed_lookup_db_window_limit(W):
-    """K2b takes every W that K2 takes (it stages no window, so shared
+    """K2b takes every W that K2 takes (neither stages a window, so shared
     memory sets no limit) and equals K2 and the gather on a covered stream
-    with a -1 hole and a key past the table; W = 65536 raises for both."""
+    with a -1 hole and a key past the table; a W that is not a power of two
+    raises for both (W = 65536: ``test_windowed_lookup_w65536``)."""
     rng = np.random.default_rng(19)
     T, C, n = W + 2048, 1024, 4096
     table = t32(rng.integers(1, 2**32, T, np.uint64).astype(np.uint32))
@@ -138,7 +140,7 @@ def test_windowed_lookup_db_window_limit(W):
     if W == 32768:
         for db in (False, True):
             with pytest.raises(ValueError, match="W must be"):
-                windowed_lookup(table, k, C=C, W=2 * W, db=db)
+                windowed_lookup(table, k, C=C, W=W - 1024, db=db)
 
 
 EDGE_STREAMS = ["sorted", "holes", "new_segment", "gap", "all_miss_wrap",
@@ -167,6 +169,81 @@ def _edge_stream(kind, rng, T, n, C):
         keys[-tail:] = np.sort(rng.integers(T, T + 4 * C, tail))
         keys[-3:] = I32_MAX
     return keys
+
+
+def _np_lookup_covered(table, keys, Tv, C, W):
+    """The windowed lookup and ``safe_lookup``'s chunk test
+    (``hashjoin3d_tpu/ops/strands_windowed.py:159-166``) in numpy, on the
+    JAX package's ``chunk_bases``: (words, bad flags, bad count)."""
+    T = table.shape[0]
+    k2 = keys.reshape(-1, C).astype(np.int64)
+    bases = np.asarray(jax_chunk_bases(jnp.asarray(keys), T, C, W))
+    delta = k2 - bases.astype(np.int64)[:, None]
+    in_window = (delta >= 0) & (delta < W + 1024)
+    words = np.where(in_window.reshape(-1),
+                     table[np.clip(keys, 0, T - 1)], 0).astype(np.uint32)
+    in_range = (k2 >= 0) & (k2 < Tv)
+    bad = ~(~in_range | in_window).all(axis=1)
+    return words, bad.astype(np.int32), int(bad.sum())
+
+
+@pytest.mark.parametrize("stream", EDGE_STREAMS + ["padded", "unaligned"])
+def test_windowed_lookup_covered_matches_jax(stream):
+    """K2 with its coverage (plain version) on each edge stream, on a
+    padded table (5000 values zero-padded to 5120, Tv = 5000) and on a key
+    view at element offset 1: words bit-equal to the Pallas kernel in
+    interpret mode, ``bad`` and ``nbad`` equal to safe_lookup's chunk test
+    in numpy."""
+    rng = np.random.default_rng(26)
+    T, n, C, W = 8192, 4096, 128, 1024
+    Tv = 5000 if stream == "padded" else T
+    if stream == "padded":
+        T = 5120
+    table = np.zeros(T, np.uint32)
+    table[:Tv] = rng.integers(1, 2**32, Tv, np.uint64).astype(np.uint32)
+    kind = stream if stream in EDGE_STREAMS else "new_segment"
+    keys = _edge_stream(kind, rng, T, n, C)
+    want = np.asarray(jax_windowed_lookup(jnp.asarray(table),
+                                          jnp.asarray(keys), C=C, W=W,
+                                          interpret=True))
+    np_words, np_bad, np_nbad = _np_lookup_covered(table, keys, Tv, C, W)
+    assert np.array_equal(np_words, want)
+    k = torch.from_numpy(np.concatenate([keys[:1], keys]))[1:]
+    if stream != "unaligned":
+        k = k.clone()
+    assert (k.data_ptr() % 16 != 0) == (stream == "unaligned")
+    out, bad, nbad = windowed_lookup_covered(t32(table), k, Tv, C=C, W=W)
+    assert np.array_equal(out.numpy().view(np.uint32), want)
+    assert bad.dtype == nbad.dtype == torch.int32
+    assert np.array_equal(bad.numpy(), np_bad)
+    assert int(nbad) == np_nbad
+    assert (np_nbad > 0) == (kind == "new_segment")
+    if stream == "padded":  # keys in [Tv, T) are read (as 0), never bad
+        assert ((keys >= Tv) & (keys < T)).any()
+        assert (out.numpy()[keys >= Tv] == 0).all()
+
+
+def test_windowed_lookup_w65536():
+    """W = 65536, past the old shared-memory cap: K2, K2b and K2 with its
+    coverage against numpy on the JAX ``chunk_bases`` (the Pallas kernel's
+    select loop would run 520 rows a chunk), on a 2^17-word table with -1
+    holes, keys past the table and one uncovered chunk."""
+    rng = np.random.default_rng(27)
+    T, n, C, W = 1 << 17, 1 << 14, 1024, 65536
+    table = rng.integers(1, 2**32, T, np.uint64).astype(np.uint32)
+    keys = np.sort(rng.integers(0, T, n)).astype(np.int32)
+    keys[rng.random(n) < 0.1] = -1
+    keys[-C // 2:] = T + 5
+    keys[12 * C] = 0                      # far below chunk 12's window
+    np_words, np_bad, np_nbad = _np_lookup_covered(table, keys, T, C, W)
+    assert np_bad[12] == 1 and np_nbad == 1
+    k = torch.from_numpy(keys)
+    for db in (False, True):
+        got = windowed_lookup(t32(table), k, C=C, W=W, db=db)
+        assert np.array_equal(got.numpy().view(np.uint32), np_words)
+    out, bad, nbad = windowed_lookup_covered(t32(table), k, T, C=C, W=W)
+    assert np.array_equal(out.numpy().view(np.uint32), np_words)
+    assert np.array_equal(bad.numpy(), np_bad) and int(nbad) == np_nbad
 
 
 @pytest.mark.parametrize("db", [False, True])
@@ -447,6 +524,7 @@ def test_bitonic_sort_packed_plain_matches_jax_kernel():
     lambda x: bitonic_sort_packed_segmented(x, 256, 20),
     lambda x: windowed_lookup(x, x, C=128, W=1024),
     lambda x: windowed_lookup(x, x, C=128, W=1024, db=True),
+    lambda x: windowed_lookup_covered(x, x, 2048, C=128, W=1024),
     lambda x: multi_scan((x,), ("sum",)),
     lambda x: probes.roll(x.view(-1, 128), 3),
     lambda x: probes.rotate(x.view(-1, 128), x[:16]),

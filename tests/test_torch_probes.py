@@ -101,11 +101,19 @@ def test_masked_store_writes_the_block_and_zeros(off):
         assert np.array_equal(got[8:16, :64], x[0:8, :64])
 
 
-@pytest.mark.parametrize("B", [1024, 8192, 65536])
+@pytest.mark.parametrize("B", [1024, 8192, 65536,
+                               128, 384, 12288])  # any multiple of 128
 def test_block_copy_in_reversed_block_order_is_a_copy(B):
-    src = np.random.default_rng(25).integers(0, 1 << 30, 1 << 17)
+    n = 1 << 17 if (1 << 17) % B == 0 else 12 * B
+    src = np.random.default_rng(25).integers(0, 1 << 30, n)
     got = probes.block_copy(t(src), B).numpy()
     assert np.array_equal(got, src)
+
+
+@pytest.mark.parametrize("B", [0, 64, 1000, 3 << 15])
+def test_block_copy_takes_multiples_of_128_dividing_the_size(B):
+    with pytest.raises(ValueError, match="multiple of 128"):
+        probes.block_copy(t(np.zeros(1 << 17)), B)
 
 
 @pytest.mark.parametrize("off,nrows", [(3, 8), (0, 1), (7, 64),

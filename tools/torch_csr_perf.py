@@ -14,9 +14,14 @@ prints the card and its power limit (``nvidia-smi``) first.
   [-2^15, 2^15) (numpy seed 2), K1 at 8192-key segments, K2 and K2b
   (W = 8192) and ``index_select`` on the K1-sorted S.a over the build's
   direct words (T = 2^20), P8 (8 rows from row 3 of 2048) and ``clone`` of
-  the same rows: each the mean of 20 calls on CUDA events after one
-  warm-up call; and whether K2b equals the plain lookup on that stream
-  and on it with the keys divisible by 5 made -1 holes.  The Csr build and probe strands: the median host time of
+  the same rows, K2 with its coverage and ``safe_lookup`` on the sorted
+  S.a (W = 8192), P7 at B = 1024, 8192 and 65536 over 2^24 words and
+  ``clone`` of those words: each the mean of 20 calls on CUDA events after
+  one warm-up call; whether K2b equals the plain lookup on that stream and
+  on it with the keys divisible by 5 made -1 holes, whether K2's words,
+  coverage flags and count equal the plain version's on it and on it
+  rolled by a third of a chunk, and whether P7's copies equal their
+  source.  The Csr build and probe strands: the median host time of
   20 runs, each between two ``torch.cuda.synchronize()`` calls; and
   ``Experiment1``'s ``t_buildStr`` and ``t_probeStr`` (ns, the reference's
   repetition protocol).
@@ -69,6 +74,7 @@ import torch
 
 LOG2_R, LOG2_S = 20, 24
 SEGMENT, KEY_BITS, WINDOW = 1 << 18, 20, 8192
+P7_BLOCKS = (1024, 8192, 65536)  # the TPU probe's block sizes
 
 
 def card() -> str:
@@ -144,6 +150,9 @@ def times(side: str, dev) -> dict:
     sk, _ = bitonic.bitonic_sort_packed_segmented(sa, SEGMENT, KEY_BITS)
     direct = build().direct
     src8 = torch.arange(1 << 18, dtype=I32, device=dev).view(-1, 128)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    src24 = torch.randint(0, 1 << 30, (n,), dtype=I32, device=dev,
+                          generator=gen)
     return dict(
         side=side,
         k1_ms=events_ms(lambda: bitonic.bitonic_sort_packed_segmented(
@@ -164,12 +173,40 @@ def times(side: str, dev) -> dict:
             windowed.windowed_lookup(direct, keys, W=WINDOW, db=True),
             windowed.windowed_lookup_plain(direct, keys, W=WINDOW))
             for keys in (sk, torch.where(sk % 5 == 0, -1, sk))),
+        **k2_times(direct, sk),
         index_select_ms=events_ms(lambda: torch.index_select(direct, 0, sk)),
+        **{f"p7_{B}_ms": events_ms(lambda B=B: probes.block_copy(src24, B))
+           for B in P7_BLOCKS},
+        p7_bit_equal=all(torch.equal(probes.block_copy(src24, B), src24)
+                         for B in P7_BLOCKS),
+        clone_2_24_ms=events_ms(lambda: src24.clone()),
         p8_ms=events_ms(lambda: probes.row_copy(src8, 3)),
         clone_ms=events_ms(lambda: src8[3:11].clone()),
         build_ms_median=statistics.median(host_ms(build)),
         probe_ms_median=statistics.median(host_ms(probe)),
         **exp1_times(dev))
+
+
+def k2_times(direct, sk) -> dict:
+    """K2 with its coverage (where the tree has it) and ``safe_lookup`` on
+    the K1-sorted S.a over the build's direct words at W = 8192, and
+    whether K2's words, flags and count equal the plain version's."""
+    from hashjoin3d_tpu_torch.ops import windowed
+    from hashjoin3d_tpu_torch.ops.strands_windowed import safe_lookup
+
+    res = dict(safe_lookup_ms=events_ms(lambda: safe_lookup(
+        direct, sk, W=WINDOW)))
+    if hasattr(windowed, "windowed_lookup_covered"):
+        T = direct.shape[0]
+        res["k2_covered_ms"] = events_ms(
+            lambda: windowed.windowed_lookup_covered(direct, sk, T, W=WINDOW))
+        res["k2_covered_bit_equal"] = all(
+            all(torch.equal(g, w) for g, w in zip(
+                windowed.windowed_lookup_covered(direct, keys, T, W=WINDOW),
+                windowed.windowed_lookup_covered_plain(direct, keys, T,
+                                                       W=WINDOW)))
+            for keys in (sk, torch.roll(sk, 341)))
+    return res
 
 
 def exp1_times(dev) -> dict:
