@@ -193,72 +193,31 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // P7: out = src, in reversed order of B-word blocks: position p of the copy
-// (K = n / B blocks) is word (K-1 - p / B) B + p % B, so the lowest CUDA
-// blocks copy the last B-block.  The positions fall in fixed tiles of
-// kBulkTile words, one a CUDA block, whatever B is.  One thread streams its
-// tile through kBulkSlots shared-memory slots with TMA bulk copies: global
-// to shared on an mbarrier per slot, shared to global as a bulk group; a
-// slot is refilled once its store has read it.  Pieces of `piece` words
-// (a divisor of B, at most kBulkPiece) stay inside one B-block.
-constexpr int kBulkPiece = 4096;
-constexpr int kBulkSlots = 2;
-constexpr long long kBulkTile = 16384;
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__global__ void __launch_bounds__(32)
-    block_copy_kernel(const int* __restrict__ src, int* __restrict__ out,
-                      long long n, long long B, int piece) {
-  __shared__ __align__(128) int4 slot[kBulkSlots][kBulkPiece / 4];
-  __shared__ __align__(8) unsigned long long full[kBulkSlots];
-  if (threadIdx.x != 0) return;
-  const long long p0 = (long long)blockIdx.x * kBulkTile;
-  const long long len = n - p0 < kBulkTile ? n - p0 : kBulkTile;
-  const int np = (int)(len / piece);
-  const long long K = n / B;
-  const unsigned bytes = (unsigned)piece * 4u;
-  auto at = [&](int q) {
-    const long long p = p0 + (long long)q * piece;
-    return (K - 1 - p / B) * B + p % B;
-  };
-  auto load = [&](int q) {
-    const int s = q % kBulkSlots;
-    const unsigned b = smem_addr(&full[s]);
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 ::"r"(b), "r"(bytes) : "memory");
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(slot[s])),
-        "l"(src + at(q)), "r"(bytes), "r"(b) : "memory");
-  };
-  for (int s = 0; s < kBulkSlots; ++s)
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
-                 ::"r"(smem_addr(&full[s])) : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  for (int q = 0; q < np && q < kBulkSlots; ++q) load(q);
-  for (int q = 0; q < np; ++q) {
-    const int s = q % kBulkSlots;
-    const unsigned b = smem_addr(&full[s]), parity = (q / kBulkSlots) & 1;
-    unsigned done;
-    do {
-      asm volatile(
-          "{\n .reg .pred p;\n"
-          " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-          " selp.u32 %0, 1, 0, p;\n}\n"
-          : "=r"(done) : "r"(b), "r"(parity) : "memory");
-    } while (!done);
-    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
-                 ::"l"(out + at(q)), "r"(smem_addr(slot[s])), "r"(bytes)
-                 : "memory");
-    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-    if (q + kBulkSlots < np) {
-      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-      load(q + kBulkSlots);
-    }
+// (16-byte words, K = n4 / B4 blocks of B4) is word (K-1 - p / B4) B4 +
+// p % B4, so the lowest CUDA blocks copy the last B-block.  The positions
+// fall in fixed tiles of kCopyLoads x kThreads words, one a CUDA block,
+// whatever B is; each thread holds its kCopyLoads 16-byte loads in flight
+// before its stores, global to global, with no shared memory; the loads
+// and stores are marked streaming (evict first): nothing is read again.  A warp's 32
+// consecutive positions are 512 contiguous bytes (B4 is a multiple of 32).
+constexpr int kCopyLoads = 8;
+constexpr unsigned kCopyTile4 = kCopyLoads * kThreads;
+__global__ void __launch_bounds__(kThreads)
+    block_copy_kernel(const int4* __restrict__ src, int4* __restrict__ out,
+                      unsigned n4, unsigned B4) {
+  const unsigned K = n4 / B4;
+  const unsigned p0 = blockIdx.x * kCopyTile4 + threadIdx.x;
+  unsigned at[kCopyLoads];
+  int4 v[kCopyLoads];
+#pragma unroll
+  for (int u = 0; u < kCopyLoads; ++u) {
+    const unsigned p = p0 + u * kThreads;
+    at[u] = p < n4 ? (K - 1 - p / B4) * B4 + p % B4 : n4;
+    if (p < n4) v[u] = __ldcs(src + at[u]);
   }
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+#pragma unroll
+  for (int u = 0; u < kCopyLoads; ++u)
+    if (at[u] < n4) __stcs(out + at[u], v[u]);
 }
 
 // P8: out = n4 16-byte words from src (src[off:off + nrows] of rows of 512
@@ -398,20 +357,18 @@ int hj3t_probe_masked_store(const void* x, void* out, int out_rows, int off,
   return (int)cudaGetLastError();
 }
 
-// P7: src, out int32[n]; B a multiple of 128 dividing n.  out = src, copied
-// in reversed block order.
+// P7: src, out int32[n], n < 2^33; B a multiple of 128 dividing n.  out =
+// src, copied in reversed block order.
 int hj3t_probe_block_copy(const void* src, void* out, long long n, int B,
                           void* stream) {
-  if (B <= 0 || B % 128 || n < 0 || n % B ||
-      (n + kBulkTile - 1) / kBulkTile > 0x7fffffffLL)
+  if (B <= 0 || B % 128 || n < 0 || n % B || n / 4 >= 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaGetLastError();
-  int piece = kBulkPiece;
-  while (B % piece) piece /= 2;  // B is a multiple of 128: piece >= 128
-  block_copy_kernel<<<(unsigned)((n + kBulkTile - 1) / kBulkTile), 32, 0,
-                      as_stream(stream)>>>(static_cast<const int*>(src),
-                                           static_cast<int*>(out), n, B,
-                                           piece);
+  const unsigned n4 = (unsigned)(n / 4);
+  block_copy_kernel<<<(n4 + kCopyTile4 - 1) / kCopyTile4, kThreads, 0,
+                      as_stream(stream)>>>(static_cast<const int4*>(src),
+                                           static_cast<int4*>(out), n4,
+                                           (unsigned)B / 4);
   return (int)cudaGetLastError();
 }
 

@@ -105,6 +105,7 @@ __global__ void __launch_bounds__(kThreads)
     const int any = __syncthreads_or(miss);
     if (threadIdx.x == 0) {
       bad[blockIdx.x] = any;
+      if (any) atomicAdd(bad + gridDim.x, 1);
     }
   }
 }
@@ -128,6 +129,10 @@ int lookup(const void* table, const void* keys, void* out, void* bad,
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int* flags = static_cast<int*>(bad);
+  if (flags != nullptr) {  // the count of bad chunks starts at 0
+    cudaError_t err = cudaMemsetAsync(flags + n / C, 0, sizeof(int), s);
+    if (err != cudaSuccess) return (int)err;
+  }
   if (n == 0) return (int)cudaGetLastError();
   const int* t = static_cast<const int*>(table);
   const int* k = static_cast<const int*>(keys);

@@ -101,10 +101,10 @@ def windowed_lookup_covered(table: torch.Tensor, keys_sorted: torch.Tensor,
     if dev < 0:
         return windowed_lookup_covered_plain(table, keys_sorted, Tv, C, W)
     out = torch.empty_like(keys_sorted)
-    bad = keys_sorted.new_empty(n // C)
+    bad = keys_sorted.new_empty(n // C + 1)  # the flags, then their count
     _K2("windowed_lookup", table.data_ptr(), keys_sorted.data_ptr(),
         out.data_ptr(), bad.data_ptr(), T, Tv, n, C, W, kernels.stream(dev))
-    return out, bad, bad.sum(dtype=I32)
+    return out, bad[:-1], bad[-1]
 
 
 def _in_window(keys_sorted: torch.Tensor, T: int, C: int,
