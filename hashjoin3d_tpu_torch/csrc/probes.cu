@@ -200,7 +200,7 @@ __global__ void __launch_bounds__(kThreads)
 // before its stores, global to global, with no shared memory; the loads
 // and stores are marked streaming (evict first): nothing is read again.  A warp's 32
 // consecutive positions are 512 contiguous bytes (B4 is a multiple of 32).
-constexpr int kCopyLoads = 4;
+constexpr int kCopyLoads = 16;
 constexpr unsigned kCopyTile4 = kCopyLoads * kThreads;
 __global__ void __launch_bounds__(kThreads)
     block_copy_kernel(const int4* __restrict__ src, int4* __restrict__ out,
