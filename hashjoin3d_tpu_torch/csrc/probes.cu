@@ -197,10 +197,11 @@ __global__ void __launch_bounds__(kThreads)
 // p % B4, so the lowest CUDA blocks copy the last B-block.  The positions
 // fall in fixed tiles of kCopyLoads x kThreads words, one a CUDA block,
 // whatever B is; each thread holds its kCopyLoads 16-byte loads in flight
-// before its stores, global to global, with no shared memory; the loads
-// and stores are marked streaming (evict first): nothing is read again.  A warp's 32
+// before its stores, global to global, with no shared memory.  A warp's 32
 // consecutive positions are 512 contiguous bytes (B4 is a multiple of 32).
-constexpr int kCopyLoads = 16;
+// Measured against 4 and 16 loads a thread, streaming cache hints and TMA
+// bulk copies through two shared-memory slots: each was slower (PERF.md).
+constexpr int kCopyLoads = 8;
 constexpr unsigned kCopyTile4 = kCopyLoads * kThreads;
 __global__ void __launch_bounds__(kThreads)
     block_copy_kernel(const int4* __restrict__ src, int4* __restrict__ out,
@@ -213,11 +214,11 @@ __global__ void __launch_bounds__(kThreads)
   for (int u = 0; u < kCopyLoads; ++u) {
     const unsigned p = p0 + u * kThreads;
     at[u] = p < n4 ? (K - 1 - p / B4) * B4 + p % B4 : n4;
-    if (p < n4) v[u] = __ldcs(src + at[u]);
+    if (p < n4) v[u] = __ldg(src + at[u]);
   }
 #pragma unroll
   for (int u = 0; u < kCopyLoads; ++u)
-    if (at[u] < n4) __stcs(out + at[u], v[u]);
+    if (at[u] < n4) out[at[u]] = v[u];
 }
 
 // P8: out = n4 16-byte words from src (src[off:off + nrows] of rows of 512

@@ -40,7 +40,8 @@
 // table once (HBM).  Measured against designs that feed the keys ahead
 // inside persistent blocks (TMA bulk copies into shared-memory slots on
 // mbarriers, cp.async, a TMA prefetch into L2), against 16-byte stores
-// staged per warp and against a window staged in shared memory: each of
+// staged per warp and against a window staged in shared memory, and the
+// atomicAdd count against a sum over the flags after the launch: each of
 // those was slower (PERF.md).
 
 #include <cuda_runtime.h>
