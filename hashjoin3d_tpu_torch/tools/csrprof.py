@@ -9,9 +9,10 @@ K2 with coverage alone, the raw windowed lookups K2 and K2b at the strand's
 window and at W = 1024, the decode of the packed words,
 ``_miss_chain_cmps``, the counter sums and the emission ``where``s.  Two
 reference stages show what K2's coverage replaced: ``chunk_bases`` and the
-unfused coverage check (per-key tensors over the stream, one read).  The residual is the full strand minus the sum of its top-level
-stages (1, 2, 3, 3a, 3b, 4): what the stages alone do not explain
-(launch gaps, host syncs).
+unfused coverage check (per-key tensors over the stream, one read).  The
+residual is the full strand minus the sum of its top-level stages (1, 2,
+3, 3a, 3b, 4): what the stages alone do not explain (launch gaps, host
+syncs).
 
     python3 -m hashjoin3d_tpu_torch.tools.csrprof [--logp 24] [--logt 20]
 
