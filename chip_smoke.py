@@ -13,8 +13,10 @@ probe 2^24 foreign keys).  Phases, any failure exits non-zero:
 0. the card and its power limit (``nvidia-smi``), the kernel build time;
 1. each kernel against its plain PyTorch version on the same CUDA tensors at
    the main-path shapes, bit-equal: K2 (words, its per-chunk coverage
-   flags and their count, as ``safe_lookup`` calls it), K3, and the radix
-   sorts K1 (keys and
+   flags and their count, as ``safe_lookup`` calls it), K3 (the build's two
+   calls, then ragged sizes up to 2^24 + 77, four columns, maxpair both
+   ways, an unaligned column; its host and device time a call), and the
+   radix sorts K1 (keys and
    rows) and K4 (1-op, take_min with an ascending payload, stable with a
    shuffled payload); then K1 and K4 at other segment sizes (256 .. 8192 on
    the one-block path, 2^14 and 2^15 on the multi-tile path) and key
@@ -39,7 +41,8 @@ probe 2^24 foreign keys).  Phases, any failure exits non-zero:
    element offset 1; ``safe_lookup`` on the card equal to its CPU run on a
    route-1 stream (64 uncovered chunks) and a route-2 stream (the unsorted
    S.a); P8 equal to its plain version at five (row offset, rows),
-   and its host and device time per call beside ``clone``'s;
+   and its host and device time per call beside ``clone``'s; P5 equal to
+   its plain version at C = 128, 1024, 4096, 8192 and 384;
    P1-P9 (``ops/probes.py``) through the mosaic_probe runner, each
    equal to its plain version at the TPU probes' sizes, counts reset just
    before it: each P kernel must launch there; then the roofline and
@@ -97,6 +100,9 @@ KERNELS = {
 TOOL_MIN_TIME = 0.005
 #: P8's (row offset, rows) checks; -8 is the last 8 rows
 P8_CASES = ((3, 8), (0, 1), (7, 64), (-8, 8), (5, 13))
+#: P5's block sizes checked besides the runner's cases: the smallest and
+#: largest C, the runner's two, and one that is no power of two
+P5_BLOCKS = (128, 1024, 4096, 8192, 384)
 
 
 class SmokeFailure(RuntimeError):
@@ -204,11 +210,52 @@ def check_sort_shapes(dev):
                     small, chunk, lid)), f"K1 chunk {chunk} bits {key_bits}")
 
 
+def k3_cases(fwd, nxt, gen):
+    """(label, columns, ops, reverse) of phase 1's K3 checks: the build's
+    two calls; (sum, max) both ways over full-range columns at 1, one tile
+    - 1, one tile + 1, three tiles + 77 and 2^24 + 77 elements; four
+    columns (sum, max, min, sum); maxpair both ways with heavy key ties;
+    two maxpairs; (min, maxpair, max); a column at element offset 1 (4-byte
+    loads)."""
+    from hashjoin3d_tpu_torch.ops import scan
+    from hashjoin3d_tpu_torch.ops.layout import I32
+
+    dev = fwd[0].device
+
+    def cols(k, n, lo=-2**31, hi=2**31 - 1):
+        return tuple(torch.randint(lo, hi, (n,), generator=gen, device=dev,
+                                   dtype=I32) for _ in range(k))
+
+    def pair(n):
+        return cols(1, n, -50, 50) + cols(1, n)
+
+    tile = scan.tile()
+    m = (1 << LOG2_R) + 77
+    out = [("build", fwd, ("sum", "max"), False),
+           ("build", (nxt,), ("min",), True)]
+    for n in (1, tile - 1, tile + 1, 3 * tile + 77, (1 << 24) + 77):
+        c = cols(2, n)
+        out += [(f"n = {n}", c, ("sum", "max"), rev) for rev in (False, True)]
+    four = cols(4, m)
+    p = pair(m)
+    out += [("four columns", four, ("sum", "max", "min", "sum"), rev)
+            for rev in (False, True)]
+    out += [("maxpair", p, ("maxpair",), rev) for rev in (False, True)]
+    out += [("two maxpairs", p + pair(m), ("maxpair", "maxpair"), True),
+            ("min, maxpair, max", cols(1, m) + p + cols(1, m),
+             ("min", "maxpair", "max"), False)]
+    view = cols(1, m + 1)[0][1:]
+    require(view.data_ptr() % 16 == 4, "the K3 view is not unaligned")
+    out += [("offset view", (view,), ("sum",), rev) for rev in (False, True)]
+    return out
+
+
 def phase1_kernels(rk, sa, ops):
     """Each kernel vs its plain version at the main-path shapes."""
     from hashjoin3d_tpu_torch.ops import bitonic, scan, windowed
     from hashjoin3d_tpu_torch.ops.hashing import bucket_of, hash_key
     from hashjoin3d_tpu_torch.ops.layout import I32
+    from hashjoin3d_tpu_torch.utils.measure import host_device_us
 
     results = {}
     dev = sa.device
@@ -248,7 +295,8 @@ def phase1_kernels(rk, sa, ops):
         library_ms=cuda_ms(lambda: torch.index_select(direct, 0, sk)),
         **bound(direct, sk, got[0], got[1]))
 
-    # K3: run_boundaries' scans over the build's sorted bucket column
+    # K3: run_boundaries' scans over the build's sorted bucket column, then
+    # ragged sizes, four columns, maxpair both ways, an unaligned view
     b = bucket_of(hash_key(rk), 1 << LOG2_R)
     b_sorted = torch.sort(b, stable=True).values
     i = torch.arange(b.shape[0], dtype=I32, device=dev)
@@ -258,20 +306,26 @@ def phase1_kernels(rk, sa, ops):
     nxt = torch.full_like(i, b.shape[0])
     nxt[:-1] = torch.where(is_first, i, b.shape[0])[1:]
     gen = torch.Generator(device=dev).manual_seed(0)
-    pair = tuple(torch.randint(-50, 50, b.shape, generator=gen, device=dev,
-                               dtype=I32) for _ in range(2))
     err = 0
-    for cols, op, rev in ((fwd, ("sum", "max"), False),
-                          ((nxt,), ("min",), True),
-                          (pair, ("maxpair",), True)):
+    for what, cols, op, rev in k3_cases(fwd, nxt, gen):
         got = scan.multi_scan(cols, op, reverse=rev)
         want = scan.multi_scan_plain(cols, op, reverse=rev)
         for g, w in zip(got, want):
-            require(torch.equal(g, w), f"K3 {op} reverse={rev}: differs")
+            require(torch.equal(g, w), f"K3 {what} {op} reverse={rev}: "
+                    f"differs")
             err = max(err, max_abs_err(g, w))
+    host_us, device_us = host_device_us(
+        lambda: scan.multi_scan(fwd, ("sum", "max")))
+    rev_host_us, rev_device_us = host_device_us(
+        lambda: scan.multi_scan((nxt,), ("min",), reverse=True))
     results["K3 multi_scan"] = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: scan.multi_scan(fwd, ("sum", "max"))),
+        host_us=host_us, device_ms=device_us / 1e3,
+        reverse_min_ms=cuda_ms(lambda: scan.multi_scan(
+            (nxt,), ("min",), reverse=True)),
+        reverse_min_host_us=rev_host_us,
+        reverse_min_device_ms=rev_device_us / 1e3,
         plain_ms=cuda_ms(lambda: scan.multi_scan_plain(fwd, ("sum", "max"))),
         # no single call: cumsum + cummax, two calls
         library_ms=cuda_ms(lambda: (torch.cumsum(fwd[0], 0, dtype=I32),
@@ -491,6 +545,23 @@ def phase5_p8(dev):
                 clone_host_us=clone[0], clone_device_us=clone[1])
 
 
+def phase5_p5(dev):
+    """P5 bit-equal to its plain version at each C of ``P5_BLOCKS`` on 2^22
+    random words, C = 384 on 3 x 2^20 (tiles of 3840 words, the last one
+    partial)."""
+    from hashjoin3d_tpu_torch.ops import probes
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for C in P5_BLOCKS:
+        n = 3 << 20 if C == 384 else 1 << 22
+        x = torch.randint(-2**31, 2**31 - 1, (n,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        perm = torch.randperm(C, generator=gen, device=dev).to(torch.int32)
+        require(torch.equal(probes.permute(x, perm),
+                            probes.permute_plain(x, perm)),
+                f"P5 differs from its plain version at C = {C}")
+
+
 def phase5_probes(dev):
     """P1-P9 through the mosaic_probe runner, counts reset just before it:
     each case equal to its plain version, results summed over each probe's
@@ -658,6 +729,13 @@ def main() -> int:
           f"{routes}")
     p8 = phase5_p8(dev)
     print(f"phase 5 P8 host/device per call on {card}: " + json.dumps(p8))
+    phase5_p5(dev)
+    print(f"phase 5 P5: bit-equal to its plain version at C = {P5_BLOCKS}")
+    k3 = results["K3 multi_scan"]
+    print(f"phase 1 K3 on {card}: " + json.dumps({
+        k: k3[k] for k in ("ms", "host_us", "device_ms", "reverse_min_ms",
+                           "reverse_min_host_us", "reverse_min_device_ms",
+                           "library_ms", "bound_ms")}))
     probe_results, probe_tools = phase5_probes(dev)
     print(f"launches on the probe runner's path {probe_tools}")
     del exp, table_gpu, out_gpu, out3

@@ -4,18 +4,39 @@
 // (_make_kernel, pallas_call at scan.py:294), reached through
 // engine_multi_scan from layout.run_boundaries on every build.
 //
-// What bounds it on Hopper: memory traffic.  A scan reads and writes each
-// element once (8 B/elem per column), so the floor is two passes over HBM.
-// The TPU kernel carried the running total across a sequential grid in SMEM;
-// Hopper blocks run in no order, so the carry becomes three launches:
-//   1. scan_reduce: every block reduces its tile to one total per group;
-//   2. scan_totals: one block turns the totals into exclusive block offsets;
-//   3. scan_apply:  every block scans its tile and adds its offset.
-// Launches 1 and 3 each read the columns once (coalesced, tiles staged in
-// shared memory); launch 2 touches n / 2048 totals.  All groups of a call
-// (e.g. run_boundaries' sum + max) ride the same three launches.
-// Reverse scans map logical position j to element n-1-j.  "sum" wraps in
-// int32 (unsigned add); "maxpair" is the lexicographic max of (key, payload).
+// What bounds it on Hopper: memory traffic and, at the build's 2^20
+// elements, latency.  A scan reads and writes each element once (8 B an
+// element a column: 16 MB for the build's forward sum + max), about 5 us at
+// HBM rate, so one launch and one pass over the columns is the floor.  The
+// TPU kernel carried the running total across a sequential grid in SMEM;
+// Hopper blocks run in no order, so the carry becomes a single-pass chained
+// scan with decoupled look-back, one launch for every group of a call:
+//   - a block claims its tile (kTile elements of every column) from a ticket
+//     counter, so tiles start in scan order whatever order the blocks are
+//     scheduled in, and a tile waits only on tiles that already run;
+//   - it loads its tile once, 16 bytes a thread a column where the columns
+//     are 16-byte aligned (a warp's 32 loads are 512 contiguous bytes),
+//     scans it in registers (4 elements a thread, then the warp by
+//     shuffles, then the block's warps), and publishes the tile's aggregate
+//     with a flag;
+//   - one warp then looks back over the predecessors' flags, 32 tiles at a
+//     time, combining aggregates until it meets an inclusive prefix, and
+//     publishes the tile's own inclusive prefix;
+//   - the block adds its exclusive prefix and stores.
+// All four ops are associative and commutative and exact, so any order of
+// combination gives the bit-equal result.  Flags are released after their
+// values (st.release / ld.acquire at gpu scope), values go through L2.
+// The workspace (ticket, finish count, flags, aggregates, prefixes) needs
+// no clearing per call: the last tile to finish zeroes the flags and both
+// counters, so the next call on the same stream finds them clean.  The
+// wrapper keeps one workspace per stream, zeroed once when allocated.
+// Reverse scans map logical position l to physical N4 - 1 - l, N4 = n
+// rounded up to 4, so every 16-byte group stays aligned; positions >= n
+// read the op's identity (first in scan order, where they change nothing)
+// and are not stored.  "sum" wraps in int32; "maxpair" is the lexicographic
+// max of (key, payload).  The kernel is instantiated per number of groups
+// and per set of maxpair groups, so a group's columns are registers indexed
+// at compile time; sum, max and min are chosen at run time.
 
 #include <cuda_runtime.h>
 
@@ -25,192 +46,334 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kItems = 8;
-constexpr int kTile = kThreads * kItems;  // elements per block
-constexpr int kMaxSlots = 4;
+constexpr int kWarps = kThreads / 32;
+constexpr int kQ = 4;                      // 16-byte groups a thread a column
+constexpr int kTile = kThreads * kQ * 4;   // elements a tile
+constexpr int kMaxCols = 4;
 constexpr unsigned kFull = 0xffffffffu;
+// A predecessor publishes its aggregate right after loading its tile, so a
+// look-back waits microseconds; a flag still empty after this many polls
+// (seconds) means a broken workspace, and the kernel traps.
+constexpr unsigned kMaxPolls = 1u << 24;
 
 enum { kSum = 0, kMax = 1, kMin = 2, kMaxPair = 3 };
+enum : unsigned { kEmpty = 0, kAggregate = 1, kPrefix = 2 };
 
-struct Pair {
-  int k, v;
-};
+// Workspace, 32-bit words: [0] ticket, [1] tiles finished, [2, 4) unused,
+// [4, 4 + cap) flags, then cap aggregates and cap inclusive prefixes of
+// one int4 each (one int a column).  cap is a multiple of 4.
+constexpr long long kHeader = 4;
 
 struct ScanArgs {
-  const int* in[kMaxSlots];
-  int* out[kMaxSlots];
-  int op[kMaxSlots];    // op of each group
-  int slot[kMaxSlots];  // first column of each group
-  int ngroups;
+  const int* in[kMaxCols];
+  int* out[kMaxCols];
+  int op[kMaxCols];  // op of each group
   long long n;
+  long long n4;      // 16-byte groups, ceil(n / 4)
   int reverse;
-  int nblocks;
-  int* tot;  // [ngroups][2][nblocks]: block totals, then exclusive offsets
+  int vec;           // every column 16-byte aligned
+  unsigned ntiles;
+  unsigned* ws;
+  long long cap;
 };
 
-__device__ __forceinline__ Pair ident(int op) {
-  switch (op) {
-    case kSum: return {0, 0};
-    case kMax: return {INT_MIN, 0};
-    case kMin: return {INT_MAX, 0};
-    default: return {INT_MIN, INT_MIN};
+struct Val {
+  int c[kMaxCols];
+};
+
+// First column of group g, when the groups set in `pairs` take two columns.
+__host__ __device__ constexpr int first_col(unsigned pairs, int g) {
+  int c = 0;
+  for (int i = 0; i < g; ++i) c += (pairs >> i) & 1u ? 2 : 1;
+  return c;
+}
+
+template <int NG, unsigned PAIRS>
+struct Shape {
+  __host__ __device__ static constexpr bool pair(int g) {
+    return (PAIRS >> g) & 1u;
   }
+  __host__ __device__ static constexpr int col(int g) {
+    return first_col(PAIRS, g);
+  }
+  static constexpr int kNG = NG;
+  static constexpr int kCols = first_col(PAIRS, NG);
+};
+
+template <class S>
+__device__ __forceinline__ Val identity(const int* op) {
+  Val r{};
+#pragma unroll
+  for (int g = 0; g < S::kNG; ++g) {
+    const int c = S::col(g);
+    if (S::pair(g)) {
+      r.c[c] = INT_MIN;
+      r.c[c + 1] = INT_MIN;
+    } else {
+      r.c[c] = op[g] == kSum ? 0 : op[g] == kMax ? INT_MIN : INT_MAX;
+    }
+  }
+  return r;
 }
 
 // a is the earlier operand (all four ops are also commutative)
-__device__ __forceinline__ Pair combine(int op, Pair a, Pair b) {
-  switch (op) {
-    case kSum: return {(int)((unsigned)a.k + (unsigned)b.k), 0};
-    case kMax: return {max(a.k, b.k), 0};
-    case kMin: return {min(a.k, b.k), 0};
-    default: {
-      bool take_b = (b.k > a.k) || (b.k == a.k && b.v >= a.v);
-      return take_b ? b : a;
+template <class S>
+__device__ __forceinline__ Val combine(const int* op, const Val& a,
+                                       const Val& b) {
+  Val r = a;
+#pragma unroll
+  for (int g = 0; g < S::kNG; ++g) {
+    const int c = S::col(g);
+    if (S::pair(g)) {
+      const bool take_b =
+          b.c[c] > a.c[c] || (b.c[c] == a.c[c] && b.c[c + 1] >= a.c[c + 1]);
+      r.c[c] = take_b ? b.c[c] : a.c[c];
+      r.c[c + 1] = take_b ? b.c[c + 1] : a.c[c + 1];
+    } else {
+      const int x = a.c[c], y = b.c[c];
+      r.c[c] = op[g] == kSum ? (int)((unsigned)x + (unsigned)y)
+               : op[g] == kMax ? max(x, y) : min(x, y);
+    }
+  }
+  return r;
+}
+
+template <class S>
+__device__ __forceinline__ Val shfl_up(const Val& x, int d) {
+  Val r = x;
+#pragma unroll
+  for (int c = 0; c < S::kCols; ++c) r.c[c] = __shfl_up_sync(kFull, x.c[c], d);
+  return r;
+}
+
+template <class S>
+__device__ __forceinline__ Val shfl_xor(const Val& x, int m) {
+  Val r = x;
+#pragma unroll
+  for (int c = 0; c < S::kCols; ++c) r.c[c] = __shfl_xor_sync(kFull, x.c[c], m);
+  return r;
+}
+
+template <class S>
+__device__ __forceinline__ Val shfl(const Val& x, int src) {
+  Val r = x;
+#pragma unroll
+  for (int c = 0; c < S::kCols; ++c) r.c[c] = __shfl_sync(kFull, x.c[c], src);
+  return r;
+}
+
+__device__ __forceinline__ int4 to_int4(const Val& v) {
+  return make_int4(v.c[0], v.c[1], v.c[2], v.c[3]);
+}
+
+__device__ __forceinline__ Val from_int4(int4 v) { return Val{{v.x, v.y, v.z, v.w}}; }
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// Logical 16-byte group L of every column into x[0..3] in scan order;
+// identity where the group or an element lies past n.
+template <class S>
+__device__ __forceinline__ void load_group(const ScanArgs& a, long long L,
+                                           const Val& id, Val (&x)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) x[j] = id;
+  if (L >= a.n4) return;
+  const long long G = a.reverse ? a.n4 - 1 - L : L;
+  const long long p0 = 4 * G;
+  const bool whole = a.vec && p0 + 4 <= a.n;
+#pragma unroll
+  for (int c = 0; c < S::kCols; ++c) {
+    int v[4];
+    if (whole) {
+      const int4 t = __ldg(reinterpret_cast<const int4*>(a.in[c]) + G);
+      v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[e] = p0 + e < a.n ? __ldg(a.in[c] + p0 + e) : id.c[c];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) x[j].c[c] = a.reverse ? v[3 - j] : v[j];
+  }
+}
+
+template <class S>
+__device__ __forceinline__ void store_group(const ScanArgs& a, long long L,
+                                            const Val (&x)[4]) {
+  if (L >= a.n4) return;
+  const long long G = a.reverse ? a.n4 - 1 - L : L;
+  const long long p0 = 4 * G;
+  const bool whole = a.vec && p0 + 4 <= a.n;
+#pragma unroll
+  for (int c = 0; c < S::kCols; ++c) {
+    int v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (a.reverse)
+        v[3 - j] = x[j].c[c];
+      else
+        v[j] = x[j].c[c];
+    }
+    if (whole) {
+      reinterpret_cast<int4*>(a.out[c])[G] = make_int4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (p0 + e < a.n) a.out[c][p0 + e] = v[e];
     }
   }
 }
 
-__device__ __forceinline__ long long phys(const ScanArgs& a, long long j) {
-  return a.reverse ? a.n - 1 - j : j;
+// Warp 0 of tile `tile` > 0: the combined value of every earlier tile.
+template <class S>
+__device__ __forceinline__ Val look_back(const ScanArgs& a, const int* op, const Val& id,
+                         unsigned tile, int lane) {
+  const unsigned* flags = a.ws + kHeader;
+  const int4* agg = reinterpret_cast<const int4*>(a.ws + kHeader + a.cap);
+  const int4* inc = agg + a.cap;
+  Val ex = id;
+  long long top = (long long)tile - 1;  // nearest tile not yet combined
+  while (true) {
+    const long long p = top - lane;     // lane 0 the nearest
+    unsigned f = p >= 0 ? ld_acquire(flags + p) : kPrefix;
+    for (unsigned polls = 0; __any_sync(kFull, f == kEmpty); ++polls) {
+      if (polls == kMaxPolls) __trap();  // a fault, never a hang
+      if (f == kEmpty) f = ld_acquire(flags + p);
+    }
+    const unsigned prefixes = __ballot_sync(kFull, f == kPrefix);
+    const int stop = prefixes ? __ffs(prefixes) - 1 : 32;
+    Val v = id;
+    if (lane < stop)
+      v = from_int4(__ldcg(agg + p));
+    else if (lane == stop)
+      v = from_int4(__ldcg(inc + p));
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) v = combine<S>(op, v, shfl_xor<S>(v, m));
+    ex = combine<S>(op, v, ex);
+    if (prefixes) return ex;
+    top -= 32;
+  }
 }
 
-__device__ __forceinline__ Pair load(const ScanArgs& a, int g, long long j) {
-  int op = a.op[g];
-  if (j >= a.n) return ident(op);
-  long long p = phys(a, j);
-  int s = a.slot[g];
-  return {a.in[s][p], op == kMaxPair ? a.in[s + 1][p] : 0};
-}
-
-__device__ __forceinline__ Pair shfl_up(Pair x, int d) {
-  return {__shfl_up_sync(kFull, x.k, d), __shfl_up_sync(kFull, x.v, d)};
-}
-
-__device__ __forceinline__ Pair shfl_down(Pair x, int d) {
-  return {__shfl_down_sync(kFull, x.k, d), __shfl_down_sync(kFull, x.v, d)};
-}
-
-// Exclusive scan of one value per thread across the block; *total gets the
-// block's combined value.  Ends with a barrier, so `warp_tot` may be reused.
-__device__ Pair block_exclusive_scan(int op, Pair x, Pair* warp_tot,
-                                     Pair* total) {
+template <int NG, unsigned PAIRS>
+__global__ void __launch_bounds__(kThreads) scan_kernel(ScanArgs a) {
+  using S = Shape<NG, PAIRS>;
+  __shared__ unsigned s_tile, s_last;
+  __shared__ Val s_warp[kWarps];
+  __shared__ Val s_prefix;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  Pair inc = x;
-  for (int d = 1; d < 32; d <<= 1) {
-    Pair y = shfl_up(inc, d);
-    if (lane >= d) inc = combine(op, y, inc);
-  }
-  if (lane == 31) warp_tot[warp] = inc;
+  int op[NG];
+#pragma unroll
+  for (int g = 0; g < NG; ++g) op[g] = a.op[g];
+  const Val id = identity<S>(op);
+
+  if (threadIdx.x == 0) s_tile = atomicAdd(a.ws, 1u);
   __syncthreads();
-  if (warp == 0) {
-    Pair w = lane < nwarps ? warp_tot[lane] : ident(op);
+  const unsigned tile = s_tile;
+
+  // Thread (warp, lane) holds 16-byte groups (warp kQ + q) 32 + lane of the
+  // tile, q < kQ, each scanned inclusively over its 4 elements.
+  Val x[kQ][4];
+  const long long L0 = (long long)tile * (kTile / 4) + warp * kQ * 32 + lane;
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) load_group<S>(a, L0 + q * 32, id, x[q]);
+#pragma unroll
+  for (int q = 0; q < kQ; ++q)
+#pragma unroll
+    for (int j = 1; j < 4; ++j) x[q][j] = combine<S>(op, x[q][j - 1], x[q][j]);
+
+  // Warp scan of the group totals, q after q; pre[q]: the warp-local
+  // exclusive prefix of this thread's group q.
+  Val pre[kQ];
+  Val carry = id;
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) {
+    Val t = x[q][3];
+#pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
-      Pair y = shfl_up(w, d);
-      if (lane >= d) w = combine(op, y, w);
+      const Val y = shfl_up<S>(t, d);
+      if (lane >= d) t = combine<S>(op, y, t);
     }
-    if (lane < nwarps) warp_tot[lane] = w;  // inclusive over warps
+    Val ex = shfl_up<S>(t, 1);
+    if (lane == 0) ex = id;
+    pre[q] = combine<S>(op, carry, ex);
+    carry = combine<S>(op, carry, shfl<S>(t, 31));
+  }
+  if (lane == 0) s_warp[warp] = carry;
+  __syncthreads();
+  Val wpre = id, total = id;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    if (w == warp) wpre = total;
+    total = combine<S>(op, total, s_warp[w]);
+  }
+
+  if (warp == 0) {
+    unsigned* flags = a.ws + kHeader;
+    int4* agg = reinterpret_cast<int4*>(a.ws + kHeader + a.cap);
+    int4* inc = agg + a.cap;
+    Val ex = id;
+    if (tile > 0) {
+      if (lane == 0) {
+        __stcg(agg + tile, to_int4(total));
+        st_release(flags + tile, kAggregate);
+      }
+      ex = look_back<S>(a, op, id, tile, lane);
+    }
+    if (lane == 0) {
+      __stcg(inc + tile, to_int4(combine<S>(op, ex, total)));
+      st_release(flags + tile, kPrefix);
+      s_prefix = ex;
+      __threadfence();
+      s_last = atomicAdd(a.ws + 1, 1u) == a.ntiles - 1;
+    }
   }
   __syncthreads();
-  Pair ex = shfl_up(inc, 1);
-  if (lane == 0) ex = ident(op);
-  Pair prefix = warp > 0 ? combine(op, warp_tot[warp - 1], ex) : ex;
-  *total = warp_tot[nwarps - 1];
-  __syncthreads();
-  return prefix;
-}
 
-__global__ void __launch_bounds__(kThreads) scan_reduce(ScanArgs a) {
-  __shared__ Pair warp_tot[32];
-  const long long base = (long long)blockIdx.x * kTile;
-  for (int g = 0; g < a.ngroups; ++g) {
-    const int op = a.op[g];
-    Pair acc = ident(op);
-    for (int i = 0; i < kItems; ++i)
-      acc = combine(op, acc, load(a, g, base + threadIdx.x + i * kThreads));
-    for (int d = 16; d > 0; d >>= 1) acc = combine(op, acc, shfl_down(acc, d));
-    if ((threadIdx.x & 31) == 0) warp_tot[threadIdx.x >> 5] = acc;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      Pair t = ident(op);
-      for (int w = 0; w < kThreads / 32; ++w) t = combine(op, t, warp_tot[w]);
-      int* tot = a.tot + (long long)g * 2 * a.nblocks;
-      tot[blockIdx.x] = t.k;
-      tot[a.nblocks + blockIdx.x] = t.v;
-    }
-    __syncthreads();
+  const Val base = combine<S>(op, s_prefix, wpre);
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) {
+    const Val p = combine<S>(op, base, pre[q]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) x[q][j] = combine<S>(op, p, x[q][j]);
+    store_group<S>(a, L0 + q * 32, x[q]);
+  }
+
+  // The last tile to finish: every look-back is over, so clear the flags
+  // and both counters for the next call on this stream.
+  if (s_last) {
+    __threadfence();
+    for (unsigned i = threadIdx.x; i < a.ntiles; i += kThreads)
+      a.ws[kHeader + i] = kEmpty;
+    if (threadIdx.x == 0) a.ws[0] = a.ws[1] = 0;
   }
 }
 
-// One block: block totals -> exclusive block offsets, in place.
-__global__ void __launch_bounds__(kThreads) scan_totals(ScanArgs a) {
-  __shared__ Pair warp_tot[32];
-  for (int g = 0; g < a.ngroups; ++g) {
-    const int op = a.op[g];
-    int* tk = a.tot + (long long)g * 2 * a.nblocks;
-    int* tv = tk + a.nblocks;
-    Pair carry = ident(op);
-    for (int b0 = 0; b0 < a.nblocks; b0 += kThreads) {
-      const int b = b0 + threadIdx.x;
-      Pair x = b < a.nblocks ? Pair{tk[b], tv[b]} : ident(op);
-      Pair total;
-      Pair ex = block_exclusive_scan(op, x, warp_tot, &total);
-      if (b < a.nblocks) {
-        Pair o = combine(op, carry, ex);
-        tk[b] = o.k;
-        tv[b] = o.v;
-      }
-      carry = combine(op, carry, total);
-    }
-  }
-}
+using KernelFn = void (*)(ScanArgs);
 
-__global__ void __launch_bounds__(kThreads) scan_apply(ScanArgs a) {
-  __shared__ int sk[kTile];
-  __shared__ int sv[kTile];
-  __shared__ Pair warp_tot[32];
-  const long long base = (long long)blockIdx.x * kTile;
-  for (int g = 0; g < a.ngroups; ++g) {
-    const int op = a.op[g];
-    // coalesced stage-in of the tile (logical order)
-    for (int i = 0; i < kItems; ++i) {
-      const int t = threadIdx.x + i * kThreads;
-      Pair x = load(a, g, base + t);
-      sk[t] = x.k;
-      sv[t] = x.v;
-    }
-    __syncthreads();
-    // each thread scans kItems consecutive elements
-    Pair items[kItems];
-    Pair run = ident(op);
-    for (int i = 0; i < kItems; ++i) {
-      const int t = threadIdx.x * kItems + i;
-      run = combine(op, run, Pair{sk[t], sv[t]});
-      items[i] = run;
-    }
-    Pair total;
-    Pair prefix = block_exclusive_scan(op, run, warp_tot, &total);
-    const int* tot = a.tot + (long long)g * 2 * a.nblocks;
-    prefix = combine(op, Pair{tot[blockIdx.x], tot[a.nblocks + blockIdx.x]},
-                     prefix);
-    for (int i = 0; i < kItems; ++i) {
-      const int t = threadIdx.x * kItems + i;
-      Pair o = combine(op, prefix, items[i]);
-      sk[t] = o.k;
-      sv[t] = o.v;
-    }
-    __syncthreads();
-    const int s = a.slot[g];
-    for (int i = 0; i < kItems; ++i) {
-      const int t = threadIdx.x + i * kThreads;
-      const long long j = base + t;
-      if (j < a.n) {
-        const long long p = phys(a, j);
-        a.out[s][p] = sk[t];
-        if (op == kMaxPair) a.out[s + 1][p] = sv[t];
-      }
-    }
-    __syncthreads();
+// (number of groups, maxpair groups as bits) -> instantiation
+KernelFn pick(int ngroups, unsigned pairs) {
+  switch (ngroups * 16 + (int)pairs) {
+    case 16 + 0: return scan_kernel<1, 0>;
+    case 16 + 1: return scan_kernel<1, 1>;
+    case 32 + 0: return scan_kernel<2, 0>;
+    case 32 + 1: return scan_kernel<2, 1>;
+    case 32 + 2: return scan_kernel<2, 2>;
+    case 32 + 3: return scan_kernel<2, 3>;
+    case 48 + 0: return scan_kernel<3, 0>;
+    case 48 + 1: return scan_kernel<3, 1>;
+    case 48 + 2: return scan_kernel<3, 2>;
+    case 48 + 4: return scan_kernel<3, 4>;
+    case 64 + 0: return scan_kernel<4, 0>;
+    default: return nullptr;
   }
 }
 
@@ -220,42 +383,49 @@ extern "C" {
 
 int hj3t_scan_tile(void) { return kTile; }
 
-// Columns in0..in3 / out0..out3 (unused ones NULL), one op code per group
-// (op0..op3, -1 after the last group; maxpair takes two columns).  scratch
-// holds 2 * ngroups * ceil(n / kTile) ints.
+// Columns in0..in3 / out0..out3 (unused ones NULL), any 4-byte alignment;
+// one op code per group (op0..op3, -1 after the last group; maxpair takes
+// two columns).  ws: a workspace of 4 + 9 cap int32 words, cap a multiple
+// of 4 and at least ceil(n / kTile), zeroed before its first call and then
+// used by one stream only.
 int hj3t_multi_scan(const void* in0, const void* in1, const void* in2,
                     const void* in3, void* out0, void* out1, void* out2,
                     void* out3, int op0, int op1, int op2, int op3,
-                    long long n, int reverse, void* scratch, void* stream) {
+                    long long n, int reverse, void* ws, long long cap,
+                    void* stream) {
   ScanArgs a{};
-  const void* ins[kMaxSlots] = {in0, in1, in2, in3};
-  void* outs[kMaxSlots] = {out0, out1, out2, out3};
-  const int ops[kMaxSlots] = {op0, op1, op2, op3};
-  for (int s = 0; s < kMaxSlots; ++s) {
-    a.in[s] = static_cast<const int*>(ins[s]);
-    a.out[s] = static_cast<int*>(outs[s]);
-  }
-  int slot = 0;
-  for (int g = 0; g < kMaxSlots && ops[g] >= 0; ++g) {
+  const void* ins[kMaxCols] = {in0, in1, in2, in3};
+  void* outs[kMaxCols] = {out0, out1, out2, out3};
+  const int ops[kMaxCols] = {op0, op1, op2, op3};
+  int cols = 0, ngroups = 0;
+  unsigned pairs = 0;
+  for (int g = 0; g < kMaxCols && ops[g] >= 0; ++g) {
     if (ops[g] > kMaxPair) return (int)cudaErrorInvalidValue;
     a.op[g] = ops[g];
-    a.slot[g] = slot;
-    slot += ops[g] == kMaxPair ? 2 : 1;
-    a.ngroups = g + 1;
+    if (ops[g] == kMaxPair) pairs |= 1u << g;
+    cols += ops[g] == kMaxPair ? 2 : 1;
+    ngroups = g + 1;
   }
-  if (slot > kMaxSlots || n <= 0) return (int)cudaErrorInvalidValue;
+  const long long ntiles = (n + kTile - 1) / kTile;
+  const KernelFn kernel = pick(ngroups, pairs);
+  if (kernel == nullptr || cols > kMaxCols || n <= 0 || ntiles > cap ||
+      cap % 4 != 0 || ntiles > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  bool vec = true;
+  for (int c = 0; c < cols; ++c) {
+    a.in[c] = static_cast<const int*>(ins[c]);
+    a.out[c] = static_cast<int*>(outs[c]);
+    vec = vec && reinterpret_cast<uintptr_t>(ins[c]) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(outs[c]) % 16 == 0;
+  }
   a.n = n;
+  a.n4 = (n + 3) / 4;
   a.reverse = reverse;
-  a.nblocks = (int)((n + kTile - 1) / kTile);
-  a.tot = static_cast<int*>(scratch);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  scan_reduce<<<a.nblocks, kThreads, 0, st>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  scan_totals<<<1, kThreads, 0, st>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  scan_apply<<<a.nblocks, kThreads, 0, st>>>(a);
+  a.vec = vec;
+  a.ntiles = (unsigned)ntiles;
+  a.ws = static_cast<unsigned*>(ws);
+  a.cap = cap;
+  kernel<<<(unsigned)ntiles, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -54,8 +54,9 @@ _S = ctypes.c_char_p
 #: source in ``csrc/`` -> its entry points -> (argument types, result type)
 _SIGNATURES = {
     "scan.cu": {
-        # in0..in3, out0..out3, op0..op3, n, reverse, scratch, stream
-        "hj3t_multi_scan": ([_P] * 8 + [_I] * 4 + [_L, _I, _P, _P], _I),
+        # in0..in3, out0..out3, op0..op3, n, reverse, workspace, its
+        # capacity in tiles, stream
+        "hj3t_multi_scan": ([_P] * 8 + [_I] * 4 + [_L, _I, _P, _L, _P], _I),
         "hj3t_scan_tile": ([], _I),
         "hj3t_error_string": ([_I], _S),
     },

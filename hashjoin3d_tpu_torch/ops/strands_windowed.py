@@ -206,13 +206,17 @@ def direct_probe_strand_sorted(table, pk: torch.Tensor, unique: bool = False,
     result pairs (``probe_row``, ``build_row``; -1 where a sorted probe
     missed), ``total`` / ``c_htProbe`` (matches) and ``c_htProbeCmp``, plus
     ``route_worst`` / ``route_nbad``.  Only ``unique=True`` (early exit) is
-    ported; ``unique=False`` (CsrUU), ``nested=True`` (Nsr) and ``mask``
-    (CsrSel) come with ROADMAP slice 2.
+    ported; ``unique=False`` (CsrUU) and ``nested=True`` (Nsr) come with
+    ROADMAP slice 2, ``mask`` (CsrSel) with the mask path of slice 3.
     """
-    if not unique or nested or mask is not None:
+    if mask is not None:
         raise NotImplementedError(
-            "direct_probe_strand_sorted: only unique=True without nested or "
-            "mask is ported (ROADMAP slice 2 brings CsrUU, Nsr and CsrSel)")
+            "direct_probe_strand_sorted: mask (plan CsrSel) comes with the "
+            "mask path of ROADMAP slice 3")
+    if not unique or nested:
+        raise NotImplementedError(
+            "direct_probe_strand_sorted: only unique=True without nested is "
+            "ported (ROADMAP slice 2 brings CsrUU and Nsr)")
     direct = table.direct
     if pk.device != direct.device:
         raise ValueError(f"probe keys on {pk.device}, table on "

@@ -122,6 +122,18 @@ def test_plans_not_yet_ported_name_their_slice():
         Experiment1(6, 8, False, 0, plans=("Crs",), device="cpu")
     with pytest.raises(NotImplementedError, match="slice 2"):
         tw.direct_probe_strand_sorted(None, None, unique=False)
+    with pytest.raises(NotImplementedError, match="slice 2"):
+        tw.direct_probe_strand_sorted(None, None, unique=True, nested=True)
+
+
+def test_csrsel_strand_names_slice_3():
+    """CsrSel's mask path comes with slice 3, as ``PENDING_PLANS`` says."""
+    from hashjoin3d_tpu_torch.models.exp1 import PENDING_PLANS
+
+    assert PENDING_PLANS["CsrSel"] == 3
+    mask = torch.ones(4, dtype=torch.bool)
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        tw.direct_probe_strand_sorted(None, None, unique=True, mask=mask)
 
 
 def test_port_imports_no_jax():

@@ -80,7 +80,8 @@ def test_onehot_matmul_is_the_exact_product(matrix):
         assert np.array_equal(got, x[:, ::-1])
 
 
-@pytest.mark.parametrize("C", [1024, 4096])
+@pytest.mark.parametrize("C", [1024, 4096,
+                               128, 8192])  # the smallest and largest C
 def test_permute_applies_one_permutation_per_block(C):
     rng = np.random.default_rng(24)
     x = rows_of(rng, 8192 // 128 * 4)

@@ -114,7 +114,7 @@ def host_ms(fn, reps: int = 20) -> list[float]:
 
 def strands(dev):
     """(build, probe) closures of plan Csr on the reference's R20/S24 data,
-    and S.a."""
+    S.a and R.k."""
     from hashjoin3d_tpu_torch.ops.chaining import build_chaining_host
     from hashjoin3d_tpu_torch.ops.layout import from_numpy_u32
     from hashjoin3d_tpu_torch.ops.strands_windowed import (
@@ -130,15 +130,63 @@ def strands(dev):
 
     table = build()
     return build, lambda: direct_probe_strand_sorted(table, sa,
-                                                     unique=True), sa
+                                                     unique=True), sa, rk
+
+
+def k3_calls(rk) -> dict:
+    """The build's two K3 calls as ``run_boundaries`` makes them, over the
+    stably sorted bucket column of R.k (2^20): forward (sum, max) of
+    ``is_first`` and ``where(is_first, i, -1)``, reverse min of the next
+    run's start; name -> (columns, ops, reverse)."""
+    from hashjoin3d_tpu_torch.ops.hashing import bucket_of, hash_key
+    from hashjoin3d_tpu_torch.ops.layout import I32
+
+    b = torch.sort(bucket_of(hash_key(rk), 1 << LOG2_R), stable=True).values
+    n = b.shape[0]
+    i = torch.arange(n, dtype=I32, device=b.device)
+    is_first = torch.ones_like(b, dtype=torch.bool)
+    is_first[1:] = b[1:] != b[:-1]
+    nxt = torch.full_like(i, n)
+    nxt[:-1] = torch.where(is_first, i, n)[1:]
+    return {"k3_fwd": ((is_first.to(I32), torch.where(is_first, i, -1)),
+                       ("sum", "max"), False),
+            "k3_rev": ((nxt,), ("min",), True)}
+
+
+def p5_cases(dev) -> dict:
+    """The probe runner's P5 cases: 2^22 random words (numpy seed 4) and a
+    permutation of C = 1024 and 4096 (seeds 5, 6); C -> (x, perm)."""
+    x = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 1 << 30, (1 << 15, 128), dtype=np.int32)).to(dev)
+    return {C: (x, torch.from_numpy(np.random.default_rng(seed).permutation(
+        C).astype(np.int32)).to(dev)) for C, seed in ((1024, 5), (4096, 6))}
+
+
+def device_ops(fn, calls: int = 50) -> tuple[float, list[str]]:
+    """Device operations (kernels, copies, sets) per call of ``fn`` under
+    ``torch.profiler``, and their names."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ops = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return len(ops) / calls, sorted(set(ops))
 
 
 def times(side: str, dev) -> dict:
-    from hashjoin3d_tpu_torch.ops import bitonic, probes, windowed
+    from hashjoin3d_tpu_torch.ops import bitonic, probes, scan, windowed
     from hashjoin3d_tpu_torch.ops.hashing import bucket_of, hash_key
     from hashjoin3d_tpu_torch.ops.layout import I32, from_numpy_u32
 
-    build, probe, sa = strands(dev)
+    build, probe, sa, rk = strands(dev)
+    k3 = k3_calls(rk)
+    p5 = p5_cases(dev)
     n = 1 << LOG2_S
     lid = torch.arange(n, dtype=I32, device=dev) % SEGMENT
     wide = from_numpy_u32(np.random.default_rng(0).integers(
@@ -182,6 +230,21 @@ def times(side: str, dev) -> dict:
         clone_2_24_ms=events_ms(lambda: src24.clone()),
         p8_ms=events_ms(lambda: probes.row_copy(src8, 3)),
         clone_ms=events_ms(lambda: src8[3:11].clone()),
+        **{f"{name}_ms": events_ms(lambda c=c: scan.multi_scan(*c))
+           for name, c in k3.items()},
+        k3_bit_equal=all(
+            all(torch.equal(g, w) for g, w in zip(scan.multi_scan(*c),
+                                                  scan.multi_scan_plain(*c)))
+            for c in k3.values()),
+        **{f"p5_{C}_ms": events_ms(lambda x=x, p=p: probes.permute(x, p))
+           for C, (x, p) in p5.items()},
+        **{f"index_select_{C}_ms": events_ms(
+            lambda x=x, p64=p.long(), C=C: torch.index_select(
+                x.view(-1, C), 1, p64))
+           for C, (x, p) in p5.items()},
+        p5_bit_equal=all(torch.equal(probes.permute(x, p),
+                                     probes.permute_plain(x, p))
+                         for x, p in p5.values()),
         build_ms_median=statistics.median(host_ms(build)),
         probe_ms_median=statistics.median(host_ms(probe)),
         **exp1_times(dev))
@@ -233,10 +296,13 @@ def launch_costs(dev) -> dict:
     import ctypes
 
     from hashjoin3d_tpu_torch import kernels
-    from hashjoin3d_tpu_torch.ops import probes
+    from hashjoin3d_tpu_torch.ops import probes, scan
+    from hashjoin3d_tpu_torch.ops.layout import from_numpy_u32
+    from hashjoin3d_tpu_torch.utils.gen import exp1_data
     from hashjoin3d_tpu_torch.utils.measure import host_device_us
 
     src8 = torch.arange(1 << 18, dtype=torch.int32, device=dev).view(-1, 128)
+    col = torch.zeros(1 << LOG2_R, dtype=torch.int32, device=dev)
     out = probes.row_copy(src8, 3)
     entry = kernels.lib().hj3t_probe_row_copy
     args = (src8.data_ptr(), out.data_ptr(), src8.shape[0], 3, 8)
@@ -262,6 +328,9 @@ def launch_costs(dev) -> dict:
                                         device=dev),
         new_empty=lambda: src8.new_empty((8, 128)),
         slice_rows=lambda: src8[3:11],
+        empty_like_2=lambda: (torch.empty_like(col), torch.empty_like(col)),
+        empty_unbind_2=lambda: torch.empty((2, col.shape[0]), dtype=col.dtype,
+                                           device=dev).unbind(0),
         ctypes_no_args=lambda: kernels.lib().hj3t_scan_tile(),
         entry_rejected=lambda: entry(*args[:4], 0, 0),
         entry_call=lambda: entry(*args, torch._C._cuda_getCurrentRawStream(
@@ -271,6 +340,15 @@ def launch_costs(dev) -> dict:
                      ("clone", lambda: src8[3:11].clone())):
         res[f"{name}_host_us"], res[f"{name}_device_us"] = host_device_us(fn)
         for reps in (20, 2000):
+            res[f"{name}_events_{reps}_us"] = events_ms(fn, reps) * 1e3
+    rk = from_numpy_u32(exp1_data(LOG2_R, LOG2_S, False, 0)[0], dev)
+    for name, c in k3_calls(rk).items():
+        def fn(c=c):
+            return scan.multi_scan(*c)
+        res[f"{name}_host_us"], res[f"{name}_device_us"] = host_device_us(fn)
+        res[f"{name}_device_ops"], res[f"{name}_device_op_names"] = (
+            device_ops(fn))
+        for reps in (10, 20, 2000):
             res[f"{name}_events_{reps}_us"] = events_ms(fn, reps) * 1e3
     return res
 
@@ -334,12 +412,13 @@ def main() -> int:
     p = sub.add_parser("profile")
     p.add_argument("--reps", type=int, default=10)
     p.add_argument("--root", type=Path, default=here)
-    sub.add_parser("launch")
+    la = sub.add_parser("launch")
+    la.add_argument("--root", type=Path, default=here)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_csr_perf: needs a CUDA GPU", file=sys.stderr)
         return 2
-    root = getattr(args, "root", here).resolve()
+    root = args.root.resolve()
     sys.path.insert(0, str(root))
     import hashjoin3d_tpu_torch
     if Path(hashjoin3d_tpu_torch.__file__).resolve().parents[1] != root:
@@ -353,7 +432,7 @@ def main() -> int:
     elif args.mode == "launch":
         print(json.dumps(launch_costs(dev)))
     else:
-        build, probe, _ = strands(dev)
+        build, probe, _, _ = strands(dev)
         profile_strand("build", build, args.reps)
         profile_strand("probe", probe, args.reps)
     return 0
