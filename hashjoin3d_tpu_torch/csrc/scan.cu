@@ -19,9 +19,9 @@
 //     scans it in registers (4 elements a thread, then the warp by
 //     shuffles, then the block's warps), and publishes the tile's aggregate
 //     with a flag;
-//   - one warp then looks back over the predecessors' flags, 32 tiles at a
-//     time, combining aggregates until it meets an inclusive prefix, and
-//     publishes the tile's own inclusive prefix;
+//   - the block then looks back over the predecessors' flags, kThreads
+//     tiles a round (one a thread), combining aggregates up to the nearest
+//     inclusive prefix, and publishes the tile's own inclusive prefix;
 //   - the block adds its exclusive prefix and stores.
 // All four ops are associative and commutative and exact, so any order of
 // combination gives the bit-equal result.  Flags are released after their
@@ -232,34 +232,45 @@ __device__ __forceinline__ void store_group(const ScanArgs& a, long long L,
   }
 }
 
-// Warp 0 of tile `tile` > 0: the combined value of every earlier tile.
+// Every thread of tile `tile` > 0: the combined value of every earlier
+// tile, kThreads predecessors a round (thread i reads tile top - i).
 template <class S>
-__device__ __forceinline__ Val look_back(const ScanArgs& a, const int* op, const Val& id,
-                         unsigned tile, int lane) {
+__device__ __forceinline__ Val look_back(const ScanArgs& a, const int* op,
+                                         const Val& id, unsigned tile,
+                                         int* s_stop, Val* s_red) {
   const unsigned* flags = a.ws + kHeader;
   const int4* agg = reinterpret_cast<const int4*>(a.ws + kHeader + a.cap);
   const int4* inc = agg + a.cap;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   Val ex = id;
   long long top = (long long)tile - 1;  // nearest tile not yet combined
   while (true) {
-    const long long p = top - lane;     // lane 0 the nearest
+    const long long p = top - threadIdx.x;
     unsigned f = p >= 0 ? ld_acquire(flags + p) : kPrefix;
-    for (unsigned polls = 0; __any_sync(kFull, f == kEmpty); ++polls) {
+    for (unsigned polls = 0; f == kEmpty; ++polls) {
       if (polls == kMaxPolls) __trap();  // a fault, never a hang
-      if (f == kEmpty) f = ld_acquire(flags + p);
+      f = ld_acquire(flags + p);
     }
     const unsigned prefixes = __ballot_sync(kFull, f == kPrefix);
-    const int stop = prefixes ? __ffs(prefixes) - 1 : 32;
+    if (lane == 0) s_stop[warp] = prefixes ? warp * 32 + __ffs(prefixes) - 1 : kThreads;
+    __syncthreads();
+    int stop = kThreads;  // the nearest inclusive prefix
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) stop = min(stop, s_stop[w]);
     Val v = id;
-    if (lane < stop)
+    if ((int)threadIdx.x < stop)
       v = from_int4(__ldcg(agg + p));
-    else if (lane == stop)
+    else if ((int)threadIdx.x == stop)
       v = from_int4(__ldcg(inc + p));
 #pragma unroll
     for (int m = 16; m > 0; m >>= 1) v = combine<S>(op, v, shfl_xor<S>(v, m));
-    ex = combine<S>(op, v, ex);
-    if (prefixes) return ex;
-    top -= 32;
+    if (lane == 0) s_red[warp] = v;
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) ex = combine<S>(op, s_red[w], ex);
+    __syncthreads();  // s_stop and s_red are reused
+    if (stop < kThreads) return ex;
+    top -= kThreads;
   }
 }
 
@@ -267,8 +278,8 @@ template <int NG, unsigned PAIRS>
 __global__ void __launch_bounds__(kThreads) scan_kernel(ScanArgs a) {
   using S = Shape<NG, PAIRS>;
   __shared__ unsigned s_tile, s_last;
-  __shared__ Val s_warp[kWarps];
-  __shared__ Val s_prefix;
+  __shared__ Val s_warp[kWarps], s_red[kWarps];
+  __shared__ int s_stop[kWarps];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int op[NG];
 #pragma unroll
@@ -316,29 +327,26 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(ScanArgs a) {
     total = combine<S>(op, total, s_warp[w]);
   }
 
-  if (warp == 0) {
-    unsigned* flags = a.ws + kHeader;
-    int4* agg = reinterpret_cast<int4*>(a.ws + kHeader + a.cap);
-    int4* inc = agg + a.cap;
-    Val ex = id;
-    if (tile > 0) {
-      if (lane == 0) {
-        __stcg(agg + tile, to_int4(total));
-        st_release(flags + tile, kAggregate);
-      }
-      ex = look_back<S>(a, op, id, tile, lane);
+  unsigned* flags = a.ws + kHeader;
+  int4* agg = reinterpret_cast<int4*>(a.ws + kHeader + a.cap);
+  int4* inc = agg + a.cap;
+  Val ex = id;
+  if (tile > 0) {
+    if (threadIdx.x == 0) {
+      __stcg(agg + tile, to_int4(total));
+      st_release(flags + tile, kAggregate);
     }
-    if (lane == 0) {
-      __stcg(inc + tile, to_int4(combine<S>(op, ex, total)));
-      st_release(flags + tile, kPrefix);
-      s_prefix = ex;
-      __threadfence();
-      s_last = atomicAdd(a.ws + 1, 1u) == a.ntiles - 1;
-    }
+    ex = look_back<S>(a, op, id, tile, s_stop, s_red);
+  }
+  if (threadIdx.x == 0) {
+    __stcg(inc + tile, to_int4(combine<S>(op, ex, total)));
+    st_release(flags + tile, kPrefix);
+    __threadfence();
+    s_last = atomicAdd(a.ws + 1, 1u) == a.ntiles - 1;
   }
   __syncthreads();
 
-  const Val base = combine<S>(op, s_prefix, wpre);
+  const Val base = combine<S>(op, ex, wpre);
 #pragma unroll
   for (int q = 0; q < kQ; ++q) {
     const Val p = combine<S>(op, base, pre[q]);
