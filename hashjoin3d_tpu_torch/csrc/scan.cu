@@ -47,7 +47,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kQ = 2;                      // 16-byte groups a thread a column
+constexpr int kQ = 4;                      // 16-byte groups a thread a column
 constexpr int kTile = kThreads * kQ * 4;   // elements a tile
 constexpr int kMaxCols = 4;
 constexpr unsigned kFull = 0xffffffffu;
@@ -232,63 +232,67 @@ __device__ __forceinline__ void store_group(const ScanArgs& a, long long L,
   }
 }
 
-// Every thread of tile `tile` > 0: the combined value of every earlier
-// tile, kThreads predecessors a round (thread i reads tile top - i).
+// Every thread of tile `tile`: the combined aggregates of tiles [0, tile).
 template <class S>
-__device__ __forceinline__ Val look_back(const ScanArgs& a, const int* op,
-                                         const Val& id, unsigned tile,
-                                         int* s_stop, Val* s_red) {
-  const unsigned* flags = a.ws + kHeader;
+__device__ __forceinline__ Val predecessors(const ScanArgs& a, const int* op,
+                                            const Val& id, unsigned tile,
+                                            Val* s_red) {
   const int4* agg = reinterpret_cast<const int4*>(a.ws + kHeader + a.cap);
-  const int4* inc = agg + a.cap;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  Val v = id;
+  for (unsigned p = threadIdx.x; p < tile; p += kThreads)
+    v = combine<S>(op, v, from_int4(__ldcg(agg + p)));
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) v = combine<S>(op, v, shfl_xor<S>(v, m));
+  if (lane == 0) s_red[warp] = v;
+  __syncthreads();
   Val ex = id;
-  long long top = (long long)tile - 1;  // nearest tile not yet combined
-  while (true) {
-    const long long p = top - threadIdx.x;
-    unsigned f = p >= 0 ? ld_acquire(flags + p) : kPrefix;
-    for (unsigned polls = 0; f == kEmpty; ++polls) {
-      if (polls == kMaxPolls) __trap();  // a fault, never a hang
-      f = ld_acquire(flags + p);
-    }
-    const unsigned prefixes = __ballot_sync(kFull, f == kPrefix);
-    if (lane == 0) s_stop[warp] = prefixes ? warp * 32 + __ffs(prefixes) - 1 : kThreads;
-    __syncthreads();
-    int stop = kThreads;  // the nearest inclusive prefix
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) stop = min(stop, s_stop[w]);
-    Val v = id;
-    if ((int)threadIdx.x < stop)
-      v = from_int4(__ldcg(agg + p));
-    else if ((int)threadIdx.x == stop)
-      v = from_int4(__ldcg(inc + p));
+  for (int w = 0; w < kWarps; ++w) ex = combine<S>(op, ex, s_red[w]);
+  return ex;
+}
+
+// Launch 1: each tile's aggregate.
+template <int NG, unsigned PAIRS>
+__global__ void __launch_bounds__(kThreads) scan_reduce(ScanArgs a) {
+  using S = Shape<NG, PAIRS>;
+  __shared__ Val s_red[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int op[NG];
 #pragma unroll
-    for (int m = 16; m > 0; m >>= 1) v = combine<S>(op, v, shfl_xor<S>(v, m));
-    if (lane == 0) s_red[warp] = v;
-    __syncthreads();
+  for (int g = 0; g < NG; ++g) op[g] = a.op[g];
+  const Val id = identity<S>(op);
+  Val x[4], v = id;
+  const long long L0 = (long long)blockIdx.x * (kTile / 4) + warp * kQ * 32 + lane;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) ex = combine<S>(op, s_red[w], ex);
-    __syncthreads();  // s_stop and s_red are reused
-    if (stop < kThreads) return ex;
-    top -= kThreads;
+  for (int q = 0; q < kQ; ++q) {
+    load_group<S>(a, L0 + q * 32, id, x);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v = combine<S>(op, v, x[j]);
+  }
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) v = combine<S>(op, v, shfl_xor<S>(v, m));
+  if (lane == 0) s_red[warp] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    Val t = id;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) t = combine<S>(op, t, s_red[w]);
+    __stcg(reinterpret_cast<int4*>(a.ws + kHeader + a.cap) + blockIdx.x, to_int4(t));
   }
 }
 
 template <int NG, unsigned PAIRS>
 __global__ void __launch_bounds__(kThreads) scan_kernel(ScanArgs a) {
   using S = Shape<NG, PAIRS>;
-  __shared__ unsigned s_tile, s_last;
   __shared__ Val s_warp[kWarps], s_red[kWarps];
-  __shared__ int s_stop[kWarps];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int op[NG];
 #pragma unroll
   for (int g = 0; g < NG; ++g) op[g] = a.op[g];
   const Val id = identity<S>(op);
 
-  if (threadIdx.x == 0) s_tile = atomicAdd(a.ws, 1u);
-  __syncthreads();
-  const unsigned tile = s_tile;
+  const unsigned tile = blockIdx.x;
 
   // Thread (warp, lane) holds 16-byte groups (warp kQ + q) 32 + lane of the
   // tile, q < kQ, each scanned inclusively over its 4 elements.
@@ -327,24 +331,7 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(ScanArgs a) {
     total = combine<S>(op, total, s_warp[w]);
   }
 
-  unsigned* flags = a.ws + kHeader;
-  int4* agg = reinterpret_cast<int4*>(a.ws + kHeader + a.cap);
-  int4* inc = agg + a.cap;
-  Val ex = id;
-  if (tile > 0) {
-    if (threadIdx.x == 0) {
-      __stcg(agg + tile, to_int4(total));
-      st_release(flags + tile, kAggregate);
-    }
-    ex = look_back<S>(a, op, id, tile, s_stop, s_red);
-  }
-  if (threadIdx.x == 0) {
-    __stcg(inc + tile, to_int4(combine<S>(op, ex, total)));
-    st_release(flags + tile, kPrefix);
-    __threadfence();
-    s_last = atomicAdd(a.ws + 1, 1u) == a.ntiles - 1;
-  }
-  __syncthreads();
+  const Val ex = predecessors<S>(a, op, id, tile, s_red);
 
   const Val base = combine<S>(op, ex, wpre);
 #pragma unroll
@@ -355,33 +342,28 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(ScanArgs a) {
     store_group<S>(a, L0 + q * 32, x[q]);
   }
 
-  // The last tile to finish: every look-back is over, so clear the flags
-  // and both counters for the next call on this stream.
-  if (s_last) {
-    __threadfence();
-    for (unsigned i = threadIdx.x; i < a.ntiles; i += kThreads)
-      a.ws[kHeader + i] = kEmpty;
-    if (threadIdx.x == 0) a.ws[0] = a.ws[1] = 0;
-  }
 }
 
 using KernelFn = void (*)(ScanArgs);
+struct Kernels {
+  KernelFn reduce, apply;
+};
 
 // (number of groups, maxpair groups as bits) -> instantiation
-KernelFn pick(int ngroups, unsigned pairs) {
+Kernels pick(int ngroups, unsigned pairs) {
   switch (ngroups * 16 + (int)pairs) {
-    case 16 + 0: return scan_kernel<1, 0>;
-    case 16 + 1: return scan_kernel<1, 1>;
-    case 32 + 0: return scan_kernel<2, 0>;
-    case 32 + 1: return scan_kernel<2, 1>;
-    case 32 + 2: return scan_kernel<2, 2>;
-    case 32 + 3: return scan_kernel<2, 3>;
-    case 48 + 0: return scan_kernel<3, 0>;
-    case 48 + 1: return scan_kernel<3, 1>;
-    case 48 + 2: return scan_kernel<3, 2>;
-    case 48 + 4: return scan_kernel<3, 4>;
-    case 64 + 0: return scan_kernel<4, 0>;
-    default: return nullptr;
+    case 16 + 0: return {scan_reduce<1, 0>, scan_kernel<1, 0>};
+    case 16 + 1: return {scan_reduce<1, 1>, scan_kernel<1, 1>};
+    case 32 + 0: return {scan_reduce<2, 0>, scan_kernel<2, 0>};
+    case 32 + 1: return {scan_reduce<2, 1>, scan_kernel<2, 1>};
+    case 32 + 2: return {scan_reduce<2, 2>, scan_kernel<2, 2>};
+    case 32 + 3: return {scan_reduce<2, 3>, scan_kernel<2, 3>};
+    case 48 + 0: return {scan_reduce<3, 0>, scan_kernel<3, 0>};
+    case 48 + 1: return {scan_reduce<3, 1>, scan_kernel<3, 1>};
+    case 48 + 2: return {scan_reduce<3, 2>, scan_kernel<3, 2>};
+    case 48 + 4: return {scan_reduce<3, 4>, scan_kernel<3, 4>};
+    case 64 + 0: return {scan_reduce<4, 0>, scan_kernel<4, 0>};
+    default: return {nullptr, nullptr};
   }
 }
 
@@ -415,8 +397,8 @@ int hj3t_multi_scan(const void* in0, const void* in1, const void* in2,
     ngroups = g + 1;
   }
   const long long ntiles = (n + kTile - 1) / kTile;
-  const KernelFn kernel = pick(ngroups, pairs);
-  if (kernel == nullptr || cols > kMaxCols || n <= 0 || ntiles > cap ||
+  const Kernels k = pick(ngroups, pairs);
+  if (k.apply == nullptr || cols > kMaxCols || n <= 0 || ntiles > cap ||
       cap % 4 != 0 || ntiles > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   bool vec = true;
@@ -433,7 +415,11 @@ int hj3t_multi_scan(const void* in0, const void* in1, const void* in2,
   a.ntiles = (unsigned)ntiles;
   a.ws = static_cast<unsigned*>(ws);
   a.cap = cap;
-  kernel<<<(unsigned)ntiles, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  k.reduce<<<(unsigned)ntiles, kThreads, 0, st>>>(a);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  k.apply<<<(unsigned)ntiles, kThreads, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 
