@@ -230,17 +230,18 @@ def times(side: str, dev) -> dict:
         clone_2_24_ms=events_ms(lambda: src24.clone()),
         p8_ms=events_ms(lambda: probes.row_copy(src8, 3)),
         clone_ms=events_ms(lambda: src8[3:11].clone()),
-        **{f"{name}_ms": events_ms(lambda c=c: scan.multi_scan(*c))
+        **{f"{name}_ms": events_ms(lambda c=c: scan.multi_scan(*c), 200)
            for name, c in k3.items()},
         k3_bit_equal=all(
             all(torch.equal(g, w) for g, w in zip(scan.multi_scan(*c),
                                                   scan.multi_scan_plain(*c)))
             for c in k3.values()),
-        **{f"p5_{C}_ms": events_ms(lambda x=x, p=p: probes.permute(x, p))
+        **{f"p5_{C}_ms": events_ms(lambda x=x, p=p: probes.permute(x, p),
+                                   200)
            for C, (x, p) in p5.items()},
         **{f"index_select_{C}_ms": events_ms(
             lambda x=x, p64=p.long(), C=C: torch.index_select(
-                x.view(-1, C), 1, p64))
+                x.view(-1, C), 1, p64), 200)
            for C, (x, p) in p5.items()},
         p5_bit_equal=all(torch.equal(probes.permute(x, p),
                                      probes.permute_plain(x, p))
