@@ -19,9 +19,9 @@
 //     scans it in registers (4 elements a thread, then the warp by
 //     shuffles, then the block's warps), and publishes the tile's aggregate
 //     with a flag;
-//   - the block then looks back over the predecessors' flags, kThreads
-//     tiles a round (one a thread), combining aggregates up to the nearest
-//     inclusive prefix, and publishes the tile's own inclusive prefix;
+//   - one warp then looks back over the predecessors' flags, 32 tiles at a
+//     time, combining aggregates until it meets an inclusive prefix, and
+//     publishes the tile's own inclusive prefix;
 //   - the block adds its exclusive prefix and stores.
 // All four ops are associative and commutative and exact, so any order of
 // combination gives the bit-equal result.  Flags are released after their
@@ -47,7 +47,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kQ = 4;                      // 16-byte groups a thread a column
+constexpr int kQ = 8;                      // 16-byte groups a thread a column
 constexpr int kTile = kThreads * kQ * 4;   // elements a tile
 constexpr int kMaxCols = 4;
 constexpr unsigned kFull = 0xffffffffu;
@@ -232,67 +232,52 @@ __device__ __forceinline__ void store_group(const ScanArgs& a, long long L,
   }
 }
 
-// Every thread of tile `tile`: the combined aggregates of tiles [0, tile).
+// Warp 0 of tile `tile` > 0: the combined value of every earlier tile.
 template <class S>
-__device__ __forceinline__ Val predecessors(const ScanArgs& a, const int* op,
-                                            const Val& id, unsigned tile,
-                                            Val* s_red) {
+__device__ __forceinline__ Val look_back(const ScanArgs& a, const int* op, const Val& id,
+                         unsigned tile, int lane) {
+  const unsigned* flags = a.ws + kHeader;
   const int4* agg = reinterpret_cast<const int4*>(a.ws + kHeader + a.cap);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  Val v = id;
-  for (unsigned p = threadIdx.x; p < tile; p += kThreads)
-    v = combine<S>(op, v, from_int4(__ldcg(agg + p)));
-#pragma unroll
-  for (int m = 16; m > 0; m >>= 1) v = combine<S>(op, v, shfl_xor<S>(v, m));
-  if (lane == 0) s_red[warp] = v;
-  __syncthreads();
+  const int4* inc = agg + a.cap;
   Val ex = id;
+  long long top = (long long)tile - 1;  // nearest tile not yet combined
+  while (true) {
+    const long long p = top - lane;     // lane 0 the nearest
+    unsigned f = p >= 0 ? ld_acquire(flags + p) : kPrefix;
+    for (unsigned polls = 0; __any_sync(kFull, f == kEmpty); ++polls) {
+      if (polls == kMaxPolls) __trap();  // a fault, never a hang
+      if (f == kEmpty) f = ld_acquire(flags + p);
+    }
+    const unsigned prefixes = __ballot_sync(kFull, f == kPrefix);
+    const int stop = prefixes ? __ffs(prefixes) - 1 : 32;
+    Val v = id;
+    if (lane < stop)
+      v = from_int4(__ldcg(agg + p));
+    else if (lane == stop)
+      v = from_int4(__ldcg(inc + p));
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) ex = combine<S>(op, ex, s_red[w]);
-  return ex;
-}
-
-// Launch 1: each tile's aggregate.
-template <int NG, unsigned PAIRS>
-__global__ void __launch_bounds__(kThreads) scan_reduce(ScanArgs a) {
-  using S = Shape<NG, PAIRS>;
-  __shared__ Val s_red[kWarps];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int op[NG];
-#pragma unroll
-  for (int g = 0; g < NG; ++g) op[g] = a.op[g];
-  const Val id = identity<S>(op);
-  Val x[4], v = id;
-  const long long L0 = (long long)blockIdx.x * (kTile / 4) + warp * kQ * 32 + lane;
-#pragma unroll
-  for (int q = 0; q < kQ; ++q) {
-    load_group<S>(a, L0 + q * 32, id, x);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) v = combine<S>(op, v, x[j]);
-  }
-#pragma unroll
-  for (int m = 16; m > 0; m >>= 1) v = combine<S>(op, v, shfl_xor<S>(v, m));
-  if (lane == 0) s_red[warp] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    Val t = id;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) t = combine<S>(op, t, s_red[w]);
-    __stcg(reinterpret_cast<int4*>(a.ws + kHeader + a.cap) + blockIdx.x, to_int4(t));
+    for (int m = 16; m > 0; m >>= 1) v = combine<S>(op, v, shfl_xor<S>(v, m));
+    ex = combine<S>(op, v, ex);
+    if (prefixes) return ex;
+    top -= 32;
   }
 }
 
 template <int NG, unsigned PAIRS>
 __global__ void __launch_bounds__(kThreads) scan_kernel(ScanArgs a) {
   using S = Shape<NG, PAIRS>;
-  __shared__ Val s_warp[kWarps], s_red[kWarps];
+  __shared__ unsigned s_tile, s_last;
+  __shared__ Val s_warp[kWarps];
+  __shared__ Val s_prefix;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int op[NG];
 #pragma unroll
   for (int g = 0; g < NG; ++g) op[g] = a.op[g];
   const Val id = identity<S>(op);
 
-  const unsigned tile = blockIdx.x;
+  if (threadIdx.x == 0) s_tile = atomicAdd(a.ws, 1u);
+  __syncthreads();
+  const unsigned tile = s_tile;
 
   // Thread (warp, lane) holds 16-byte groups (warp kQ + q) 32 + lane of the
   // tile, q < kQ, each scanned inclusively over its 4 elements.
@@ -331,9 +316,29 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(ScanArgs a) {
     total = combine<S>(op, total, s_warp[w]);
   }
 
-  const Val ex = predecessors<S>(a, op, id, tile, s_red);
+  if (warp == 0) {
+    unsigned* flags = a.ws + kHeader;
+    int4* agg = reinterpret_cast<int4*>(a.ws + kHeader + a.cap);
+    int4* inc = agg + a.cap;
+    Val ex = id;
+    if (tile > 0) {
+      if (lane == 0) {
+        __stcg(agg + tile, to_int4(total));
+        st_release(flags + tile, kAggregate);
+      }
+      ex = look_back<S>(a, op, id, tile, lane);
+    }
+    if (lane == 0) {
+      __stcg(inc + tile, to_int4(combine<S>(op, ex, total)));
+      st_release(flags + tile, kPrefix);
+      s_prefix = ex;
+      __threadfence();
+      s_last = atomicAdd(a.ws + 1, 1u) == a.ntiles - 1;
+    }
+  }
+  __syncthreads();
 
-  const Val base = combine<S>(op, ex, wpre);
+  const Val base = combine<S>(op, s_prefix, wpre);
 #pragma unroll
   for (int q = 0; q < kQ; ++q) {
     const Val p = combine<S>(op, base, pre[q]);
@@ -342,28 +347,33 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(ScanArgs a) {
     store_group<S>(a, L0 + q * 32, x[q]);
   }
 
+  // The last tile to finish: every look-back is over, so clear the flags
+  // and both counters for the next call on this stream.
+  if (s_last) {
+    __threadfence();
+    for (unsigned i = threadIdx.x; i < a.ntiles; i += kThreads)
+      a.ws[kHeader + i] = kEmpty;
+    if (threadIdx.x == 0) a.ws[0] = a.ws[1] = 0;
+  }
 }
 
 using KernelFn = void (*)(ScanArgs);
-struct Kernels {
-  KernelFn reduce, apply;
-};
 
 // (number of groups, maxpair groups as bits) -> instantiation
-Kernels pick(int ngroups, unsigned pairs) {
+KernelFn pick(int ngroups, unsigned pairs) {
   switch (ngroups * 16 + (int)pairs) {
-    case 16 + 0: return {scan_reduce<1, 0>, scan_kernel<1, 0>};
-    case 16 + 1: return {scan_reduce<1, 1>, scan_kernel<1, 1>};
-    case 32 + 0: return {scan_reduce<2, 0>, scan_kernel<2, 0>};
-    case 32 + 1: return {scan_reduce<2, 1>, scan_kernel<2, 1>};
-    case 32 + 2: return {scan_reduce<2, 2>, scan_kernel<2, 2>};
-    case 32 + 3: return {scan_reduce<2, 3>, scan_kernel<2, 3>};
-    case 48 + 0: return {scan_reduce<3, 0>, scan_kernel<3, 0>};
-    case 48 + 1: return {scan_reduce<3, 1>, scan_kernel<3, 1>};
-    case 48 + 2: return {scan_reduce<3, 2>, scan_kernel<3, 2>};
-    case 48 + 4: return {scan_reduce<3, 4>, scan_kernel<3, 4>};
-    case 64 + 0: return {scan_reduce<4, 0>, scan_kernel<4, 0>};
-    default: return {nullptr, nullptr};
+    case 16 + 0: return scan_kernel<1, 0>;
+    case 16 + 1: return scan_kernel<1, 1>;
+    case 32 + 0: return scan_kernel<2, 0>;
+    case 32 + 1: return scan_kernel<2, 1>;
+    case 32 + 2: return scan_kernel<2, 2>;
+    case 32 + 3: return scan_kernel<2, 3>;
+    case 48 + 0: return scan_kernel<3, 0>;
+    case 48 + 1: return scan_kernel<3, 1>;
+    case 48 + 2: return scan_kernel<3, 2>;
+    case 48 + 4: return scan_kernel<3, 4>;
+    case 64 + 0: return scan_kernel<4, 0>;
+    default: return nullptr;
   }
 }
 
@@ -397,8 +407,8 @@ int hj3t_multi_scan(const void* in0, const void* in1, const void* in2,
     ngroups = g + 1;
   }
   const long long ntiles = (n + kTile - 1) / kTile;
-  const Kernels k = pick(ngroups, pairs);
-  if (k.apply == nullptr || cols > kMaxCols || n <= 0 || ntiles > cap ||
+  const KernelFn kernel = pick(ngroups, pairs);
+  if (kernel == nullptr || cols > kMaxCols || n <= 0 || ntiles > cap ||
       cap % 4 != 0 || ntiles > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   bool vec = true;
@@ -415,11 +425,7 @@ int hj3t_multi_scan(const void* in0, const void* in1, const void* in2,
   a.ntiles = (unsigned)ntiles;
   a.ws = static_cast<unsigned*>(ws);
   a.cap = cap;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  k.reduce<<<(unsigned)ntiles, kThreads, 0, st>>>(a);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  k.apply<<<(unsigned)ntiles, kThreads, 0, st>>>(a);
+  kernel<<<(unsigned)ntiles, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 
