@@ -45,9 +45,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kQ = 8;                      // 16-byte groups a thread a column
+constexpr int kQ = 4;                      // 16-byte groups a thread a column
 constexpr int kTile = kThreads * kQ * 4;   // elements a tile
 constexpr int kMaxCols = 4;
 constexpr unsigned kFull = 0xffffffffu;
