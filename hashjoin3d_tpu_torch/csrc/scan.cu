@@ -45,7 +45,7 @@
 
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kQ = 4;                      // 16-byte groups a thread a column
 constexpr int kTile = kThreads * kQ * 4;   // elements a tile
@@ -174,6 +174,13 @@ __device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
   return v;
 }
 
+__device__ __forceinline__ unsigned atom_add_acq_rel(unsigned* p, unsigned v) {
+  unsigned old;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], %2;"
+               : "=r"(old) : "l"(p), "r"(v) : "memory");
+  return old;
+}
+
 __device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
   asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
 }
@@ -266,7 +273,7 @@ __device__ __forceinline__ Val look_back(const ScanArgs& a, const int* op, const
 template <int NG, unsigned PAIRS>
 __global__ void __launch_bounds__(kThreads) scan_kernel(ScanArgs a) {
   using S = Shape<NG, PAIRS>;
-  __shared__ unsigned s_tile, s_last;
+  __shared__ unsigned s_last;
   __shared__ Val s_warp[kWarps];
   __shared__ Val s_prefix;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -275,9 +282,7 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(ScanArgs a) {
   for (int g = 0; g < NG; ++g) op[g] = a.op[g];
   const Val id = identity<S>(op);
 
-  if (threadIdx.x == 0) s_tile = atomicAdd(a.ws, 1u);
-  __syncthreads();
-  const unsigned tile = s_tile;
+  const unsigned tile = blockIdx.x;
 
   // Thread (warp, lane) holds 16-byte groups (warp kQ + q) 32 + lane of the
   // tile, q < kQ, each scanned inclusively over its 4 elements.
@@ -332,8 +337,6 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(ScanArgs a) {
       __stcg(inc + tile, to_int4(combine<S>(op, ex, total)));
       st_release(flags + tile, kPrefix);
       s_prefix = ex;
-      __threadfence();
-      s_last = atomicAdd(a.ws + 1, 1u) == a.ntiles - 1;
     }
   }
   __syncthreads();
@@ -348,12 +351,13 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(ScanArgs a) {
   }
 
   // The last tile to finish: every look-back is over, so clear the flags
-  // and both counters for the next call on this stream.
+  // and the count for the next call on this stream.
+  if (threadIdx.x == 0) s_last = atom_add_acq_rel(a.ws + 1, 1u) == a.ntiles - 1;
+  __syncthreads();
   if (s_last) {
-    __threadfence();
     for (unsigned i = threadIdx.x; i < a.ntiles; i += kThreads)
       a.ws[kHeader + i] = kEmpty;
-    if (threadIdx.x == 0) a.ws[0] = a.ws[1] = 0;
+    if (threadIdx.x == 0) a.ws[1] = 0;
   }
 }
 
