@@ -239,29 +239,67 @@ __device__ __forceinline__ void store_group(const ScanArgs& a, long long L,
   }
 }
 
+__device__ __forceinline__ unsigned long long ld_word(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_word(unsigned long long* p, int v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p),
+               "l"((1ull << 32) | (unsigned)v) : "memory");
+}
+
+// Tile p's status: kMaxCols aggregate words, then kMaxCols prefix words.
+__device__ __forceinline__ unsigned long long* status(const ScanArgs& a, long long p) {
+  return reinterpret_cast<unsigned long long*>(a.ws + kHeader) + p * 2 * kMaxCols;
+}
+
+template <class S>
+__device__ __forceinline__ void publish(const ScanArgs& a, long long p, int which,
+                                        const Val& v) {
+  unsigned long long* w = status(a, p) + which * kMaxCols;
+#pragma unroll
+  for (int c = 0; c < S::kCols; ++c) st_word(w + c, v.c[c]);
+}
+
+// Tile p's state as the look-back sees it: kPrefix when every prefix word
+// is valid, else kAggregate when every aggregate word is, else kEmpty;
+// the value of that state in *v.
+template <class S>
+__device__ __forceinline__ unsigned read_status(const ScanArgs& a, long long p, Val* v) {
+  const unsigned long long* w = status(a, p);
+  unsigned long long pw[kMaxCols], aw[kMaxCols];
+  bool pre = true, agg = true;
+#pragma unroll
+  for (int c = 0; c < S::kCols; ++c) {
+    pw[c] = ld_word(w + kMaxCols + c);
+    aw[c] = ld_word(w + c);
+    pre = pre && (pw[c] >> 32);
+    agg = agg && (aw[c] >> 32);
+  }
+#pragma unroll
+  for (int c = 0; c < S::kCols; ++c) v->c[c] = (int)(unsigned)(pre ? pw[c] : aw[c]);
+  return pre ? kPrefix : agg ? kAggregate : kEmpty;
+}
+
 // Warp 0 of tile `tile` > 0: the combined value of every earlier tile.
 template <class S>
 __device__ __forceinline__ Val look_back(const ScanArgs& a, const int* op, const Val& id,
-                         unsigned tile, int lane) {
-  const unsigned* flags = a.ws + kHeader;
-  const int4* agg = reinterpret_cast<const int4*>(a.ws + kHeader + a.cap);
-  const int4* inc = agg + a.cap;
+                                         unsigned tile, int lane) {
   Val ex = id;
   long long top = (long long)tile - 1;  // nearest tile not yet combined
   while (true) {
     const long long p = top - lane;     // lane 0 the nearest
-    unsigned f = p >= 0 ? ld_acquire(flags + p) : kPrefix;
+    Val v = id;
+    unsigned f = p >= 0 ? read_status<S>(a, p, &v) : kPrefix;
     for (unsigned polls = 0; __any_sync(kFull, f == kEmpty); ++polls) {
       if (polls == kMaxPolls) __trap();  // a fault, never a hang
-      if (f == kEmpty) f = ld_acquire(flags + p);
+      if (f == kEmpty) f = read_status<S>(a, p, &v);
     }
     const unsigned prefixes = __ballot_sync(kFull, f == kPrefix);
     const int stop = prefixes ? __ffs(prefixes) - 1 : 32;
-    Val v = id;
-    if (lane < stop)
-      v = from_int4(__ldcg(agg + p));
-    else if (lane == stop)
-      v = from_int4(__ldcg(inc + p));
+    if (lane > stop) v = id;
 #pragma unroll
     for (int m = 16; m > 0; m >>= 1) v = combine<S>(op, v, shfl_xor<S>(v, m));
     ex = combine<S>(op, v, ex);
@@ -322,20 +360,13 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(ScanArgs a) {
   }
 
   if (warp == 0) {
-    unsigned* flags = a.ws + kHeader;
-    int4* agg = reinterpret_cast<int4*>(a.ws + kHeader + a.cap);
-    int4* inc = agg + a.cap;
     Val ex = id;
     if (tile > 0) {
-      if (lane == 0) {
-        __stcg(agg + tile, to_int4(total));
-        st_release(flags + tile, kAggregate);
-      }
+      if (lane == 0) publish<S>(a, tile, 0, total);
       ex = look_back<S>(a, op, id, tile, lane);
     }
     if (lane == 0) {
-      __stcg(inc + tile, to_int4(combine<S>(op, ex, total)));
-      st_release(flags + tile, kPrefix);
+      publish<S>(a, tile, 1, combine<S>(op, ex, total));
       s_prefix = ex;
     }
   }
@@ -355,8 +386,9 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(ScanArgs a) {
   if (threadIdx.x == 0) s_last = atom_add_acq_rel(a.ws + 1, 1u) == a.ntiles - 1;
   __syncthreads();
   if (s_last) {
-    for (unsigned i = threadIdx.x; i < a.ntiles; i += kThreads)
-      a.ws[kHeader + i] = kEmpty;
+    unsigned long long* w = status(a, 0);
+    for (unsigned i = threadIdx.x; i < a.ntiles * 2 * kMaxCols; i += kThreads)
+      w[i] = 0;
     if (threadIdx.x == 0) a.ws[1] = 0;
   }
 }

@@ -55,7 +55,7 @@ def workspace_words(cap: int) -> int:
     """int32 words of a workspace for ``cap`` tiles: ticket and finish
     count (4 words), a flag, an aggregate and a prefix (4 words each) per
     tile."""
-    return 4 + 9 * cap
+    return 4 + 16 * cap
 
 
 def _op_codes(ops: tuple) -> tuple[int, list[int]]:
