@@ -11,25 +11,26 @@
 // TPU kernel carried the running total across a sequential grid in SMEM;
 // Hopper blocks run in no order, so the carry becomes a single-pass chained
 // scan with decoupled look-back, one launch for every group of a call:
-//   - a block claims its tile (kTile elements of every column) from a ticket
-//     counter, so tiles start in scan order whatever order the blocks are
-//     scheduled in, and a tile waits only on tiles that already run;
-//   - it loads its tile once, 16 bytes a thread a column where the columns
-//     are 16-byte aligned (a warp's 32 loads are 512 contiguous bytes),
-//     scans it in registers (4 elements a thread, then the warp by
-//     shuffles, then the block's warps), and publishes the tile's aggregate
-//     with a flag;
-//   - one warp then looks back over the predecessors' flags, 32 tiles at a
-//     time, combining aggregates until it meets an inclusive prefix, and
+//   - block b scans tile b (kTile elements of every column): it loads the
+//     tile once, 16 bytes a thread a column where the columns are 16-byte
+//     aligned (a warp's 32 loads are 512 contiguous bytes), scans it in
+//     registers (4 elements a thread, then the warp by shuffles, then the
+//     block's warps) and publishes the tile's aggregate;
+//   - its warp 0 then looks back over the predecessors' status, 32 tiles a
+//     round, combining aggregates up to the nearest inclusive prefix, and
 //     publishes the tile's own inclusive prefix;
 //   - the block adds its exclusive prefix and stores.
+// A 1-D grid's blocks are dispatched in index order (CUB's single-pass scan
+// relies on the same), so a tile waits only on tiles already resident;
+// should a status never arrive, the look-back traps instead of hanging.
 // All four ops are associative and commutative and exact, so any order of
-// combination gives the bit-equal result.  Flags are released after their
-// values (st.release / ld.acquire at gpu scope), values go through L2.
-// The workspace (ticket, finish count, flags, aggregates, prefixes) needs
-// no clearing per call: the last tile to finish zeroes the flags and both
-// counters, so the next call on the same stream finds them clean.  The
-// wrapper keeps one workspace per stream, zeroed once when allocated.
+// combination gives the bit-equal result.  A status is one 64-bit word a
+// column, the value with a valid bit above it, written and read whole
+// (relaxed, gpu scope): a word can never show a value without its bit, so
+// no fence orders a value before a flag.  The workspace needs no clearing
+// per call: the last tile to finish (a finish count) zeroes every status
+// word and the count, so the next call on the same stream finds it clean.
+// The wrapper keeps one workspace per stream, zeroed once when allocated.
 // Reverse scans map logical position l to physical N4 - 1 - l, N4 = n
 // rounded up to 4, so every 16-byte group stays aligned; positions >= n
 // read the op's identity (first in scan order, where they change nothing)
@@ -37,6 +38,10 @@
 // max of (key, payload).  The kernel is instantiated per number of groups
 // and per set of maxpair groups, so a group's columns are registers indexed
 // at compile time; sum, max and min are chosen at run time.
+// Measured against a ticket counter for the tile order, a block-wide
+// look-back, tiles of 2048 and 8192 elements, flags released after int4
+// values, and two launches (reduce, then apply): each was slower on the
+// card or took two launches (PERF.md).
 
 #include <cuda_runtime.h>
 
@@ -52,16 +57,16 @@ constexpr int kTile = kThreads * kQ * 4;   // elements a tile
 constexpr int kMaxCols = 4;
 constexpr unsigned kFull = 0xffffffffu;
 // A predecessor publishes its aggregate right after loading its tile, so a
-// look-back waits microseconds; a flag still empty after this many polls
+// look-back waits microseconds; a status still empty after this many polls
 // (seconds) means a broken workspace, and the kernel traps.
 constexpr unsigned kMaxPolls = 1u << 24;
 
 enum { kSum = 0, kMax = 1, kMin = 2, kMaxPair = 3 };
 enum : unsigned { kEmpty = 0, kAggregate = 1, kPrefix = 2 };
 
-// Workspace, 32-bit words: [0] ticket, [1] tiles finished, [2, 4) unused,
-// [4, 4 + cap) flags, then cap aggregates and cap inclusive prefixes of
-// one int4 each (one int a column).  cap is a multiple of 4.
+// Workspace, 32-bit words: [1] tiles finished, [0] and [2, 4) unused, then
+// per tile kMaxCols aggregate words and kMaxCols prefix words of 64 bits
+// (1 << 32 | value, 0 while unpublished).
 constexpr long long kHeader = 4;
 
 struct ScanArgs {
@@ -162,27 +167,12 @@ __device__ __forceinline__ Val shfl(const Val& x, int src) {
   return r;
 }
 
-__device__ __forceinline__ int4 to_int4(const Val& v) {
-  return make_int4(v.c[0], v.c[1], v.c[2], v.c[3]);
-}
-
-__device__ __forceinline__ Val from_int4(int4 v) { return Val{{v.x, v.y, v.z, v.w}}; }
-
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ unsigned atom_add_acq_rel(unsigned* p, unsigned v) {
+__device__ __forceinline__ unsigned atom_add_acq_rel(unsigned* p,
+                                                     unsigned v) {
   unsigned old;
   asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], %2;"
                : "=r"(old) : "l"(p), "r"(v) : "memory");
   return old;
-}
-
-__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
-  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
 }
 
 // Logical 16-byte group L of every column into x[0..3] in scan order;
@@ -239,26 +229,29 @@ __device__ __forceinline__ void store_group(const ScanArgs& a, long long L,
   }
 }
 
-__device__ __forceinline__ unsigned long long ld_word(const unsigned long long* p) {
-  unsigned long long v;
+using Word = unsigned long long;  // a status word: 1 << 32 | value
+
+__device__ __forceinline__ Word ld_word(const Word* p) {
+  Word v;
   asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
   return v;
 }
 
-__device__ __forceinline__ void st_word(unsigned long long* p, int v) {
+__device__ __forceinline__ void st_word(Word* p, int v) {
   asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p),
                "l"((1ull << 32) | (unsigned)v) : "memory");
 }
 
 // Tile p's status: kMaxCols aggregate words, then kMaxCols prefix words.
-__device__ __forceinline__ unsigned long long* status(const ScanArgs& a, long long p) {
-  return reinterpret_cast<unsigned long long*>(a.ws + kHeader) + p * 2 * kMaxCols;
+__device__ __forceinline__ Word* status(const ScanArgs& a, long long p) {
+  return reinterpret_cast<Word*>(a.ws + kHeader) + p * 2 * kMaxCols;
 }
 
+// Tile p's aggregate (which = 0) or inclusive prefix (which = 1).
 template <class S>
-__device__ __forceinline__ void publish(const ScanArgs& a, long long p, int which,
-                                        const Val& v) {
-  unsigned long long* w = status(a, p) + which * kMaxCols;
+__device__ __forceinline__ void publish(const ScanArgs& a, long long p,
+                                        int which, const Val& v) {
+  Word* w = status(a, p) + which * kMaxCols;
 #pragma unroll
   for (int c = 0; c < S::kCols; ++c) st_word(w + c, v.c[c]);
 }
@@ -267,9 +260,10 @@ __device__ __forceinline__ void publish(const ScanArgs& a, long long p, int whic
 // is valid, else kAggregate when every aggregate word is, else kEmpty;
 // the value of that state in *v.
 template <class S>
-__device__ __forceinline__ unsigned read_status(const ScanArgs& a, long long p, Val* v) {
-  const unsigned long long* w = status(a, p);
-  unsigned long long pw[kMaxCols], aw[kMaxCols];
+__device__ __forceinline__ unsigned read_status(const ScanArgs& a,
+                                                long long p, Val* v) {
+  const Word* w = status(a, p);
+  Word pw[kMaxCols], aw[kMaxCols];
   bool pre = true, agg = true;
 #pragma unroll
   for (int c = 0; c < S::kCols; ++c) {
@@ -279,14 +273,16 @@ __device__ __forceinline__ unsigned read_status(const ScanArgs& a, long long p, 
     agg = agg && (aw[c] >> 32);
   }
 #pragma unroll
-  for (int c = 0; c < S::kCols; ++c) v->c[c] = (int)(unsigned)(pre ? pw[c] : aw[c]);
+  for (int c = 0; c < S::kCols; ++c)
+    v->c[c] = (int)(unsigned)(pre ? pw[c] : aw[c]);
   return pre ? kPrefix : agg ? kAggregate : kEmpty;
 }
 
 // Warp 0 of tile `tile` > 0: the combined value of every earlier tile.
 template <class S>
-__device__ __forceinline__ Val look_back(const ScanArgs& a, const int* op, const Val& id,
-                                         unsigned tile, int lane) {
+__device__ __forceinline__ Val look_back(const ScanArgs& a, const int* op,
+                                         const Val& id, unsigned tile,
+                                         int lane) {
   Val ex = id;
   long long top = (long long)tile - 1;  // nearest tile not yet combined
   while (true) {
@@ -381,12 +377,13 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(ScanArgs a) {
     store_group<S>(a, L0 + q * 32, x[q]);
   }
 
-  // The last tile to finish: every look-back is over, so clear the flags
-  // and the count for the next call on this stream.
-  if (threadIdx.x == 0) s_last = atom_add_acq_rel(a.ws + 1, 1u) == a.ntiles - 1;
+  // The last tile to finish: every look-back is over, so clear the status
+  // words and the count for the next call on this stream.
+  if (threadIdx.x == 0)
+    s_last = atom_add_acq_rel(a.ws + 1, 1u) == a.ntiles - 1;
   __syncthreads();
   if (s_last) {
-    unsigned long long* w = status(a, 0);
+    Word* w = status(a, 0);
     for (unsigned i = threadIdx.x; i < a.ntiles * 2 * kMaxCols; i += kThreads)
       w[i] = 0;
     if (threadIdx.x == 0) a.ws[1] = 0;
@@ -421,9 +418,9 @@ int hj3t_scan_tile(void) { return kTile; }
 
 // Columns in0..in3 / out0..out3 (unused ones NULL), any 4-byte alignment;
 // one op code per group (op0..op3, -1 after the last group; maxpair takes
-// two columns).  ws: a workspace of 4 + 9 cap int32 words, cap a multiple
-// of 4 and at least ceil(n / kTile), zeroed before its first call and then
-// used by one stream only.
+// two columns).  ws: a workspace of 4 + 16 cap int32 words, cap a
+// multiple of 4 and at least ceil(n / kTile), zeroed before its first call
+// and then used by one stream only.
 int hj3t_multi_scan(const void* in0, const void* in1, const void* in2,
                     const void* in3, void* out0, void* out1, void* out2,
                     void* out3, int op0, int op1, int op2, int op3,

@@ -8,9 +8,9 @@ lexicographic maximum).
 
 On CUDA tensors this launches ``csrc/scan.cu``: one kernel a call, a
 single-pass chained scan over tiles of :func:`tile` elements.  Its
-workspace (tile flags and values) is kept per CUDA stream, zeroed once when
-allocated, and the kernel leaves it clean for the next call on that stream,
-so a call allocates nothing but its outputs.  On CPU tensors it runs
+workspace (each tile's published aggregate and prefix) is kept per CUDA
+stream, zeroed once when allocated, and the kernel leaves it clean for the
+next call on that stream, so a call allocates nothing but its outputs.  On CPU tensors it runs
 :func:`multi_scan_plain`, the exact PyTorch version.
 """
 
@@ -52,9 +52,9 @@ def scan_plan(n: int, tile: int, cap: int = 0) -> tuple[int, int]:
 
 
 def workspace_words(cap: int) -> int:
-    """int32 words of a workspace for ``cap`` tiles: ticket and finish
-    count (4 words), a flag, an aggregate and a prefix (4 words each) per
-    tile."""
+    """int32 words of a workspace for ``cap`` tiles: a finish count (4
+    words), then per tile a 64-bit aggregate word and a 64-bit prefix word
+    for each of the 4 column slots."""
     return 4 + 16 * cap
 
 

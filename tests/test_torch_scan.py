@@ -211,7 +211,8 @@ def test_k3_lookback_over_several_windows(reverse):
 def test_k3_scan_plan_and_workspace():
     """Tiles per call, the stream workspace's capacity (a multiple of 4,
     kept while it suffices, at least doubled when it grows) and its words:
-    4 header words, then a flag, an aggregate and a prefix per tile."""
+    4 header words, then per tile 4 aggregate and 4 prefix words of 64
+    bits."""
     threads, Q = k3_source_constants()
     tile = threads * Q * 4
     assert tile == 4096
@@ -222,4 +223,4 @@ def test_k3_scan_plan_and_workspace():
     assert scan_plan(5 * tile, tile, 4) == (5, 8)
     assert scan_plan((1 << 24) + 77, tile, 256) == (4097, 4100)
     assert scan_plan(1 << 20, tile, 4100) == (256, 4100)
-    assert workspace_words(4) == 40 and workspace_words(256) == 4 + 9 * 256
+    assert workspace_words(4) == 68 and workspace_words(256) == 4 + 16 * 256
