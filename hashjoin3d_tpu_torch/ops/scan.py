@@ -10,8 +10,8 @@ On CUDA tensors this launches ``csrc/scan.cu``: one kernel a call, a
 single-pass chained scan over tiles of :func:`tile` elements.  Its
 workspace (each tile's published aggregate and prefix) is kept per CUDA
 stream, zeroed once when allocated, and the kernel leaves it clean for the
-next call on that stream, so a call allocates nothing but its outputs.  On CPU tensors it runs
-:func:`multi_scan_plain`, the exact PyTorch version.
+next call on that stream, so a call allocates nothing but its outputs.  On
+CPU tensors it runs :func:`multi_scan_plain`, the exact PyTorch version.
 """
 
 from __future__ import annotations

@@ -21,10 +21,14 @@ prints the card and its power limit (``nvidia-smi``) first.
   on it with the keys divisible by 5 made -1 holes, whether K2's words,
   coverage flags and count equal the plain version's on it and on it
   rolled by a third of a chunk, and whether P7's copies equal their
-  source.  The Csr build and probe strands: the median host time of
-  20 runs, each between two ``torch.cuda.synchronize()`` calls; and
-  ``Experiment1``'s ``t_buildStr`` and ``t_probeStr`` (ns, the reference's
-  repetition protocol).
+  source.  K3's two build calls at 2^20 (``k3_calls``: forward sum + max,
+  reverse min) and P5 at C = 1024 and 4096 on 2^22 words with
+  ``index_select`` of the same (``p5_cases``), each the mean of 200 calls,
+  and whether both kernels equal their plain versions there.  The Csr
+  build and probe strands: the median host time of 20 runs, each between
+  two ``torch.cuda.synchronize()`` calls; and ``Experiment1``'s
+  ``t_buildStr`` and ``t_probeStr`` (ns, the reference's repetition
+  protocol).
   ``--root`` imports the port from another tree (a ``git archive`` of a
   commit), so one machine compares two trees: run parent, change, change,
   parent, each in its own process.
@@ -43,7 +47,7 @@ prints the card and its power limit (``nvidia-smi``) first.
 
 ``launch``: the host cost of a kernel wrapper's launch path, one JSON line::
 
-    python3 tools/torch_csr_perf.py launch
+    python3 tools/torch_csr_perf.py launch [--root TREE]
 
   Host microseconds per call (``time.perf_counter`` over 10^4 calls, no
   synchronisation) of each step a wrapper may take: two ways to get the
@@ -55,7 +59,9 @@ prints the card and its power limit (``nvidia-smi``) first.
   (``probes.row_copy``) and ``clone`` of the same 8 rows,
   each split into host and device time per call
   (``utils.measure.host_device_us``), and their time per call on CUDA
-  events over 20 and over 2000 calls issued back to back.
+  events over 20 and over 2000 calls issued back to back; then K3's two
+  build calls the same way, with their device operations a call and
+  names (``device_ops``) and events over 10 calls as well.
 """
 
 from __future__ import annotations
@@ -303,7 +309,6 @@ def launch_costs(dev) -> dict:
     from hashjoin3d_tpu_torch.utils.measure import host_device_us
 
     src8 = torch.arange(1 << 18, dtype=torch.int32, device=dev).view(-1, 128)
-    col = torch.zeros(1 << LOG2_R, dtype=torch.int32, device=dev)
     out = probes.row_copy(src8, 3)
     entry = kernels.lib().hj3t_probe_row_copy
     args = (src8.data_ptr(), out.data_ptr(), src8.shape[0], 3, 8)
@@ -329,9 +334,6 @@ def launch_costs(dev) -> dict:
                                         device=dev),
         new_empty=lambda: src8.new_empty((8, 128)),
         slice_rows=lambda: src8[3:11],
-        empty_like_2=lambda: (torch.empty_like(col), torch.empty_like(col)),
-        empty_unbind_2=lambda: torch.empty((2, col.shape[0]), dtype=col.dtype,
-                                           device=dev).unbind(0),
         ctypes_no_args=lambda: kernels.lib().hj3t_scan_tile(),
         entry_rejected=lambda: entry(*args[:4], 0, 0),
         entry_call=lambda: entry(*args, torch._C._cuda_getCurrentRawStream(
