@@ -61,7 +61,8 @@ prints the card and its power limit (``nvidia-smi``) first.
   (``utils.measure.host_device_us``), and their time per call on CUDA
   events over 20 and over 2000 calls issued back to back; then K3's two
   build calls the same way, with their device operations a call and
-  names (``device_ops``) and events over 10 calls as well.
+  names (``device_ops``) and events over 10 calls as well; and P5's two
+  runner cases and ``index_select`` of the same, host and device.
 """
 
 from __future__ import annotations
@@ -353,6 +354,14 @@ def launch_costs(dev) -> dict:
             device_ops(fn))
         for reps in (10, 20, 2000):
             res[f"{name}_events_{reps}_us"] = events_ms(fn, reps) * 1e3
+    for C, (x, p) in p5_cases(dev).items():
+        p64 = p.long()
+        for name, fn in ((f"p5_{C}", lambda x=x, p=p: probes.permute(x, p)),
+                         (f"index_select_{C}",
+                          lambda x=x, p64=p64, C=C: torch.index_select(
+                              x.view(-1, C), 1, p64))):
+            res[f"{name}_host_us"], res[f"{name}_device_us"] = (
+                host_device_us(fn))
     return res
 
 
