@@ -167,7 +167,11 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
 }
 
 // P5: out[b C + i] = x[b C + perm[i]], one block per C-word block, staged in
-// shared memory.
+// shared memory.  Measured against persistent blocks that stage the next
+// tile (by plain loads, cp.async or TMA bulk copies) while gathering this
+// one, against persistent blocks that gather from global memory, and
+// against one 1024- or 4096-word tile a block with 16-byte stores: each
+// was slower on the device (PERF.md).
 __global__ void __launch_bounds__(kThreads)
     permute_kernel(const int* __restrict__ x, const int* __restrict__ perm,
                    int* __restrict__ out, int C) {
