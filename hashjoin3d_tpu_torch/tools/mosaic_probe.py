@@ -74,6 +74,7 @@ def cases(dev, shrink: int = 0) -> list[Case]:
 
     x = t(np.arange(n).reshape(rows, 128))
     shifts = t(np.arange(rows) % 128)
+    rot_idx = (torch.arange(128, device=dev) + shifts[:, None].long()) & 127
     vals = t(rng.integers(-1000, 1000, (rows, 128)))
     block = min(512, rows)
     x20 = t(rng.integers(0, 1 << 20, (rows, 128)))
@@ -85,7 +86,9 @@ def cases(dev, shrink: int = 0) -> list[Case]:
              library=lambda: torch.roll(x, 5, 1),
              library_name="torch.roll"),
         Case("P2", "per-row rotate", lambda: probes.rotate(x, shifts),
-             lambda: probes.rotate_plain(x, shifts), n, (x, shifts)),
+             lambda: probes.rotate_plain(x, shifts), n, (x, shifts),
+             library=lambda: torch.gather(x, 1, rot_idx),
+             library_name="torch.gather"),
         *[Case("P3", f"cumsum axis={ax}",
                lambda ax=ax: probes.cumsum(vals, ax, block),
                lambda ax=ax: probes.cumsum_plain(vals, ax, block), n, (vals,),

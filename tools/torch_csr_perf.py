@@ -45,9 +45,10 @@ prints the card and its power limit (``nvidia-smi``) first.
   The median unprofiled wall time of the same strand, in the same process,
   stands beside it (the profiler itself slows the host).
 
-``launch``: the host cost of a kernel wrapper's launch path, one JSON line::
+``launch``: the host cost of a kernel wrapper's launch path and the device
+time of the kernels, one JSON line::
 
-    python3 tools/torch_csr_perf.py launch [--root TREE]
+    python3 tools/torch_csr_perf.py launch [--root TREE] [--probes-only]
 
   Host microseconds per call (``time.perf_counter`` over 10^4 calls, no
   synchronisation) of each step a wrapper may take: two ways to get the
@@ -61,8 +62,17 @@ prints the card and its power limit (``nvidia-smi``) first.
   (``utils.measure.host_device_us``), and their time per call on CUDA
   events over 20 and over 2000 calls issued back to back; then K3's two
   build calls the same way, with their device operations a call and
-  names (``device_ops``) and events over 10 calls as well; and P5's two
-  runner cases and ``index_select`` of the same, host and device.
+  names (``device_ops``) and events over 10 calls as well; P5's two
+  runner cases and ``index_select`` of the same, host and device; K1, K2
+  with coverage, K2b, K4 2-op and P7 at the inputs of ``times``, host and
+  device (200 and 20 calls).  Last, the probe section (alone with
+  ``--probes-only``): the probe runner's own cases of P1, P2, P3 (axis 1
+  and axis 0), P4, P6 and P9 (``mosaic_probe.cases``) and the library
+  call of each where it has one (``torch.roll``, ``torch.gather``,
+  ``torch.cumsum``, ``torch.matmul`` f32): host and device µs a call,
+  device operations a call and their names; for each kernel its bound,
+  its device share of the bound and its device time over its library
+  call's.  One line a case and side follows the JSON line.
 """
 
 from __future__ import annotations
@@ -82,6 +92,8 @@ import torch
 LOG2_R, LOG2_S = 20, 24
 SEGMENT, KEY_BITS, WINDOW = 1 << 18, 20, 8192
 P7_BLOCKS = (1024, 8192, 65536)  # the TPU probe's block sizes
+#: the probe runner's probes timed in the launch mode's probe section
+LAUNCH_PROBES = ("P1", "P2", "P3", "P4", "P6", "P9")
 
 
 def card() -> str:
@@ -167,6 +179,82 @@ def p5_cases(dev) -> dict:
         0, 1 << 30, (1 << 15, 128), dtype=np.int32)).to(dev)
     return {C: (x, torch.from_numpy(np.random.default_rng(seed).permutation(
         C).astype(np.int32)).to(dev)) for C, seed in ((1024, 5), (4096, 6))}
+
+
+def probe_launch_cases(dev, shrink: int = 0) -> dict:
+    """The probe runner's own cases (``mosaic_probe.cases(dev, shrink)``)
+    of ``LAUNCH_PROBES``: "P3 cumsum axis=0" -> (kernel call, library call
+    or None, library name, bound ms, what bounds it)."""
+    from hashjoin3d_tpu_torch.tools import mosaic_probe
+    from hashjoin3d_tpu_torch.utils.measure import bound_ms, nbytes
+
+    out = {}
+    for c in mosaic_probe.cases(dev, shrink):
+        if c.probe in LAUNCH_PROBES:
+            ms, by = bound_ms(nbytes(*c.inputs, c.run()), c.flops)
+            out[f"{c.probe} {c.label}"] = (c.run, c.library, c.library_name,
+                                           ms, by)
+    return out
+
+
+def probe_launch_costs(dev) -> dict:
+    """Each case of :func:`probe_launch_cases`, its kernel and its library
+    call: host and device µs per call (``host_device_us``), the device
+    operations a call and their names (``device_ops``); the kernel's bound
+    and its device share of it."""
+    from hashjoin3d_tpu_torch.utils.measure import host_device_us
+
+    res = {}
+    for name, (run, library, lib_name, bound, by) in probe_launch_cases(
+            dev).items():
+        for side, fn in (("kernel", run), (lib_name, library)):
+            if fn is None:
+                continue
+            host, device = host_device_us(fn)
+            ops, names = device_ops(fn)
+            res[f"{name} {side}"] = dict(host_us=host, device_us=device,
+                                         device_ops=ops, device_op_names=names)
+        k = res[f"{name} kernel"]
+        k.update(bound_us=bound * 1e3, bound_by=by,
+                 share_of_bound=bound * 1e3 / k["device_us"])
+        if library is not None:
+            k["device_vs_library"] = (k["device_us"]
+                                      / res[f"{name} {lib_name}"]["device_us"])
+    return res
+
+
+def kernel_device_costs(dev) -> dict:
+    """Host and device µs per call of K1, K2 with coverage, K2b, K4 2-op
+    take_min and P7 at the inputs of ``times`` (R20/S24, W = 8192, 2^24
+    words for P7)."""
+    from hashjoin3d_tpu_torch.ops import bitonic, probes, windowed
+    from hashjoin3d_tpu_torch.ops.layout import I32, from_numpy_u32
+    from hashjoin3d_tpu_torch.utils.measure import host_device_us
+
+    build, _, sa, _ = strands(dev)
+    direct = build().direct
+    sk, _ = bitonic.bitonic_sort_packed_segmented(sa, SEGMENT, KEY_BITS)
+    n = 1 << LOG2_S
+    lid = torch.arange(n, dtype=I32, device=dev) % SEGMENT
+    wide = from_numpy_u32(np.random.default_rng(0).integers(
+        0, (1 << LOG2_R) + (1 << 18), n, dtype=np.uint32), dev)
+    src24 = torch.randint(0, 1 << 30, (n,), dtype=I32, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(3))
+    calls = dict(
+        k1=lambda: bitonic.bitonic_sort_packed_segmented(sa, SEGMENT,
+                                                         KEY_BITS),
+        k2_covered=lambda: windowed.windowed_lookup_covered(
+            direct, sk, direct.shape[0], W=WINDOW),
+        k2b=lambda: windowed.windowed_lookup(direct, sk, W=WINDOW, db=True),
+        k4_2op=lambda: bitonic.bitonic_sort_segmented(
+            wide, SEGMENT, payload=lid, stable=False),
+        **{f"p7_{B}": lambda B=B: probes.block_copy(src24, B)
+           for B in P7_BLOCKS})
+    res = {}
+    for name, fn in calls.items():
+        res[f"{name}_host_us"], res[f"{name}_device_us"] = host_device_us(
+            fn, calls=200, profiled=20)
+    return res
 
 
 def device_ops(fn, calls: int = 50) -> tuple[float, list[str]]:
@@ -426,6 +514,8 @@ def main() -> int:
     p.add_argument("--root", type=Path, default=here)
     la = sub.add_parser("launch")
     la.add_argument("--root", type=Path, default=here)
+    la.add_argument("--probes-only", action="store_true",
+                    help="only the probe section (P1-P4, P6, P9)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_csr_perf: needs a CUDA GPU", file=sys.stderr)
@@ -442,7 +532,15 @@ def main() -> int:
     if args.mode == "times":
         print(json.dumps(times(args.side, dev)))
     elif args.mode == "launch":
-        print(json.dumps(launch_costs(dev)))
+        res = ({} if args.probes_only
+               else {**launch_costs(dev), **kernel_device_costs(dev)})
+        res["probes"] = probe_launch_costs(dev)
+        print(json.dumps(res))
+        for name, r in res["probes"].items():
+            print(f"  {name:60s} device {r['device_us']:8.3f} us  host "
+                  f"{r['host_us']:7.2f} us  ops {r['device_ops']:g}"
+                  + (f"  share of bound {r['share_of_bound']:.3f}"
+                     if "bound_us" in r else ""))
     else:
         build, probe, _, _ = strands(dev)
         profile_strand("build", build, args.reps)
