@@ -42,7 +42,10 @@ probe 2^24 foreign keys).  Phases, any failure exits non-zero:
    route-1 stream (64 uncovered chunks) and a route-2 stream (the unsorted
    S.a); P8 equal to its plain version at five (row offset, rows),
    and its host and device time per call beside ``clone``'s; P5 equal to
-   its plain version at C = 128, 1024, 4096, 8192 and 384;
+   its plain version at C = 128, 1024, 4096, 8192 and 384; P3 down the
+   rows at block_rows 8 .. rows (2^15 and 4096 rows, and three odd
+   shapes) and P4 at 16, 48 and 2^15 rows, three matrices and x up to
+   2^24 - 1, bit-equal to their plain versions;
    P1-P9 (``ops/probes.py``) through the mosaic_probe runner, each
    equal to its plain version at the TPU probes' sizes, counts reset just
    before it: each P kernel must launch there; then the roofline and
@@ -103,6 +106,15 @@ P8_CASES = ((3, 8), (0, 1), (7, 64), (-8, 8), (5, 13))
 #: P5's block sizes checked besides the runner's cases: the smallest and
 #: largest C, the runner's two, and one that is no power of two
 P5_BLOCKS = (128, 1024, 4096, 8192, 384)
+#: P3's (rows, block_rows) checks down the rows besides the runner's case:
+#: 8 .. rows at 2^15 and 4096 rows, and blocks of 24 (8-row segments,
+#: chunks shorter than a tile), 384 (one block a chunk, a partial tile) and
+#: 1536 (three tiles a block) at 3 x 2^12 rows
+P3_ROW_BLOCKS = (*dict.fromkeys((rows, block) for rows in (1 << 15, 4096)
+                                for block in (8, 64, 512, 4096, rows)),
+                 (12288, 24), (12288, 384), (12288, 1536))
+#: P4's row counts checked besides the runner's case
+P4_ROWS = (16, 48, 1 << 15)
 
 
 class SmokeFailure(RuntimeError):
@@ -562,6 +574,44 @@ def phase5_p5(dev):
                 f"P5 differs from its plain version at C = {C}")
 
 
+def phase5_p3_p4(dev):
+    """P3 down the rows at each (rows, block_rows) of ``P3_ROW_BLOCKS`` on
+    full-range int32 words, and P4 at each row count of ``P4_ROWS`` with
+    the reversal, a random permutation and a 0/1 matrix with a column of
+    all ones, on x below 2^24 with its first and last rows 2^24 - 1 and on
+    x all 2^24 - 1: each bit-equal to its plain version."""
+    from hashjoin3d_tpu_torch.ops import probes
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for rows, block in P3_ROW_BLOCKS:
+        x = torch.randint(-2**31, 2**31 - 1, (rows, 128), generator=gen,
+                          device=dev, dtype=torch.int32)
+        require(torch.equal(probes.cumsum(x, 0, block),
+                            probes.cumsum_plain(x, 0, block)),
+                f"P3 axis 0 differs from its plain version at rows {rows}, "
+                f"block_rows {block}")
+    eye = torch.eye(128, dtype=torch.int32, device=dev)
+    zero_one = (torch.rand((128, 128), generator=gen, device=dev)
+                < 0.05).to(torch.int32)
+    zero_one[:, 7] = 1
+    mats = {"reversal": eye.flip(0),
+            "permutation": eye[torch.randperm(128, generator=gen,
+                                              device=dev)],
+            "0/1 with a column of ones": zero_one}
+    top = (1 << 24) - 1
+    for rows in P4_ROWS:
+        x = torch.randint(0, 1 << 24, (rows, 128), generator=gen, device=dev,
+                          dtype=torch.int32)
+        x[0] = x[-1] = top
+        for what, xs in (("x < 2^24", x),
+                         ("x = 2^24 - 1", torch.full_like(x, top))):
+            for name, p in mats.items():
+                require(torch.equal(probes.onehot_matmul(xs, p),
+                                    probes.onehot_matmul_plain(xs, p)),
+                        f"P4 differs from its plain version at rows {rows}, "
+                        f"{name}, {what}")
+
+
 def phase5_probes(dev):
     """P1-P9 through the mosaic_probe runner, counts reset just before it:
     each case equal to its plain version, results summed over each probe's
@@ -731,6 +781,10 @@ def main() -> int:
     print(f"phase 5 P8 host/device per call on {card}: " + json.dumps(p8))
     phase5_p5(dev)
     print(f"phase 5 P5: bit-equal to its plain version at C = {P5_BLOCKS}")
+    phase5_p3_p4(dev)
+    print(f"phase 5 P3 axis 0 bit-equal to its plain version at (rows, "
+          f"block_rows) {P3_ROW_BLOCKS}; P4 at rows {P4_ROWS}, three "
+          f"matrices, x < 2^24 and x = 2^24 - 1")
     k3 = results["K3 multi_scan"]
     print(f"phase 1 K3 on {card}: " + json.dumps({
         k: k3[k] for k in ("ms", "host_us", "device_ms", "reverse_min_ms",

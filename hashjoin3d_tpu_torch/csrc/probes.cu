@@ -76,93 +76,237 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // P3, rows: inclusive cumsum down each column within blocks of block_rows
-// rows.  A CUDA block owns one row block: thread (j, s) sums segment s of
-// column j, the segment offsets come from shared memory, then each thread
-// rescans its segment (second read from L2).
-constexpr int kSegs = 8;
-__global__ void __launch_bounds__(kLanes * kSegs)
-    cumsum_rows_kernel(const int* __restrict__ x, int* __restrict__ out,
-                       int block_rows) {
-  __shared__ int part[kSegs][kLanes];
-  const int j = threadIdx.x % kLanes, s = threadIdx.x / kLanes;
-  const int seg = block_rows / kSegs;
-  const long long r0 = (long long)blockIdx.x * block_rows + (long long)s * seg;
-  const int* xc = x + r0 * kLanes + j;
-  int sum = 0;
-  for (int i = 0; i < seg; ++i) sum += xc[(long long)i * kLanes];
-  part[s][j] = sum;
-  __syncthreads();
-  int run = 0;
-  for (int t = 0; t < s; ++t) run += part[t][j];
-  int* oc = out + r0 * kLanes + j;
-  for (int i = 0; i < seg; ++i) {
-    run += xc[(long long)i * kLanes];
-    oc[(long long)i * kLanes] = run;
+// rows.  The rows fall in chunks of whole row blocks (at least a tile of
+// 32 x kSeg rows); a CUDA block owns one 32-column slice of a chunk, so a
+// chunk of 512 rows gives four CUDA blocks.  It walks the chunk a tile at
+// a time: each thread loads kSeg rows of one column quad with 16-byte
+// loads into registers (x is read once), scans them there, and the 32
+// segment totals of each quad are scanned across segments, starting anew
+// at each row block's first segment and carrying into the next tile.
+#ifndef P3_SHUFFLE
+#define P3_SHUFFLE 0
+#endif
+__device__ __forceinline__ int4 add4(int4 a, int4 b) {
+  return make_int4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// Lane l holds segment l's total; heads has bit l set where segment l
+// starts a row block.  Returns lane l's exclusive offset (with carry where
+// no head lies at or before l) and sets carry to the last segment's
+// inclusive sum.
+__device__ __forceinline__ int4 segment_offsets(int4 tot, int lane,
+                                                unsigned heads, int4& carry) {
+  const unsigned upto = heads & (0xffffffffu >> (31 - lane));
+  const int start = upto ? 31 - __clz(upto) : 0;
+  int4 inc = tot;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int4 up = make_int4(__shfl_up_sync(0xffffffffu, inc.x, d),
+                              __shfl_up_sync(0xffffffffu, inc.y, d),
+                              __shfl_up_sync(0xffffffffu, inc.z, d),
+                              __shfl_up_sync(0xffffffffu, inc.w, d));
+    if (lane - d >= start) inc = add4(inc, up);
+  }
+  if (!upto) inc = add4(inc, carry);
+  carry = make_int4(__shfl_sync(0xffffffffu, inc.x, 31),
+                    __shfl_sync(0xffffffffu, inc.y, 31),
+                    __shfl_sync(0xffffffffu, inc.z, 31),
+                    __shfl_sync(0xffffffffu, inc.w, 31));
+  return make_int4(inc.x - tot.x, inc.y - tot.y, inc.z - tot.z,
+                   inc.w - tot.w);
+}
+
+template <int kSeg>
+__global__ void __launch_bounds__(kThreads)
+    cumsum_rows_kernel(const int4* __restrict__ x, int4* __restrict__ out,
+                       long long rows, int block_rows, long long span) {
+  __shared__ int4 part[32][9];  // [segment][quad], padded
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  // (segment, column quad) of this thread
+  const int s = P3_SHUFFLE ? lane : threadIdx.x >> 3;
+  const int q = P3_SHUFFLE ? w : threadIdx.x & 7;
+  const int col4 = (blockIdx.x & 3) * 8 + q;
+  const long long r0 = (long long)(blockIdx.x >> 2) * span;
+  const long long r1 = min(r0 + span, rows);
+  int4 carry = make_int4(0, 0, 0, 0);  // of quad w (design A) or q (B)
+  for (long long t0 = r0; t0 < r1; t0 += 32 * kSeg) {
+    const long long r = t0 + (long long)s * kSeg;
+    const bool valid = r < r1;
+    int4 v[kSeg];
+#pragma unroll
+    for (int i = 0; i < kSeg; ++i)
+      v[i] = valid ? x[(r + i) * 32 + col4] : make_int4(0, 0, 0, 0);
+#pragma unroll
+    for (int i = 1; i < kSeg; ++i) v[i] = add4(v[i], v[i - 1]);
+    const unsigned heads = __ballot_sync(
+        0xffffffffu, (t0 + (long long)lane * kSeg) % block_rows == 0);
+    int4 off;
+    if (P3_SHUFFLE) {
+      off = segment_offsets(v[kSeg - 1], lane, heads, carry);
+    } else {
+      part[s][q] = v[kSeg - 1];
+      __syncthreads();
+      part[lane][w] = segment_offsets(part[lane][w], lane, heads, carry);
+      __syncthreads();
+      off = part[s][q];
+    }
+    if (valid) {
+#pragma unroll
+      for (int i = 0; i < kSeg; ++i) out[(r + i) * 32 + col4] = add4(v[i], off);
+    }
   }
 }
 
 // P4: out = x @ p for x int32 (rows, 128) with 0 <= x < 2^24 and p a 0/1
-// (128, 128) matrix, on the tensor cores.  Four warps per block, 16 rows a
-// warp.  p is staged transposed as bf16 (rows padded to 136 so the eight
-// fragment rows of a warp fall in distinct banks); each warp keeps its A
-// fragments (3 byte planes x 8 k-steps x 4 registers) in registers and
-// walks the 16 n-tiles of 8 columns.
-constexpr int kMmaWarps = 4;
-constexpr int kPtStride = kLanes + 8;
-__global__ void __launch_bounds__(kMmaWarps * 32)
-    onehot_matmul_kernel(const int* __restrict__ x, const int* __restrict__ p,
-                         int* __restrict__ out, long long rows) {
-  __shared__ unsigned short pt[kLanes * kPtStride];  // bf16 bits
-  for (int i = threadIdx.x; i < kLanes * kLanes; i += kMmaWarps * 32) {
-    const int k = i / kLanes, n = i % kLanes;
-    pt[n * kPtStride + k] = __bfloat16_as_ushort(__float2bfloat16_rn((float)p[i]));
-  }
-  __syncthreads();
-  const int lane = threadIdx.x & 31, g = lane >> 2, tg = lane & 3;
-  const long long r0 = ((long long)blockIdx.x * kMmaWarps + (threadIdx.x >> 5)) * 16;
-  if (r0 >= rows) return;
+// (128, 128) matrix, on the tensor cores.  x splits into three byte planes;
+// each plane times p is exact (sums of at most 128 bytes) and the three
+// recombine in int32.  p is staged once a block, in the order of the mma
+// B fragments (one 8-byte word a lane, n-tile and k-tile: conflict-free),
+// from 16-byte loads of 4 x 4 blocks of p; each warp then walks 16-row
+// tiles, its A fragments (3 planes) in registers, two n-tiles at a time.
+// The n-tiles' columns are interleaved so that a lane's results for two
+// n-tiles are four adjacent columns: one 16-byte store a row.
+#ifndef P4_U8
+#define P4_U8 1
+#endif
+#ifndef P4_WARPS
+#define P4_WARPS 8
+#endif
+#ifndef P4_BLOCKS_PER_SM  // 0: one 16-row tile a warp
+#define P4_BLOCKS_PER_SM 2
+#endif
+constexpr int kMmaWarps = P4_WARPS;
+constexpr int kKTiles = P4_U8 ? 4 : 8;  // k32 (u8) or k16 (bf16) tiles
 
-  uint32_t a[3][8][4];
+// the low bytes of a, b, c, d as one word, a in byte 0
+__device__ __forceinline__ unsigned low_bytes(int a, int b, int c, int d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040),
+                     0x5410);
+}
+
+__device__ __forceinline__ unsigned bf16x2(int lo, int hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn((float)lo, (float)hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+__device__ __forceinline__ int at(int4 v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+__global__ void __launch_bounds__(kMmaWarps * 32)
+    onehot_matmul_kernel(const int4* __restrict__ x, const int4* __restrict__ p,
+                         int4* __restrict__ out, long long tiles) {
+  // [n-tile][k-tile][lane]: the lane's B fragment registers
+  __shared__ uint2 frag[16 * kKTiles * 32];
+  // Stage: unit u is the 4 x 4 block of p at rows k0.., columns n0..; its
+  // column n0 + i goes to n-tile 2 j + i / 2, fragment column 2 q + i % 2.
+  for (int u = threadIdx.x; u < 1024; u += kMmaWarps * 32) {
+    const int l = u & 31, j = (u >> 5) & 7, q = l & 3, tg = (l >> 2) & 3;
+    const int hi = l >> 4;  // u8: which 16 of the k32 tile; bf16: k16 tile parity
+    const int kt = P4_U8 ? u >> 8 : 2 * (u >> 8) + hi;
+    const int k0 = P4_U8 ? 32 * kt + 16 * hi + 4 * tg : 16 * kt + 4 * tg;
+    int4 r[4];
 #pragma unroll
-  for (int kt = 0; kt < 8; ++kt) {
+    for (int b = 0; b < 4; ++b) r[b] = p[(k0 + b) * 32 + 4 * j + q];
 #pragma unroll
-    for (int reg = 0; reg < 4; ++reg) {
-      const long long row = r0 + g + 8 * (reg & 1);
-      const int col = kt * 16 + 8 * (reg >> 1) + 2 * tg;
-      const int2 v = *reinterpret_cast<const int2*>(x + row * kLanes + col);
-#pragma unroll
-      for (int pl = 0; pl < 3; ++pl) {
-        const __nv_bfloat162 h = __floats2bfloat162_rn(
-            (float)((v.x >> (8 * pl)) & 255), (float)((v.y >> (8 * pl)) & 255));
-        a[pl][kt][reg] = *reinterpret_cast<const uint32_t*>(&h);
+    for (int i = 0; i < 4; ++i) {
+      const int nt = 2 * j + (i >> 1), g = 2 * q + (i & 1);
+      const int slot = (nt * kKTiles + kt) * 32 + 4 * g + tg;
+      if (P4_U8) {
+        reinterpret_cast<unsigned*>(frag)[2 * slot + hi] =
+            low_bytes(at(r[0], i), at(r[1], i), at(r[2], i), at(r[3], i));
+      } else {
+        frag[slot] = make_uint2(bf16x2(at(r[0], i), at(r[1], i)),
+                                bf16x2(at(r[2], i), at(r[3], i)));
       }
     }
   }
-#pragma unroll 1
-  for (int nt = 0; nt < kLanes / 8; ++nt) {
-    float c[3][4] = {};
-    const unsigned short* prow = pt + (nt * 8 + g) * kPtStride + 2 * tg;
+  __syncthreads();
+  const int lane = threadIdx.x & 31, g = lane >> 2, tg = lane & 3;
+  for (long long t = (long long)blockIdx.x * kMmaWarps + (threadIdx.x >> 5);
+       t < tiles; t += (long long)gridDim.x * kMmaWarps) {
+    const int4* xr = x + (t * 16 + g) * 32;  // row g of the tile
+    // a[plane][k-tile][register]; register 1 and 3 are row g + 8
+    unsigned a[3][kKTiles][4];
 #pragma unroll
-    for (int kt = 0; kt < 8; ++kt) {
-      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(prow + kt * 16);
-      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(prow + kt * 16 + 8);
+    for (int kt = 0; kt < kKTiles; ++kt) {
 #pragma unroll
-      for (int pl = 0; pl < 3; ++pl)
-        asm volatile(
-            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-            "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-            : "+f"(c[pl][0]), "+f"(c[pl][1]), "+f"(c[pl][2]), "+f"(c[pl][3])
-            : "r"(a[pl][kt][0]), "r"(a[pl][kt][1]), "r"(a[pl][kt][2]),
-              "r"(a[pl][kt][3]), "r"(b0), "r"(b1));
+      for (int h = 0; h < (P4_U8 ? 2 : 1); ++h) {
+        // u8: columns 32 kt + 16 h + 4 tg ..; bf16: 16 kt + 4 tg ..
+        const int c4 = P4_U8 ? 8 * kt + 4 * h + tg : 4 * kt + tg;
+        const int4 v0 = xr[c4], v1 = xr[8 * 32 + c4];
+        if (P4_U8) {
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const int4 v = rr ? v1 : v0;
+            const unsigned p01 = __byte_perm(v.x, v.y, 0x5140),
+                           q01 = __byte_perm(v.z, v.w, 0x5140);
+            a[0][kt][rr + 2 * h] = __byte_perm(p01, q01, 0x5410);
+            a[1][kt][rr + 2 * h] = __byte_perm(p01, q01, 0x7632);
+            a[2][kt][rr + 2 * h] = __byte_perm(__byte_perm(v.x, v.y, 0x0062),
+                                               __byte_perm(v.z, v.w, 0x0062),
+                                               0x5410);
+          }
+        } else {
+#pragma unroll
+          for (int pl = 0; pl < 3; ++pl) {
+            const int sh = 8 * pl;
+            a[pl][kt][0] = bf16x2((v0.x >> sh) & 255, (v0.y >> sh) & 255);
+            a[pl][kt][1] = bf16x2((v1.x >> sh) & 255, (v1.y >> sh) & 255);
+            a[pl][kt][2] = bf16x2((v0.z >> sh) & 255, (v0.w >> sh) & 255);
+            a[pl][kt][3] = bf16x2((v1.z >> sh) & 255, (v1.w >> sh) & 255);
+          }
+        }
+      }
     }
-    int v[4];
+    int4* orow = out + (t * 16 + g) * 32;
+#pragma unroll 1
+    for (int j = 0; j < 8; ++j) {
+      unsigned v[2][4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      v[e] = (int)((unsigned)c[0][e] + ((unsigned)c[1][e] << 8) +
-                   ((unsigned)c[2][e] << 16));
-    const int col = nt * 8 + 2 * tg;
-    *reinterpret_cast<int2*>(out + (r0 + g) * kLanes + col) = make_int2(v[0], v[1]);
-    *reinterpret_cast<int2*>(out + (r0 + g + 8) * kLanes + col) = make_int2(v[2], v[3]);
+      for (int h = 0; h < 2; ++h) {
+        const uint2* f = frag + (2 * j + h) * kKTiles * 32 + lane;
+        if (P4_U8) {
+          int c[3][4] = {};
+#pragma unroll
+          for (int kt = 0; kt < kKTiles; ++kt) {
+            const uint2 b = f[kt * 32];
+#pragma unroll
+            for (int pl = 0; pl < 3; ++pl)
+              asm("mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
+                  "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+                  : "+r"(c[pl][0]), "+r"(c[pl][1]), "+r"(c[pl][2]),
+                    "+r"(c[pl][3])
+                  : "r"(a[pl][kt][0]), "r"(a[pl][kt][1]), "r"(a[pl][kt][2]),
+                    "r"(a[pl][kt][3]), "r"(b.x), "r"(b.y));
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            v[h][e] = (unsigned)c[0][e] + ((unsigned)c[1][e] << 8) +
+                      ((unsigned)c[2][e] << 16);
+        } else {
+          float c[3][4] = {};
+#pragma unroll
+          for (int kt = 0; kt < kKTiles; ++kt) {
+            const uint2 b = f[kt * 32];
+#pragma unroll
+            for (int pl = 0; pl < 3; ++pl)
+              asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+                  "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+                  : "+f"(c[pl][0]), "+f"(c[pl][1]), "+f"(c[pl][2]),
+                    "+f"(c[pl][3])
+                  : "r"(a[pl][kt][0]), "r"(a[pl][kt][1]), "r"(a[pl][kt][2]),
+                    "r"(a[pl][kt][3]), "r"(b.x), "r"(b.y));
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            v[h][e] = (unsigned)c[0][e] + ((unsigned)c[1][e] << 8) +
+                      ((unsigned)c[2][e] << 16);
+        }
+      }
+      orow[4 * j + tg] = make_int4(v[0][0], v[0][1], v[1][0], v[1][1]);
+      orow[8 * 32 + 4 * j + tg] = make_int4(v[0][2], v[0][3], v[1][2], v[1][3]);
+    }
   }
 }
 
@@ -314,11 +458,21 @@ int hj3t_probe_cumsum(const void* x, void* out, long long rows, int axis,
     cumsum_lanes_kernel<<<warp_rows_grid(rows), kThreads, 0, as_stream(stream)>>>(
         static_cast<const int*>(x), static_cast<int*>(out), rows);
   } else {
-    if (block_rows <= 0 || block_rows % kSegs || rows % block_rows)
+    if (block_rows <= 0 || block_rows % 8 || rows % block_rows)
       return (int)cudaErrorInvalidValue;
-    cumsum_rows_kernel<<<(unsigned)(rows / block_rows), kLanes * kSegs, 0,
-                         as_stream(stream)>>>(
-        static_cast<const int*>(x), static_cast<int*>(out), block_rows);
+    // segments of 16 rows where they tile the row blocks, else of 8
+    const int seg = block_rows % 16 ? 8 : 16, tile = 32 * seg;
+    const long long span =
+        block_rows >= tile ? block_rows : (long long)(tile / block_rows) * block_rows;
+    const unsigned grid = (unsigned)(4 * ((rows + span - 1) / span));
+    const int4* xi = static_cast<const int4*>(x);
+    int4* oi = static_cast<int4*>(out);
+    if (seg == 16)
+      cumsum_rows_kernel<16><<<grid, kThreads, 0, as_stream(stream)>>>(
+          xi, oi, rows, block_rows, span);
+    else
+      cumsum_rows_kernel<8><<<grid, kThreads, 0, as_stream(stream)>>>(
+          xi, oi, rows, block_rows, span);
   }
   return (int)cudaGetLastError();
 }
@@ -329,11 +483,19 @@ int hj3t_probe_onehot_matmul(const void* x, const void* p, void* out,
                              long long rows, void* stream) {
   if (rows < 0 || rows % 16) return (int)cudaErrorInvalidValue;
   if (rows == 0) return (int)cudaGetLastError();
-  const long long per_block = 16 * kMmaWarps;
-  onehot_matmul_kernel<<<(unsigned)((rows + per_block - 1) / per_block),
-                         kMmaWarps * 32, 0, as_stream(stream)>>>(
-      static_cast<const int*>(x), static_cast<const int*>(p),
-      static_cast<int*>(out), rows);
+  const long long tiles = rows / 16;
+  long long grid = (tiles + kMmaWarps - 1) / kMmaWarps;
+  if (P4_BLOCKS_PER_SM > 0) {
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const long long cap = (long long)P4_BLOCKS_PER_SM * sms;
+    if (grid > cap) grid = cap;
+  }
+  onehot_matmul_kernel<<<(unsigned)grid, kMmaWarps * 32, 0,
+                         as_stream(stream)>>>(
+      static_cast<const int4*>(x), static_cast<const int4*>(p),
+      static_cast<int4*>(out), tiles);
   return (int)cudaGetLastError();
 }
 

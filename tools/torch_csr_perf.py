@@ -48,7 +48,7 @@ prints the card and its power limit (``nvidia-smi``) first.
 ``launch``: the host cost of a kernel wrapper's launch path and the device
 time of the kernels, one JSON line::
 
-    python3 tools/torch_csr_perf.py launch [--root TREE] [--probes-only]
+    python3 tools/torch_csr_perf.py launch [--root TREE] [--probes [IDS]]
 
   Host microseconds per call (``time.perf_counter`` over 10^4 calls, no
   synchronisation) of each step a wrapper may take: two ways to get the
@@ -66,9 +66,9 @@ time of the kernels, one JSON line::
   runner cases and ``index_select`` of the same, host and device; K1, K2
   with coverage, K2b, K4 2-op and P7 at the inputs of ``times``, host and
   device (200 and 20 calls).  Last, the probe section (alone with
-  ``--probes-only``): the probe runner's own cases of P1, P2, P3 (axis 1
-  and axis 0), P4, P6 and P9 (``mosaic_probe.cases``) and the library
-  call of each where it has one (``torch.roll``, ``torch.gather``,
+  ``--probes``; ``--probes P3,P4`` keeps those ids): the probe runner's
+  own cases of P1, P2, P3 (axis 1 and axis 0), P4, P6 and P9
+  (``mosaic_probe.cases``) and the library call of each where it has one (``torch.roll``, ``torch.gather``,
   ``torch.cumsum``, ``torch.matmul`` f32): host and device µs a call,
   device operations a call and their names; for each kernel its bound,
   its device share of the bound and its device time over its library
@@ -181,23 +181,24 @@ def p5_cases(dev) -> dict:
         C).astype(np.int32)).to(dev)) for C, seed in ((1024, 5), (4096, 6))}
 
 
-def probe_launch_cases(dev, shrink: int = 0) -> dict:
+def probe_launch_cases(dev, probe_ids=LAUNCH_PROBES,
+                       shrink: int = 0) -> dict:
     """The probe runner's own cases (``mosaic_probe.cases(dev, shrink)``)
-    of ``LAUNCH_PROBES``: "P3 cumsum axis=0" -> (kernel call, library call
-    or None, library name, bound ms, what bounds it)."""
+    of ``probe_ids``: "P3 cumsum axis=0" -> (kernel call, library call or
+    None, library name, bound ms, what bounds it)."""
     from hashjoin3d_tpu_torch.tools import mosaic_probe
     from hashjoin3d_tpu_torch.utils.measure import bound_ms, nbytes
 
     out = {}
     for c in mosaic_probe.cases(dev, shrink):
-        if c.probe in LAUNCH_PROBES:
+        if c.probe in probe_ids:
             ms, by = bound_ms(nbytes(*c.inputs, c.run()), c.flops)
             out[f"{c.probe} {c.label}"] = (c.run, c.library, c.library_name,
                                            ms, by)
     return out
 
 
-def probe_launch_costs(dev) -> dict:
+def probe_launch_costs(dev, probe_ids=LAUNCH_PROBES) -> dict:
     """Each case of :func:`probe_launch_cases`, its kernel and its library
     call: host and device µs per call (``host_device_us``), the device
     operations a call and their names (``device_ops``); the kernel's bound
@@ -206,7 +207,7 @@ def probe_launch_costs(dev) -> dict:
 
     res = {}
     for name, (run, library, lib_name, bound, by) in probe_launch_cases(
-            dev).items():
+            dev, probe_ids).items():
         for side, fn in (("kernel", run), (lib_name, library)):
             if fn is None:
                 continue
@@ -514,8 +515,9 @@ def main() -> int:
     p.add_argument("--root", type=Path, default=here)
     la = sub.add_parser("launch")
     la.add_argument("--root", type=Path, default=here)
-    la.add_argument("--probes-only", action="store_true",
-                    help="only the probe section (P1-P4, P6, P9)")
+    la.add_argument("--probes", nargs="?", const=",".join(LAUNCH_PROBES),
+                    help="only the probe section, for these comma-separated "
+                         "probe ids (all of P1-P4, P6, P9 without a value)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_csr_perf: needs a CUDA GPU", file=sys.stderr)
@@ -532,9 +534,10 @@ def main() -> int:
     if args.mode == "times":
         print(json.dumps(times(args.side, dev)))
     elif args.mode == "launch":
-        res = ({} if args.probes_only
+        res = ({} if args.probes
                else {**launch_costs(dev), **kernel_device_costs(dev)})
-        res["probes"] = probe_launch_costs(dev)
+        res["probes"] = probe_launch_costs(
+            dev, (args.probes or ",".join(LAUNCH_PROBES)).split(","))
         print(json.dumps(res))
         for name, r in res["probes"].items():
             print(f"  {name:60s} device {r['device_us']:8.3f} us  host "
