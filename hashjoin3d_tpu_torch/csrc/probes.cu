@@ -84,7 +84,7 @@ __global__ void __launch_bounds__(kThreads)
 // segment totals of each quad are scanned across segments, starting anew
 // at each row block's first segment and carrying into the next tile.
 #ifndef P3_SHUFFLE
-#define P3_SHUFFLE 0
+#define P3_SHUFFLE 1
 #endif
 __device__ __forceinline__ int4 add4(int4 a, int4 b) {
   return make_int4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
@@ -167,7 +167,7 @@ __global__ void __launch_bounds__(kThreads)
 // The n-tiles' columns are interleaved so that a lane's results for two
 // n-tiles are four adjacent columns: one 16-byte store a row.
 #ifndef P4_U8
-#define P4_U8 1
+#define P4_U8 0
 #endif
 #ifndef P4_WARPS
 #define P4_WARPS 8
