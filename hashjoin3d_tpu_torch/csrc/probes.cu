@@ -167,13 +167,13 @@ __global__ void __launch_bounds__(kThreads)
 // The n-tiles' columns are interleaved so that a lane's results for two
 // n-tiles are four adjacent columns: one 16-byte store a row.
 #ifndef P4_U8
-#define P4_U8 0
+#define P4_U8 1
 #endif
 #ifndef P4_WARPS
-#define P4_WARPS 8
+#define P4_WARPS 4
 #endif
 #ifndef P4_BLOCKS_PER_SM  // 0: one 16-row tile a warp
-#define P4_BLOCKS_PER_SM 2
+#define P4_BLOCKS_PER_SM 0
 #endif
 constexpr int kMmaWarps = P4_WARPS;
 constexpr int kKTiles = P4_U8 ? 4 : 8;  // k32 (u8) or k16 (bf16) tiles
