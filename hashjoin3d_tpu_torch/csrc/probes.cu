@@ -84,7 +84,10 @@ __global__ void __launch_bounds__(kThreads)
 // segment totals of each quad are scanned across segments, starting anew
 // at each row block's first segment and carrying into the next tile.
 #ifndef P3_SHUFFLE
-#define P3_SHUFFLE 1
+#define P3_SHUFFLE 0
+#endif
+#ifndef P3_SEG16
+#define P3_SEG16 1
 #endif
 __device__ __forceinline__ int4 add4(int4 a, int4 b) {
   return make_int4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
@@ -170,10 +173,10 @@ __global__ void __launch_bounds__(kThreads)
 #define P4_U8 1
 #endif
 #ifndef P4_WARPS
-#define P4_WARPS 4
+#define P4_WARPS 8
 #endif
 #ifndef P4_BLOCKS_PER_SM  // 0: one 16-row tile a warp
-#define P4_BLOCKS_PER_SM 0
+#define P4_BLOCKS_PER_SM 3
 #endif
 constexpr int kMmaWarps = P4_WARPS;
 constexpr int kKTiles = P4_U8 ? 4 : 8;  // k32 (u8) or k16 (bf16) tiles
@@ -461,7 +464,7 @@ int hj3t_probe_cumsum(const void* x, void* out, long long rows, int axis,
     if (block_rows <= 0 || block_rows % 8 || rows % block_rows)
       return (int)cudaErrorInvalidValue;
     // segments of 16 rows where they tile the row blocks, else of 8
-    const int seg = block_rows % 16 ? 8 : 16, tile = 32 * seg;
+    const int seg = (P3_SEG16 && block_rows % 16 == 0) ? 16 : 8, tile = 32 * seg;
     const long long span =
         block_rows >= tile ? block_rows : (long long)(tile / block_rows) * block_rows;
     const unsigned grid = (unsigned)(4 * ((rows + span - 1) / span));
