@@ -87,7 +87,7 @@ __global__ void __launch_bounds__(kThreads)
 #define P3_SHUFFLE 0
 #endif
 #ifndef P3_SEG16
-#define P3_SEG16 1
+#define P3_SEG16 0
 #endif
 __device__ __forceinline__ int4 add4(int4 a, int4 b) {
   return make_int4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
@@ -176,7 +176,7 @@ __global__ void __launch_bounds__(kThreads)
 #define P4_WARPS 8
 #endif
 #ifndef P4_BLOCKS_PER_SM  // 0: one 16-row tile a warp
-#define P4_BLOCKS_PER_SM 3
+#define P4_BLOCKS_PER_SM 1
 #endif
 constexpr int kMmaWarps = P4_WARPS;
 constexpr int kKTiles = P4_U8 ? 4 : 8;  // k32 (u8) or k16 (bf16) tiles
