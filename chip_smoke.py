@@ -59,7 +59,7 @@ count (phase 2 alone); ``miss_probe_launches`` is phase 3's,
 ``probe_tool_launches`` phase 5's probe runner's (its check and timed
 launches) and ``tool_launches`` phase 5's roofline and csrprof path's.  ``bound_ms`` is the kernel's bytes
 (each input read once, each output written once) over 3.35 TB/s, or for P4
-its tensor-core operations over 989 TFLOP/s where that is larger;
+its u8 tensor-core operations over 1979 TOP/s where that is larger;
 ``library_ms`` the PyTorch call that computes the same function (null where
 there is none).  A probe with several cases (P3, P5, P7) reports the sums
 over its cases.  Nothing here imports JAX.
@@ -615,9 +615,11 @@ def phase5_p3_p4(dev):
 def phase5_probes(dev):
     """P1-P9 through the mosaic_probe runner, counts reset just before it:
     each case equal to its plain version, results summed over each probe's
-    cases, and the runner's launch counts."""
+    cases, and the runner's launch counts; then each probe's device time a
+    call (profiler, summed over its cases) as ``device_ms``."""
     from hashjoin3d_tpu_torch import kernels
     from hashjoin3d_tpu_torch.tools import mosaic_probe
+    from hashjoin3d_tpu_torch.utils.measure import host_device_us
 
     kernels.reset_launch_counts()
     runs = mosaic_probe.run(dev, "", 0.02,
@@ -642,6 +644,9 @@ def phase5_probes(dev):
         require(pid in out, f"{pid}: the runner has no case")
         require(launches[probe.key] > 0,
                 f"{probe.key} not launched on the probe runner's path")
+    for c in mosaic_probe.cases(dev):  # after the counts: not the path's
+        out[c.probe]["device_ms"] = out[c.probe].get("device_ms", 0.0) + (
+            host_device_us(c.run, calls=1000, profiled=50)[1] / 1e3)
     return out, launches
 
 

@@ -10,20 +10,17 @@
 // and each output word out once and does a few integer operations per word,
 // so device memory bounds them (P6 and P8 touch a few KiB: launch latency).
 // P4 runs the 128 x 128 product on the tensor cores: x (< 2^24) is split into
-// three byte planes, each exact in bf16, multiplied by the 0/1 matrix with
-// mma.sync m16n8k16 (bf16 in, f32 accumulate: sums of at most 128 bytes are
-// exact) and recombined in int32.  A TF32 product would not be exact at
-// values of 2^20.  Three planes cost 3 x 2 x 128 flops per element, far
-// under the bf16 rate per byte moved, so P4 is memory bound too.
+// three byte planes, each multiplied as u8 by the 0/1 matrix with mma.sync
+// m16n8k32 (u8 in, s32 accumulate: exact) and recombined in int32.  A TF32
+// product would not be exact at values of 2^20.  Three planes cost 3 x 2 x
+// 128 integer operations per element, far under the int8 rate per byte
+// moved, so P4 is memory bound too.
 //
 // Design per probe: a row of 128 words is one warp's work (4 words a lane);
 // shared memory replaces the TPU's lane gathers (P1, P2, P5); P7 and P8 copy
 // global to global.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-
-#include <cstdint>
 
 namespace {
 
@@ -76,21 +73,30 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // P3, rows: inclusive cumsum down each column within blocks of block_rows
-// rows.  The rows fall in chunks of whole row blocks (at least a tile of
-// 32 x kSeg rows); a CUDA block owns one 32-column slice of a chunk, so a
-// chunk of 512 rows gives four CUDA blocks.  It walks the chunk a tile at
-// a time: each thread loads kSeg rows of one column quad with 16-byte
-// loads into registers (x is read once), scans them there, and the 32
-// segment totals of each quad are scanned across segments, starting anew
-// at each row block's first segment and carrying into the next tile.
-#ifndef P3_SHUFFLE
-#define P3_SHUFFLE 0
-#endif
-#ifndef P3_SEG16
-#define P3_SEG16 0
-#endif
+// rows.  The rows fall in chunks of whole row blocks, at least a tile of
+// 32 segments of kSeg rows each; a CUDA block owns one 32-column slice of
+// a chunk, so 2^15 rows in blocks of 512 give 256 CUDA blocks.  It walks
+// its chunk a tile at a time: thread (s, q) loads segment s of column quad
+// q with 16-byte loads into registers (x is read once) and scans it there;
+// warp q scans quad q's 32 segment totals in shuffles, starting anew at each
+// row block's first segment and carrying into the next tile; each thread
+// adds its offset and stores.  Measured against 16-row segments and against
+// one warp a column quad scanning in shuffles alone: both slower (PERF.md).
+constexpr int kSeg = 8, kScanTile = 32 * kSeg;
+
 __device__ __forceinline__ int4 add4(int4 a, int4 b) {
   return make_int4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+__device__ __forceinline__ int4 shfl4(int4 v, int from, bool up) {
+  return up ? make_int4(__shfl_up_sync(0xffffffffu, v.x, from),
+                        __shfl_up_sync(0xffffffffu, v.y, from),
+                        __shfl_up_sync(0xffffffffu, v.z, from),
+                        __shfl_up_sync(0xffffffffu, v.w, from))
+            : make_int4(__shfl_sync(0xffffffffu, v.x, from),
+                        __shfl_sync(0xffffffffu, v.y, from),
+                        __shfl_sync(0xffffffffu, v.z, from),
+                        __shfl_sync(0xffffffffu, v.w, from));
 }
 
 // Lane l holds segment l's total; heads has bit l set where segment l
@@ -104,35 +110,26 @@ __device__ __forceinline__ int4 segment_offsets(int4 tot, int lane,
   int4 inc = tot;
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
-    const int4 up = make_int4(__shfl_up_sync(0xffffffffu, inc.x, d),
-                              __shfl_up_sync(0xffffffffu, inc.y, d),
-                              __shfl_up_sync(0xffffffffu, inc.z, d),
-                              __shfl_up_sync(0xffffffffu, inc.w, d));
+    const int4 up = shfl4(inc, d, true);
     if (lane - d >= start) inc = add4(inc, up);
   }
   if (!upto) inc = add4(inc, carry);
-  carry = make_int4(__shfl_sync(0xffffffffu, inc.x, 31),
-                    __shfl_sync(0xffffffffu, inc.y, 31),
-                    __shfl_sync(0xffffffffu, inc.z, 31),
-                    __shfl_sync(0xffffffffu, inc.w, 31));
+  carry = shfl4(inc, 31, false);
   return make_int4(inc.x - tot.x, inc.y - tot.y, inc.z - tot.z,
                    inc.w - tot.w);
 }
 
-template <int kSeg>
 __global__ void __launch_bounds__(kThreads)
     cumsum_rows_kernel(const int4* __restrict__ x, int4* __restrict__ out,
                        long long rows, int block_rows, long long span) {
   __shared__ int4 part[32][9];  // [segment][quad], padded
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  // (segment, column quad) of this thread
-  const int s = P3_SHUFFLE ? lane : threadIdx.x >> 3;
-  const int q = P3_SHUFFLE ? w : threadIdx.x & 7;
+  const int s = threadIdx.x >> 3, q = threadIdx.x & 7;
   const int col4 = (blockIdx.x & 3) * 8 + q;
   const long long r0 = (long long)(blockIdx.x >> 2) * span;
   const long long r1 = min(r0 + span, rows);
-  int4 carry = make_int4(0, 0, 0, 0);  // of quad w (design A) or q (B)
-  for (long long t0 = r0; t0 < r1; t0 += 32 * kSeg) {
+  int4 carry = make_int4(0, 0, 0, 0);  // of quad w
+  for (long long t0 = r0; t0 < r1; t0 += kScanTile) {
     const long long r = t0 + (long long)s * kSeg;
     const bool valid = r < r1;
     int4 v[kSeg];
@@ -141,18 +138,13 @@ __global__ void __launch_bounds__(kThreads)
       v[i] = valid ? x[(r + i) * 32 + col4] : make_int4(0, 0, 0, 0);
 #pragma unroll
     for (int i = 1; i < kSeg; ++i) v[i] = add4(v[i], v[i - 1]);
+    part[s][q] = v[kSeg - 1];
     const unsigned heads = __ballot_sync(
         0xffffffffu, (t0 + (long long)lane * kSeg) % block_rows == 0);
-    int4 off;
-    if (P3_SHUFFLE) {
-      off = segment_offsets(v[kSeg - 1], lane, heads, carry);
-    } else {
-      part[s][q] = v[kSeg - 1];
-      __syncthreads();
-      part[lane][w] = segment_offsets(part[lane][w], lane, heads, carry);
-      __syncthreads();
-      off = part[s][q];
-    }
+    __syncthreads();
+    part[lane][w] = segment_offsets(part[lane][w], lane, heads, carry);
+    __syncthreads();
+    const int4 off = part[s][q];
     if (valid) {
 #pragma unroll
       for (int i = 0; i < kSeg; ++i) out[(r + i) * 32 + col4] = add4(v[i], off);
@@ -161,35 +153,25 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // P4: out = x @ p for x int32 (rows, 128) with 0 <= x < 2^24 and p a 0/1
-// (128, 128) matrix, on the tensor cores.  x splits into three byte planes;
-// each plane times p is exact (sums of at most 128 bytes) and the three
-// recombine in int32.  p is staged once a block, in the order of the mma
-// B fragments (one 8-byte word a lane, n-tile and k-tile: conflict-free),
-// from 16-byte loads of 4 x 4 blocks of p; each warp then walks 16-row
-// tiles, its A fragments (3 planes) in registers, two n-tiles at a time.
-// The n-tiles' columns are interleaved so that a lane's results for two
-// n-tiles are four adjacent columns: one 16-byte store a row.
-#ifndef P4_U8
-#define P4_U8 1
-#endif
-#ifndef P4_WARPS
-#define P4_WARPS 8
-#endif
-#ifndef P4_BLOCKS_PER_SM  // 0: one 16-row tile a warp
-#define P4_BLOCKS_PER_SM 1
-#endif
-constexpr int kMmaWarps = P4_WARPS;
-constexpr int kKTiles = P4_U8 ? 4 : 8;  // k32 (u8) or k16 (bf16) tiles
+// (128, 128) matrix, on the tensor cores.  x splits into three byte
+// planes; each plane times p is one u8 x u8 -> s32 product (mma.sync
+// m16n8k32), exact, and the three recombine in int32.  p is staged once a
+// block, as u8 in the order of the B fragments (one 8-byte word a lane,
+// n-tile and k-tile: read without bank conflicts), from 16-byte loads of
+// 4 x 4 blocks of p.  Two blocks of 8 warps an SM; each warp walks 16-row
+// tiles with its A fragments (3 planes x 4 k-tiles x 4 registers, bytes
+// picked by prmt) in registers.  The n-tiles' columns are interleaved so
+// that a lane's results for two n-tiles are four adjacent columns: one
+// 16-byte store a row.  Measured against bf16 planes on m16n8k16 with p
+// staged the same way (float conversion, 172 registers), against one
+// 16-row tile a warp (p staged 512 times) and against one and three blocks
+// an SM: each slower (PERF.md).
+constexpr int kMmaWarps = 8, kMmaBlocksPerSm = 2, kKTiles = 4;
 
 // the low bytes of a, b, c, d as one word, a in byte 0
 __device__ __forceinline__ unsigned low_bytes(int a, int b, int c, int d) {
   return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040),
                      0x5410);
-}
-
-__device__ __forceinline__ unsigned bf16x2(int lo, int hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn((float)lo, (float)hi);
-  return *reinterpret_cast<const unsigned*>(&h);
 }
 
 __device__ __forceinline__ int at(int4 v, int i) {
@@ -199,29 +181,24 @@ __device__ __forceinline__ int at(int4 v, int i) {
 __global__ void __launch_bounds__(kMmaWarps * 32)
     onehot_matmul_kernel(const int4* __restrict__ x, const int4* __restrict__ p,
                          int4* __restrict__ out, long long tiles) {
-  // [n-tile][k-tile][lane]: the lane's B fragment registers
+  // [n-tile][k-tile][lane]: the lane's two B fragment registers
   __shared__ uint2 frag[16 * kKTiles * 32];
-  // Stage: unit u is the 4 x 4 block of p at rows k0.., columns n0..; its
-  // column n0 + i goes to n-tile 2 j + i / 2, fragment column 2 q + i % 2.
+  // Unit u is the 4 x 4 block of p at rows k0 = 32 kt + 16 hi + 4 tg..,
+  // columns 16 j + 4 q..: register hi of lane (g, tg)'s fragment, whose
+  // column n0 + i is n-tile 2 j + i / 2, fragment column g = 2 q + i % 2.
   for (int u = threadIdx.x; u < 1024; u += kMmaWarps * 32) {
-    const int l = u & 31, j = (u >> 5) & 7, q = l & 3, tg = (l >> 2) & 3;
-    const int hi = l >> 4;  // u8: which 16 of the k32 tile; bf16: k16 tile parity
-    const int kt = P4_U8 ? u >> 8 : 2 * (u >> 8) + hi;
-    const int k0 = P4_U8 ? 32 * kt + 16 * hi + 4 * tg : 16 * kt + 4 * tg;
+    const int q = u & 3, tg = (u >> 2) & 3, hi = (u >> 4) & 1;
+    const int j = (u >> 5) & 7, kt = u >> 8;
+    const int k0 = 32 * kt + 16 * hi + 4 * tg;
     int4 r[4];
 #pragma unroll
     for (int b = 0; b < 4; ++b) r[b] = p[(k0 + b) * 32 + 4 * j + q];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int nt = 2 * j + (i >> 1), g = 2 * q + (i & 1);
-      const int slot = (nt * kKTiles + kt) * 32 + 4 * g + tg;
-      if (P4_U8) {
-        reinterpret_cast<unsigned*>(frag)[2 * slot + hi] =
-            low_bytes(at(r[0], i), at(r[1], i), at(r[2], i), at(r[3], i));
-      } else {
-        frag[slot] = make_uint2(bf16x2(at(r[0], i), at(r[1], i)),
-                                bf16x2(at(r[2], i), at(r[3], i)));
-      }
+      reinterpret_cast<unsigned*>(frag)[2 * ((nt * kKTiles + kt) * 32 + 4 * g +
+                                             tg) + hi] =
+          low_bytes(at(r[0], i), at(r[1], i), at(r[2], i), at(r[3], i));
     }
   }
   __syncthreads();
@@ -229,37 +206,20 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
   for (long long t = (long long)blockIdx.x * kMmaWarps + (threadIdx.x >> 5);
        t < tiles; t += (long long)gridDim.x * kMmaWarps) {
     const int4* xr = x + (t * 16 + g) * 32;  // row g of the tile
-    // a[plane][k-tile][register]; register 1 and 3 are row g + 8
+    // a[plane][k-tile][register]: registers 0, 2 are row g, 1, 3 row g + 8;
+    // 0, 1 columns 32 kt + 4 tg.., 2, 3 columns 32 kt + 16 + 4 tg..
     unsigned a[3][kKTiles][4];
 #pragma unroll
     for (int kt = 0; kt < kKTiles; ++kt) {
 #pragma unroll
-      for (int h = 0; h < (P4_U8 ? 2 : 1); ++h) {
-        // u8: columns 32 kt + 16 h + 4 tg ..; bf16: 16 kt + 4 tg ..
-        const int c4 = P4_U8 ? 8 * kt + 4 * h + tg : 4 * kt + tg;
-        const int4 v0 = xr[c4], v1 = xr[8 * 32 + c4];
-        if (P4_U8) {
-#pragma unroll
-          for (int rr = 0; rr < 2; ++rr) {
-            const int4 v = rr ? v1 : v0;
-            const unsigned p01 = __byte_perm(v.x, v.y, 0x5140),
-                           q01 = __byte_perm(v.z, v.w, 0x5140);
-            a[0][kt][rr + 2 * h] = __byte_perm(p01, q01, 0x5410);
-            a[1][kt][rr + 2 * h] = __byte_perm(p01, q01, 0x7632);
-            a[2][kt][rr + 2 * h] = __byte_perm(__byte_perm(v.x, v.y, 0x0062),
-                                               __byte_perm(v.z, v.w, 0x0062),
-                                               0x5410);
-          }
-        } else {
-#pragma unroll
-          for (int pl = 0; pl < 3; ++pl) {
-            const int sh = 8 * pl;
-            a[pl][kt][0] = bf16x2((v0.x >> sh) & 255, (v0.y >> sh) & 255);
-            a[pl][kt][1] = bf16x2((v1.x >> sh) & 255, (v1.y >> sh) & 255);
-            a[pl][kt][2] = bf16x2((v0.z >> sh) & 255, (v0.w >> sh) & 255);
-            a[pl][kt][3] = bf16x2((v1.z >> sh) & 255, (v1.w >> sh) & 255);
-          }
-        }
+      for (int reg = 0; reg < 4; ++reg) {
+        const int4 v = xr[(reg & 1) * 8 * 32 + 8 * kt + 4 * (reg >> 1) + tg];
+        const unsigned b01 = __byte_perm(v.x, v.y, 0x5140),  // x0 y0 x1 y1
+            d01 = __byte_perm(v.z, v.w, 0x5140);             // z0 w0 z1 w1
+        a[0][kt][reg] = __byte_perm(b01, d01, 0x5410);
+        a[1][kt][reg] = __byte_perm(b01, d01, 0x7632);
+        a[2][kt][reg] = __byte_perm(__byte_perm(v.x, v.y, 0x0062),
+                                    __byte_perm(v.z, v.w, 0x0062), 0x5410);
       }
     }
     int4* orow = out + (t * 16 + g) * 32;
@@ -269,43 +229,23 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const uint2* f = frag + (2 * j + h) * kKTiles * 32 + lane;
-        if (P4_U8) {
-          int c[3][4] = {};
+        int c[3][4] = {};
 #pragma unroll
-          for (int kt = 0; kt < kKTiles; ++kt) {
-            const uint2 b = f[kt * 32];
+        for (int kt = 0; kt < kKTiles; ++kt) {
+          const uint2 b = f[kt * 32];
 #pragma unroll
-            for (int pl = 0; pl < 3; ++pl)
-              asm("mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
-                  "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-                  : "+r"(c[pl][0]), "+r"(c[pl][1]), "+r"(c[pl][2]),
-                    "+r"(c[pl][3])
-                  : "r"(a[pl][kt][0]), "r"(a[pl][kt][1]), "r"(a[pl][kt][2]),
-                    "r"(a[pl][kt][3]), "r"(b.x), "r"(b.y));
-          }
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            v[h][e] = (unsigned)c[0][e] + ((unsigned)c[1][e] << 8) +
-                      ((unsigned)c[2][e] << 16);
-        } else {
-          float c[3][4] = {};
-#pragma unroll
-          for (int kt = 0; kt < kKTiles; ++kt) {
-            const uint2 b = f[kt * 32];
-#pragma unroll
-            for (int pl = 0; pl < 3; ++pl)
-              asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-                  "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-                  : "+f"(c[pl][0]), "+f"(c[pl][1]), "+f"(c[pl][2]),
-                    "+f"(c[pl][3])
-                  : "r"(a[pl][kt][0]), "r"(a[pl][kt][1]), "r"(a[pl][kt][2]),
-                    "r"(a[pl][kt][3]), "r"(b.x), "r"(b.y));
-          }
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            v[h][e] = (unsigned)c[0][e] + ((unsigned)c[1][e] << 8) +
-                      ((unsigned)c[2][e] << 16);
+          for (int pl = 0; pl < 3; ++pl)
+            asm("mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
+                "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+                : "+r"(c[pl][0]), "+r"(c[pl][1]), "+r"(c[pl][2]),
+                  "+r"(c[pl][3])
+                : "r"(a[pl][kt][0]), "r"(a[pl][kt][1]), "r"(a[pl][kt][2]),
+                  "r"(a[pl][kt][3]), "r"(b.x), "r"(b.y));
         }
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          v[h][e] = (unsigned)c[0][e] + ((unsigned)c[1][e] << 8) +
+                    ((unsigned)c[2][e] << 16);
       }
       orow[4 * j + tg] = make_int4(v[0][0], v[0][1], v[1][0], v[1][1]);
       orow[8 * 32 + 4 * j + tg] = make_int4(v[0][2], v[0][3], v[1][2], v[1][3]);
@@ -461,21 +401,16 @@ int hj3t_probe_cumsum(const void* x, void* out, long long rows, int axis,
     cumsum_lanes_kernel<<<warp_rows_grid(rows), kThreads, 0, as_stream(stream)>>>(
         static_cast<const int*>(x), static_cast<int*>(out), rows);
   } else {
-    if (block_rows <= 0 || block_rows % 8 || rows % block_rows)
+    if (block_rows <= 0 || block_rows % kSeg || rows % block_rows)
       return (int)cudaErrorInvalidValue;
-    // segments of 16 rows where they tile the row blocks, else of 8
-    const int seg = (P3_SEG16 && block_rows % 16 == 0) ? 16 : 8, tile = 32 * seg;
-    const long long span =
-        block_rows >= tile ? block_rows : (long long)(tile / block_rows) * block_rows;
-    const unsigned grid = (unsigned)(4 * ((rows + span - 1) / span));
-    const int4* xi = static_cast<const int4*>(x);
-    int4* oi = static_cast<int4*>(out);
-    if (seg == 16)
-      cumsum_rows_kernel<16><<<grid, kThreads, 0, as_stream(stream)>>>(
-          xi, oi, rows, block_rows, span);
-    else
-      cumsum_rows_kernel<8><<<grid, kThreads, 0, as_stream(stream)>>>(
-          xi, oi, rows, block_rows, span);
+    // chunks of whole row blocks, at least a tile each
+    const long long span = block_rows >= kScanTile
+                               ? block_rows
+                               : (long long)(kScanTile / block_rows) * block_rows;
+    cumsum_rows_kernel<<<(unsigned)(4 * ((rows + span - 1) / span)), kThreads,
+                         0, as_stream(stream)>>>(
+        static_cast<const int4*>(x), static_cast<int4*>(out), rows,
+        block_rows, span);
   }
   return (int)cudaGetLastError();
 }
@@ -487,14 +422,11 @@ int hj3t_probe_onehot_matmul(const void* x, const void* p, void* out,
   if (rows < 0 || rows % 16) return (int)cudaErrorInvalidValue;
   if (rows == 0) return (int)cudaGetLastError();
   const long long tiles = rows / 16;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   long long grid = (tiles + kMmaWarps - 1) / kMmaWarps;
-  if (P4_BLOCKS_PER_SM > 0) {
-    int dev = 0, sms = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    const long long cap = (long long)P4_BLOCKS_PER_SM * sms;
-    if (grid > cap) grid = cap;
-  }
+  if (grid > (long long)kMmaBlocksPerSm * sms) grid = kMmaBlocksPerSm * sms;
   onehot_matmul_kernel<<<(unsigned)grid, kMmaWarps * 32, 0,
                          as_stream(stream)>>>(
       static_cast<const int4*>(x), static_cast<const int4*>(p),

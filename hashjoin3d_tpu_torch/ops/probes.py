@@ -123,7 +123,8 @@ def cumsum_plain(x: torch.Tensor, axis: int,
 def onehot_matmul(x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """P4: ``x @ p`` for ``0 <= x < 2^24`` and ``p`` an int32 (128, 128)
     matrix of zeros and ones (a one-hot permutation in the probe), on the
-    tensor cores: three bf16 byte planes of x, f32 sums, recombined."""
+    tensor cores: three u8 byte planes of x times p as u8, int32 sums,
+    recombined."""
     rows = _rows_of(x, "onehot_matmul")
     if p.dtype != I32 or p.shape != (LANES, LANES):
         raise ValueError("onehot_matmul: p must be int32 (128, 128)")
@@ -140,7 +141,8 @@ def onehot_matmul(x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
 
 
 def onehot_matmul_plain(x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """The kernel's arithmetic: each byte plane times p in float32 (exact:
+    """The kernel's arithmetic: each byte plane of x times p (the kernel's
+    u8 x u8 -> int32 products; here in float32, exact for the same reason:
     sums of at most 128 bytes), recombined in int32."""
     pf = p.float()
     out = torch.zeros_like(x)

@@ -57,7 +57,7 @@ class Case(NamedTuple):
     plain: Callable                 #: its plain PyTorch version
     n_elems: int
     inputs: tuple
-    flops: float = 0.0              #: bf16 tensor-core operations (P4)
+    int8_ops: float = 0.0           #: u8 tensor-core operations (P4)
     library: Callable | None = None  #: one PyTorch call of the same function
     library_name: str = ""
 
@@ -98,10 +98,10 @@ def cases(dev, shrink: int = 0) -> list[Case]:
                                      dtype=torch.int32).view(vals.shape)),
                library_name="torch.cumsum")
           for ax in (1, 0)],
-        Case("P4", "bf16 byte planes (rows,128)@(128,128) one-hot",
+        Case("P4", "u8 byte planes (rows,128)@(128,128) one-hot",
              lambda: probes.onehot_matmul(x20, perm_mat),
              lambda: probes.onehot_matmul_plain(x20, perm_mat), n,
-             (x20, perm_mat), flops=3 * 2 * rows * 128 * 128,
+             (x20, perm_mat), int8_ops=3 * 2 * rows * 128 * 128,
              library=lambda: torch.matmul(x20.float(), perm_mat.float()),
              library_name="torch.matmul f32"),
     ]
@@ -149,7 +149,7 @@ def run_case(c: Case, min_time: float) -> dict:
     ok = got.shape == want.shape and torch.equal(got, want)
     err = (int((got.long() - want.long()).abs().max())
            if got.shape == want.shape else None)
-    bound, bound_by = bound_ms(nbytes(*c.inputs, got), c.flops)
+    bound, bound_by = bound_ms(nbytes(*c.inputs, got), c.int8_ops)
     ms = events_ms(c.run, min_time)
     return dict(probe=c.probe, label=c.label, ok=ok, max_abs_err=err, ms=ms,
                 ns_per_elem=ms * 1e6 / c.n_elems,

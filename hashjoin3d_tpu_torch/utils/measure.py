@@ -23,8 +23,8 @@ import torch
 
 #: H100 SXM device memory rate, bytes/s (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
-#: H100 SXM dense bf16 tensor-core rate, flop/s (NVIDIA's data sheet)
-BF16_FLOPS = 989e12
+#: H100 SXM dense int8 tensor-core rate, operations/s (NVIDIA's data sheet)
+INT8_OPS = 1979e12
 
 
 def _sync(device: torch.device) -> None:
@@ -122,10 +122,10 @@ def nbytes(*tensors: torch.Tensor) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound_ms(n_bytes: int, bf16_flops: float = 0.0) -> tuple[float, str]:
+def bound_ms(n_bytes: int, int8_ops: float = 0.0) -> tuple[float, str]:
     """The least time the card could take: the larger of ``n_bytes`` over
-    the memory rate and ``bf16_flops`` over the tensor cores' bf16 rate;
+    the memory rate and ``int8_ops`` over the tensor cores' int8 rate;
     and which of the two bounds."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = bf16_flops / BF16_FLOPS * 1e3
+    t_ops = int8_ops / INT8_OPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")

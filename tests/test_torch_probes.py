@@ -10,6 +10,7 @@ point raises without a CUDA GPU.  The CUDA kernels themselves need the
 card: ``chip_smoke.py`` phase 5 holds each against these plain versions.
 """
 
+import importlib.util
 import subprocess
 import sys
 from pathlib import Path
@@ -62,6 +63,34 @@ def test_cumsum_lanes_and_row_blocks_wrap_in_int32(axis, block_rows):
     assert np.array_equal(got, want.astype(np.int32))
 
 
+@pytest.mark.parametrize("rows,block_rows", [
+    (1024, 1024),   # one block
+    (4096, 4096),
+    (8192, 4096),
+    (768, 24),      # 8-row segments, chunks shorter than a tile
+    (1536, 384),    # one block a chunk, a partial tile
+])
+def test_cumsum_row_blocks_at_the_edges(rows, block_rows):
+    x = rows_of(np.random.default_rng(27), rows)
+    got = probes.cumsum(t(x), 0, block_rows).numpy()
+    want = np.cumsum(x.astype(np.int64).reshape(-1, block_rows, 128),
+                     axis=1).reshape(x.shape)
+    assert np.array_equal(got, want.astype(np.int32))
+
+
+@pytest.mark.parametrize("rows", [16, 48])
+def test_onehot_matmul_with_a_column_of_ones_and_the_largest_x(rows):
+    rng = np.random.default_rng(28)
+    p = (rng.random((128, 128)) < 0.05).astype(np.int32)
+    p[:, 7] = 1                  # a column of 128 ones: 128 (2^24 - 1) sums
+    for x in (rows_of(rng, rows, 0, 1 << 24),
+              np.full((rows, 128), (1 << 24) - 1, np.int32)):
+        got = probes.onehot_matmul(t(x), t(p)).numpy()
+        want = x.astype(np.int64) @ p.astype(np.int64)
+        assert np.array_equal(got, want.astype(np.int32))
+    assert want[0, 7] == 128 * ((1 << 24) - 1)
+
+
 @pytest.mark.parametrize("matrix", ["reversal", "permutation", "zero_one"])
 def test_onehot_matmul_is_the_exact_product(matrix):
     rng = np.random.default_rng(23)
@@ -78,6 +107,16 @@ def test_onehot_matmul_is_the_exact_product(matrix):
     assert np.array_equal(got, want)
     if matrix == "reversal":
         assert np.array_equal(got, x[:, ::-1])
+
+
+def test_rotate_equals_its_gather_call():
+    """P2's library call in the runner: one ``torch.gather`` with the index
+    ``(lane + shift) & 127`` computed beforehand."""
+    rng = np.random.default_rng(29)
+    x = t(rows_of(rng, 96))
+    shifts = t(rng.integers(-300, 300, 96))
+    idx = (torch.arange(128) + shifts[:, None].long()) & 127
+    assert torch.equal(probes.rotate(x, shifts), torch.gather(x, 1, idx))
 
 
 @pytest.mark.parametrize("C", [1024, 4096,
@@ -167,6 +206,31 @@ def test_probe_runner_cases_on_the_cpu():
             lib = c.library()
             assert torch.equal(got, lib.reshape(got.shape).to(got.dtype)), \
                 c.label
+
+
+def test_launch_mode_probe_cases_on_the_cpu():
+    """The launch mode's probe section (``tools/torch_csr_perf.py``) builds
+    its cases from the runner's: P1, P2, P3 on both axes, P4, P6 and P9,
+    each kernel call equal to its library call where it has one (P1-P4),
+    with a positive bound by bytes."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_csr_perf", REPO / "tools" / "torch_csr_perf.py")
+    perf = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(perf)
+    cases = perf.probe_launch_cases("cpu", shrink=8)
+    assert {name.split()[0] for name in cases} == set(perf.LAUNCH_PROBES)
+    assert sum(name.startswith("P3") for name in cases) == 2
+    for name, (run, library, lib_name, bound, by) in cases.items():
+        got = run()
+        assert bound > 0 and by == "bytes", name
+        assert (library is not None) == name.startswith(
+            ("P1", "P2", "P3", "P4")), name
+        if library is not None:
+            assert lib_name.startswith("torch."), name
+            assert torch.equal(got, library().reshape(got.shape)
+                               .to(got.dtype)), name
+    assert list(perf.probe_launch_cases("cpu", ("P4",), shrink=8)) == [
+        name for name in cases if name.startswith("P4")]
 
 
 def test_roofline_rows_rehearsed_on_the_cpu():

@@ -192,7 +192,7 @@ def probe_launch_cases(dev, probe_ids=LAUNCH_PROBES,
     out = {}
     for c in mosaic_probe.cases(dev, shrink):
         if c.probe in probe_ids:
-            ms, by = bound_ms(nbytes(*c.inputs, c.run()), c.flops)
+            ms, by = bound_ms(nbytes(*c.inputs, c.run()), c.int8_ops)
             out[f"{c.probe} {c.label}"] = (c.run, c.library, c.library_name,
                                            ms, by)
     return out
