@@ -192,7 +192,10 @@ def probe_launch_cases(dev, probe_ids=LAUNCH_PROBES,
     out = {}
     for c in mosaic_probe.cases(dev, shrink):
         if c.probe in probe_ids:
-            ms, by = bound_ms(nbytes(*c.inputs, c.run()), c.int8_ops)
+            # a tree from before P4's u8 planes has no int8_ops: its bound
+            # is its bytes', as here
+            ms, by = bound_ms(nbytes(*c.inputs, c.run()),
+                              getattr(c, "int8_ops", 0.0))
             out[f"{c.probe} {c.label}"] = (c.run, c.library, c.library_name,
                                            ms, by)
     return out
