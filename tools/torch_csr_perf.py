@@ -68,11 +68,12 @@ time of the kernels, one JSON line::
   device (200 and 20 calls).  Last, the probe section (alone with
   ``--probes``; ``--probes P3,P4`` keeps those ids): the probe runner's
   own cases of P1, P2, P3 (axis 1 and axis 0), P4, P6 and P9
-  (``mosaic_probe.cases``) and the library call of each where it has one (``torch.roll``, ``torch.gather``,
-  ``torch.cumsum``, ``torch.matmul`` f32): host and device µs a call,
-  device operations a call and their names; for each kernel its bound,
-  its device share of the bound and its device time over its library
-  call's.  One line a case and side follows the JSON line.
+  (``mosaic_probe.cases``) and the library call of each where it has one
+  (``torch.roll``, ``torch.gather``, ``torch.cumsum``, ``torch.matmul``
+  f32): host and device µs a call, device operations a call and their
+  names; for each kernel its bound, its device share of the bound and its
+  device time over its library call's.  One line a case and side follows
+  the JSON line.
 """
 
 from __future__ import annotations
