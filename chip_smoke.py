@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port on one GPU: exp-1 plan Csr at R20/S24.
+"""Smoke run of the PyTorch/CUDA port on one GPU: exp-1's seven device plans.
 
 Run from the repository root on a machine with one CUDA GPU:
 
@@ -7,14 +7,16 @@ Run from the repository root on a machine with one CUDA GPU:
 
 It builds the hand-written kernels from ``hashjoin3d_tpu_torch/csrc`` and
 drives the port's main path, the reference's headline configuration
-(``main_experiment1 -R 20 -S 24 --no-skew -t 0 -b 1``: build 2^20 keys,
-probe 2^24 foreign keys).  Phases, any failure exits non-zero:
+(``main_experiment1 -R 20 -S 24 --no-skew -t 0 -b 1``: R.k 2^20 keys, S.a
+2^24 foreign keys) under the plans scr, scs, Csr, CsrUU, Nsr, Nrs and
+NrsNU.  Phases, any failure exits non-zero:
 
 0. the card and its power limit (``nvidia-smi``), the kernel build time;
 1. each kernel against its plain PyTorch version on the same CUDA tensors at
    the main-path shapes, bit-equal: K2 (words, its per-chunk coverage
    flags and their count, as ``safe_lookup`` calls it), K3 (the build's two
-   calls, then ragged sizes up to 2^24 + 77, four columns, maxpair both
+   calls, ``expand``'s ("max",) over Nrs's 2^24 output slots, then ragged
+   sizes up to 2^24 + 77, four columns, maxpair both
    ways, an unaligned column; its host and device time a call), and the
    radix sorts K1 (keys and
    rows) and K4 (1-op, take_min with an ascending payload, stable with a
@@ -23,15 +25,26 @@ probe 2^24 foreign keys).  Phases, any failure exits non-zero:
    widths, bit-equal except take_min with a shuffled payload, whose
    equal-key payload order is free (keys equal, each segment's payload a
    permutation that carries its own key);
-2. ``Experiment1(20, 24, Csr, device="cuda")``: its CSV c_* and ht_* columns
-   equal the reference's Csr row (``artifacts/r5/e1_t0c.csv``),
-   ``route_worst`` is 0, the result pairs equal (as a multiset) those of the
-   same build and strand run with the plain versions on CPU copies;
+2. ``Experiment1(20, 24, t=0, plans=scr .. NrsNU, device="cuda")``, the
+   launch counts set to 0 just before each plan: every row's value columns
+   (c_*, ht_*, parameters) equal the same plan's row of
+   ``artifacts/r5/e1_t0c.csv``, ``route_worst`` is 0 on every join plan,
+   each join plan's build fields equal the plain build's on CPU copies
+   (``chain_by_key``, the nested ``direct``/``bucket_main_len``, the
+   compacted directory, ``main_pos_by_group`` and ``key_direct``) and its
+   result pairs (NrsNU: probe row and group key) equal, as a multiset,
+   those of the same strand run with the plain versions on the CPU; one
+   line a plan with its strand times;
 3. a Csr probe with misses (2^24 keys, numpy seed 0, over
    [0, 2^20 + 2^18)): counters bit-equal and pairs multiset-equal to the
-   CPU plain run;
-4. launch counts, reset just before phase 2: K1, K2, K3 launched in phase 2,
-   K4 in phase 3 (R20/S24 never misses, so its main path bypasses K4);
+   CPU plain run; 3b. Nrs and NrsNU at R20/S24 ``-t 4`` and ``--skew -t 0``
+   (misses, 16 and 256 rows a key, a 1.16M-row hot group; 0.05 s minimum
+   time): rows equal to ``e1_t4.csv`` / ``e1_zipf.csv``, route 0, NrsNU's
+   c_htProbe and c_htProbeCmp equal Nrs's, builds and pairs equal to the
+   CPU run;
+4. launch counts: K1, K2 and K3 launched in phase 2's Csr, CsrUU and Nsr,
+   K2 and K3 in its Nrs, K4 in phase 3 and in phase 3b's Nrs at t=4 (the
+   t=0 plans never miss, so they bypass K4);
 5. K2b, the kernel only the measurement tools reach, bit-equal to K2 (with
    and without coverage) and to the plain lookup on phase 2's table, at
    W = 8192 and 32768, on the K1-sorted probes and five edge streams made
@@ -55,9 +68,11 @@ probe 2^24 foreign keys).  Phases, any failure exits non-zero:
 
 Prints one JSON line of per-kernel results, then, last,
 ``{"ok": true, "device": {...}}``.  ``launches`` there is the main path's
-count (phase 2 alone); ``miss_probe_launches`` is phase 3's,
+count (phase 2's plans summed), ``plan_launches`` each plan's, phase 3b's
+runs under "Nrs t=4" and the like; ``miss_probe_launches`` is phase 3's,
 ``probe_tool_launches`` phase 5's probe runner's (its check and timed
-launches) and ``tool_launches`` phase 5's roofline and csrprof path's.  ``bound_ms`` is the kernel's bytes
+launches) and ``tool_launches`` phase 5's roofline and csrprof path's.
+``bound_ms`` is the kernel's bytes
 (each input read once, each output written once) over 3.35 TB/s, or for P4
 its u8 tensor-core operations over 1979 TOP/s where that is larger;
 ``library_ms`` the PyTorch call that computes the same function (null where
@@ -79,6 +94,27 @@ import torch
 
 REPO = Path(__file__).resolve().parent
 REFERENCE_CSV = REPO / "artifacts" / "r5" / "e1_t0c.csv"
+#: the plans phase 2 runs, in the reference's order
+PLANS = ("scr", "scs", "Csr", "CsrUU", "Nsr", "Nrs", "NrsNU")
+#: phase 3b's runs with misses: (label, Experiment1 arguments, reference)
+MISS_RUNS = (("t=4", dict(skew=False, t=4),
+              REPO / "artifacts" / "r5" / "e1_t4.csv"),
+             ("zipf", dict(skew=True, t=0),
+              REPO / "artifacts" / "r5" / "e1_zipf.csv"))
+MISS_PLANS = ("Nrs", "NrsNU")
+MISS_MIN_TIME = 0.05
+#: each join plan's build fields held against the plain build on the CPU
+_NESTED_FIELDS = ("main_pos_by_group", "bucket_main_len", "key_direct",
+                  "groups.ukey", "groups.group_start", "groups.group_len",
+                  "groups.group_rows", "groups.first_row", "groups.n_keys")
+BUILD_FIELDS = {
+    "Csr": ("direct", "bucket_len", "bucket_start", "pos_by_row"),
+    "CsrUU": ("direct", "bucket_len", "bucket_start", "pos_by_row",
+              "chain_by_key"),
+    "Nsr": ("direct", "bucket_main_len"),
+    "Nrs": _NESTED_FIELDS,
+    "NrsNU": _NESTED_FIELDS,
+}
 LOG2_R, LOG2_S = 20, 24
 SEGMENT, WINDOW, KEY_BITS = 1 << 18, 8192, 20
 
@@ -222,10 +258,27 @@ def check_sort_shapes(dev):
                     small, chunk, lid)), f"K1 chunk {chunk} bits {key_bits}")
 
 
-def k3_cases(fwd, nxt, gen):
+def expand_heads(sa):
+    """The column ``expand`` scans with ("max",) in plan Nrs at R20/S24
+    t=0: 2^24 output slots, each group's rank at its first slot, -1
+    elsewhere (groups = S.a's keys in key order, as the permutation
+    probes of R.k give them)."""
+    from hashjoin3d_tpu_torch.ops.layout import I32
+
+    counts = torch.bincount(sa.long(), minlength=1 << LOG2_R).to(I32)
+    off = torch.cumsum(counts, 0, dtype=I32) - counts
+    rank = torch.arange(counts.shape[0], dtype=I32, device=sa.device)
+    heads = torch.full((sa.shape[0],), -1, dtype=I32, device=sa.device)
+    live = counts > 0
+    heads[off[live].long()] = rank[live]
+    return heads
+
+
+def k3_cases(fwd, nxt, heads, gen):
     """(label, columns, ops, reverse) of phase 1's K3 checks: the build's
-    two calls; (sum, max) both ways over full-range columns at 1, one tile
-    - 1, one tile + 1, three tiles + 77 and 2^24 + 77 elements; four
+    two calls; ``expand``'s ("max",) over 2^24 slots; (sum, max) both ways
+    over full-range columns at 1, one tile - 1, one tile + 1, three tiles
+    + 77 and 2^24 + 77 elements; four
     columns (sum, max, min, sum); maxpair both ways with heavy key ties;
     two maxpairs; (min, maxpair, max); a column at element offset 1 (4-byte
     loads)."""
@@ -244,7 +297,8 @@ def k3_cases(fwd, nxt, gen):
     tile = scan.tile()
     m = (1 << LOG2_R) + 77
     out = [("build", fwd, ("sum", "max"), False),
-           ("build", (nxt,), ("min",), True)]
+           ("build", (nxt,), ("min",), True),
+           ("expand", (heads,), ("max",), False)]
     for n in (1, tile - 1, tile + 1, 3 * tile + 77, (1 << 24) + 77):
         c = cols(2, n)
         out += [(f"n = {n}", c, ("sum", "max"), rev) for rev in (False, True)]
@@ -319,7 +373,8 @@ def phase1_kernels(rk, sa, ops):
     nxt[:-1] = torch.where(is_first, i, b.shape[0])[1:]
     gen = torch.Generator(device=dev).manual_seed(0)
     err = 0
-    for what, cols, op, rev in k3_cases(fwd, nxt, gen):
+    heads = expand_heads(sa)
+    for what, cols, op, rev in k3_cases(fwd, nxt, heads, gen):
         got = scan.multi_scan(cols, op, reverse=rev)
         want = scan.multi_scan_plain(cols, op, reverse=rev)
         for g, w in zip(got, want):
@@ -338,6 +393,7 @@ def phase1_kernels(rk, sa, ops):
             (nxt,), ("min",), reverse=True)),
         reverse_min_host_us=rev_host_us,
         reverse_min_device_ms=rev_device_us / 1e3,
+        expand_max_ms=cuda_ms(lambda: scan.multi_scan((heads,), ("max",))),
         plain_ms=cuda_ms(lambda: scan.multi_scan_plain(fwd, ("sum", "max"))),
         # no single call: cumsum + cummax, two calls
         library_ms=cuda_ms(lambda: (torch.cumsum(fwd[0], 0, dtype=I32),
@@ -390,9 +446,27 @@ def value_cols(header):
     return [i for i, c in enumerate(header) if c.startswith("c_") or c in keep]
 
 
-def csr_row(text):
+def plan_rows(text):
+    """(header, {plan: row}) of an exp-1 CSV."""
     rows = list(csv.reader(io.StringIO(text), delimiter=";"))
-    return rows[0], next(r for r in rows[1:] if r[9] == "Csr")
+    return rows[0], {r[9]: r for r in rows[1:]}
+
+
+def check_rows(text, ref_path, plans, what):
+    """Each plan's row equal to the reference's in every value column; the
+    scan plans' rows are one field short (no ``reps``) on both sides."""
+    hdr, rows = plan_rows(text)
+    ref_hdr, ref = plan_rows(ref_path.read_text())
+    require(hdr == ref_hdr, f"{what}: CSV header differs from the reference")
+    for plan in plans:
+        row, want = rows[plan], ref[plan]
+        require(len(row) == len(want), f"{what} {plan}: {len(row)} fields, "
+                f"the reference {len(want)}")
+        bad = [(hdr[i], row[i], want[i]) for i in value_cols(hdr)
+               if i < len(row) and row[i] != want[i]]
+        require(not bad, f"{what} {plan}: row differs from the reference "
+                f"{ref_path.name}: {bad}")
+    return hdr, rows
 
 
 def pairs_multiset_key(out: dict) -> torch.Tensor:
@@ -411,6 +485,126 @@ def same_join(got, want, what):
     require(torch.equal(pairs_multiset_key(got).cpu(),
                         pairs_multiset_key(want)),
             f"{what}: result pairs differ from the plain run")
+
+
+def field(table, name: str):
+    for part in name.split("."):
+        table = getattr(table, part)
+    return table
+
+
+def run_plans(exp, plans) -> dict:
+    """The CSV header, then each plan's row with the launch counts set to
+    0 just before it: {plan: counts after it}."""
+    from hashjoin3d_tpu_torch import kernels
+
+    launches = {}
+    exp.write_header()
+    for plan in plans:
+        kernels.reset_launch_counts()
+        exp.run_plan(plan)
+        torch.cuda.synchronize()
+        launches[plan] = dict(kernels.LAUNCHES)
+    return launches
+
+
+def nested_pairs_key(out: dict, table) -> torch.Tensor:
+    """NrsNU's nested tuples as one sorted int64 column
+    (probe_row << 32 | group key)."""
+    hit = out["nested_hit"]
+    ukey = table.groups.ukey[out["nested_g"][hit].long()]
+    packed = (out["nested_probe_row"][hit].to(torch.int64) * (1 << 32)
+              + (ukey.to(torch.int64) & 0xFFFFFFFF))
+    return torch.sort(packed).values
+
+
+def check_against_cpu(exp, exp_cpu, plans, what):
+    """Each plan's build and strand output on the card equal to the same
+    build and strand run with the plain versions on CPU copies of the
+    inputs: build fields bit-equal, counters equal, result pairs (NrsNU:
+    probe row and group key) equal as multisets.  Nrs and NrsNU share one
+    CPU build."""
+    cpu_tables = {}
+    for plan in plans:
+        table, out = exp.results[plan]
+        jp = exp_cpu.join_plan(plan)
+        build = "Nrs" if plan == "NrsNU" else plan
+        if build not in cpu_tables:
+            cpu_tables[build] = jp.build(jp.build_keys)
+        tcpu = cpu_tables[build]
+        for f in BUILD_FIELDS[plan]:
+            require(torch.equal(field(table, f).cpu(), field(tcpu, f)),
+                    f"{what} {plan}: build field {f} differs from the "
+                    "plain build")
+        ocpu = jp.probe(tcpu, jp.probe_keys)
+        if plan == "NrsNU":
+            for k in ("c_htProbe", "c_htProbeCmp", "c_top"):
+                require(int(out[k]) == int(ocpu[k]), f"{what} {plan}: {k} "
+                        f"{int(out[k])} != plain {int(ocpu[k])}")
+            require(torch.equal(nested_pairs_key(out, table).cpu(),
+                                nested_pairs_key(ocpu, tcpu)),
+                    f"{what} {plan}: nested tuples differ from the plain run")
+        else:
+            same_join(out, ocpu, f"{what} {plan}")
+            if "c_unnest" in ocpu:
+                require(int(out["c_unnest"]) == int(ocpu["c_unnest"]),
+                        f"{what} {plan}: c_unnest differs from the plain run")
+        del ocpu
+    del cpu_tables
+
+
+def plan_line(hdr, row, what, card) -> str:
+    """One printed line a plan: its strand times and the card."""
+    col = {c: row[i] for i, c in enumerate(hdr[:len(row)])}
+    if row[9] in ("scr", "scs"):  # no reps field: t_total sits at reps
+        col = {c: row[i] for i, c in enumerate(
+            [c for c in hdr if c != "reps"])}
+        return (f"{what} {row[9]} on {card}: t_total {col['t_total']} ns, "
+                f"t_buildStr NA, t_probeStr NA, c_top {col['c_top']}")
+    probes = int(col["c_scanProbe"])
+    t_probe = int(col["t_probeStr"])
+    return (f"{what} {row[9]} on {card}: t_buildStr {col['t_buildStr']} ns, "
+            f"t_probeStr {t_probe} ns, "
+            f"{probes / (t_probe * 1e-9) / 1e6:.1f} M probes/s, reps "
+            f"{col['reps']}, c_htProbe {col['c_htProbe']}, c_htProbeCmp "
+            f"{col['c_htProbeCmp']}, c_unnest {col['c_unnest']}, c_top "
+            f"{col['c_top']}")
+
+
+def phase3b_misses(dev, card):
+    """Nrs and NrsNU at R20/S24 t=4 and under zipf (misses, 16-256 rows a
+    key, a 1.16M-row hot group): rows equal to the reference's, route 0,
+    NrsNU's shared counters equal Nrs's, card equal to the CPU run; the
+    launch counts of each plan from 0."""
+    from hashjoin3d_tpu_torch.models.exp1 import Experiment1
+
+    launches = {}
+    for label, kw, ref in MISS_RUNS:
+        buf = io.StringIO()
+        exp = Experiment1(LOG2_R, LOG2_S, b=1, plans=MISS_PLANS,
+                          measure_file=buf, min_runtime_s=MISS_MIN_TIME,
+                          device=dev, **kw)
+        exp.init()
+        counts = run_plans(exp, MISS_PLANS)
+        hdr, rows = check_rows(buf.getvalue(), ref, MISS_PLANS,
+                               f"phase 3b {label}")
+        for k in ("c_htProbe", "c_htProbeCmp"):
+            i = hdr.index(k)
+            require(rows["NrsNU"][i] == rows["Nrs"][i],
+                    f"phase 3b {label}: NrsNU's {k} differs from Nrs's")
+        for plan in MISS_PLANS:
+            require(exp.results[plan][1]["route_worst"] == 0,
+                    f"phase 3b {label} {plan}: route_worst "
+                    f"{exp.results[plan][1]['route_worst']}")
+            launches[f"{plan} {label}"] = counts[plan]
+            print(plan_line(hdr, rows[plan], f"phase 3b {label}", card))
+        exp_cpu = Experiment1(LOG2_R, LOG2_S, b=1, plans=MISS_PLANS,
+                              device="cpu", trace=False, **kw)
+        exp_cpu.init()
+        check_against_cpu(exp, exp_cpu, MISS_PLANS, f"phase 3b {label}")
+        del exp, exp_cpu
+        torch.cuda.empty_cache()
+    return launches
 
 
 def edge_streams(sk, T):
@@ -709,43 +903,34 @@ def main() -> int:
               f"{r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms")
     del table
 
-    # phase 2: the main path, Experiment1 plan Csr on the card
-    kernels.reset_launch_counts()
+    # phase 2: the main path, Experiment1's seven plans on the card, the
+    # launch counts set to 0 just before each plan
     buf = io.StringIO()
-    exp = Experiment1(LOG2_R, LOG2_S, skew=False, t=0, b=1, plans=("Csr",),
+    exp = Experiment1(LOG2_R, LOG2_S, skew=False, t=0, b=1, plans=PLANS,
                       measure_file=buf, device=dev)
     exp.init()
-    exp.run()
-    torch.cuda.synchronize()
-    after2 = dict(kernels.LAUNCHES)
-    ref_hdr, ref = csr_row(REFERENCE_CSV.read_text())
-    hdr, row = csr_row(buf.getvalue())
-    require(hdr == ref_hdr, "CSV header differs from the reference")
-    bad = [(hdr[i], row[i], ref[i]) for i in value_cols(hdr)
-           if row[i] != ref[i]]
-    require(not bad, f"Csr row differs from the reference: {bad}")
+    plan_launches = run_plans(exp, PLANS)
+    hdr, rows = check_rows(buf.getvalue(), REFERENCE_CSV, PLANS, "phase 2")
+    for plan in PLANS[2:]:
+        route = exp.results[plan][1]["route_worst"]
+        require(route == 0, f"phase 2 {plan}: route_worst {route} at the "
+                "canonical shape")
+    for plan in PLANS:
+        print(plan_line(hdr, rows[plan], f"phase 2 R{LOG2_R}/S{LOG2_S} t=0",
+                        card))
+    for plan in PLANS:
+        print("CSV " + ";".join(rows[plan]))
+    exp_cpu = Experiment1(LOG2_R, LOG2_S, skew=False, t=0, b=1, plans=PLANS,
+                          device="cpu", trace=False)
+    exp_cpu.init()
+    check_against_cpu(exp, exp_cpu, PLANS[2:], "phase 2")
     table_gpu, out_gpu = exp.results["Csr"]
-    require(out_gpu["route_worst"] == 0,
-            f"route_worst {out_gpu['route_worst']} at the canonical shape")
-    rk_cpu, sa_cpu = exp.rk.cpu(), exp.sa.cpu()
-    table_cpu = build_chaining_host(rk_cpu, 1 << LOG2_R, dense_direct=True,
-                                    n_keys=1 << LOG2_R)
-    for f in ("direct", "bucket_len", "bucket_start", "pos_by_row"):
-        require(torch.equal(getattr(table_gpu, f).cpu(),
-                            getattr(table_cpu, f)),
-                f"build: {f} differs from the plain build")
-    same_join(out_gpu, direct_probe_strand_sorted(table_cpu, sa_cpu,
-                                                  unique=True), "phase 2")
-    t_build, t_probe = (int(row[hdr.index(c)])
-                        for c in ("t_buildStr", "t_probeStr"))
-    print(f"phase 2 Csr R{LOG2_R}/S{LOG2_S} on {card}: t_buildStr {t_build} "
-          f"ns, t_probeStr {t_probe} ns, "
-          f"{(1 << LOG2_S) / (t_probe * 1e-9) / 1e6:.1f} M probes/s, "
-          f"c_htProbe {row[hdr.index('c_htProbe')]}, "
-          f"c_htProbeCmp {row[hdr.index('c_htProbeCmp')]}, route_worst 0")
-    print("CSV " + buf.getvalue().splitlines()[1])
+    table_cpu = exp_cpu.join_plan("Csr").build(exp_cpu.rk)
+    after2 = {k: sum(c[k] for c in plan_launches.values())
+              for k in kernels.LAUNCHES}
 
     # phase 3: Csr probe with misses
+    kernels.reset_launch_counts()
     out3 = direct_probe_strand_sorted(table_gpu, wide, unique=True)
     torch.cuda.synchronize()
     after3 = dict(kernels.LAUNCHES)
@@ -754,14 +939,29 @@ def main() -> int:
     print(f"phase 3 misses: c_htProbe {int(out3['c_htProbe'])}, "
           f"c_htProbeCmp {int(out3['c_htProbeCmp'])}, route_worst "
           f"{out3['route_worst']} (route_nbad {out3['route_nbad']})")
+    del exp_cpu, table_cpu
+
+    # phase 3b: Nrs and NrsNU at t=4 and under zipf
+    miss_launches = phase3b_misses(dev, card)
 
     # phase 4: the paths went through the kernels
-    for name in ("bitonic_sort_packed_segmented", "windowed_lookup",
-                 "multi_scan"):
-        require(after2[name] > 0, f"{name} not launched in phase 2")
+    need = {"Csr": ("bitonic_sort_packed_segmented", "windowed_lookup",
+                    "multi_scan"),
+            "Nrs": ("windowed_lookup", "multi_scan")}
+    need["CsrUU"] = need["Nsr"] = need["Csr"]
+    for plan, names in need.items():
+        for name in names:
+            require(plan_launches[plan][name] > 0,
+                    f"{name} not launched in phase 2's {plan}")
     require(after3["bitonic_sort_segmented"] > 0,
             "bitonic_sort_segmented not launched in phase 3")
-    print(f"launches after phase 2 {after2}, after phase 3 {after3}")
+    require(miss_launches["Nrs t=4"]["bitonic_sort_segmented"] > 0,
+            "bitonic_sort_segmented not launched in phase 3b's Nrs t=4")
+    plan_launches.update(miss_launches)
+    for plan, counts in plan_launches.items():
+        print(f"launches {plan}: " + json.dumps(
+            {k: v for k, v in counts.items() if v}))
+    print(f"launches after phase 3 {after3}")
 
     # phase 5: K2 and K2b edge cases, safe_lookup's routes on the card, P8,
     # P1-P9, and the measurement tools' path
@@ -809,7 +1009,8 @@ def main() -> int:
     entries = [
         dict(name=name, route="cuda", source=src, replaces=rep,
              launches=after2[key],
-             miss_probe_launches=after3[key] - after2[key],
+             plan_launches={p: c[key] for p, c in plan_launches.items()},
+             miss_probe_launches=after3[key],
              tool_launches=tools[key],
              probe_tool_launches=probe_tools[key], **results[name])
         for name, (src, rep, key) in KERNELS.items()]
@@ -819,7 +1020,8 @@ def main() -> int:
             source="hashjoin3d_tpu_torch/csrc/probes.cu",
             replaces=f"tools/mosaic_probe.py:{line}",
             launches=after2[key],
-            miss_probe_launches=after3[key] - after2[key],
+            plan_launches={p: c[key] for p, c in plan_launches.items()},
+            miss_probe_launches=after3[key],
             tool_launches=tools[key],
             probe_tool_launches=probe_tools[key], **probe_results[pid]))
     print(json.dumps({"kernels": entries}))

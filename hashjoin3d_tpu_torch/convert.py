@@ -1,29 +1,76 @@
 """Carry table state from the JAX package into the port.
 
 ``chaining_table_from_numpy`` turns a JAX dense-direct ``ChainingTable``'s
-arrays (after ``np.asarray``) into the port's table on ``device``, so the
-port's probe strand can be held against a table the JAX package built.
+arrays (after ``np.asarray``) into the port's table on ``device``, and
+``nested_table_from_numpy`` does the same for a JAX ``NestedTable`` in
+either layout, so the port's probe strands can be held against tables the
+JAX package built.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .ops.chaining import ChainingTable
-from .ops.layout import from_numpy_u32
+from .ops.layout import GroupIndex, I32, empty_group_index, from_numpy_u32
+from .ops.nested import NestedTable
 
-#: the JAX table fields the port's dense-direct table carries
+#: the JAX table fields the port's dense-direct chaining table carries
 FIELDS = ("bucket_start", "bucket_len", "pos_by_row", "keys", "direct")
+#: fields carried when present (CsrUU's ``full_chain_index``)
+OPTIONAL_FIELDS = ("chain_by_key",)
+#: the fields of a dense-direct nested table
+NESTED_DENSE_FIELDS = ("bucket_main_len", "keys", "direct")
+#: the fields of a compacted nested table, ``groups.*`` its GroupIndex
+NESTED_FIELDS = ("main_pos_by_group", "bucket_main_len", "keys",
+                 "key_direct", "groups.ukey", "groups.group_start",
+                 "groups.group_len", "groups.group_rows", "groups.first_row",
+                 "groups.gid_by_row", "groups.n_keys")
+
+
+def _columns(fields: dict, names, device) -> dict:
+    missing = [f for f in names if f not in fields]
+    if missing:
+        raise KeyError(f"missing table fields {missing}")
+    return {f: from_numpy_u32(np.asarray(fields[f]), device) for f in names}
 
 
 def chaining_table_from_numpy(fields: dict[str, np.ndarray], *,
                               num_buckets: int, direct_shift: int,
                               hashfun: str, device) -> ChainingTable:
-    """``fields`` maps each name of :data:`FIELDS` to a u32 or i32 numpy
-    column; every column becomes its int32 carrier on ``device``."""
-    missing = [f for f in FIELDS if f not in fields]
-    if missing:
-        raise KeyError(f"missing table fields {missing}")
-    cols = {f: from_numpy_u32(np.asarray(fields[f]), device) for f in FIELDS}
+    """``fields`` maps each name of :data:`FIELDS` (and, where the table has
+    it, of :data:`OPTIONAL_FIELDS`) to a u32 or i32 numpy column; every
+    column becomes its int32 carrier on ``device``."""
+    cols = _columns(fields, FIELDS, device)
+    for f in OPTIONAL_FIELDS:
+        if fields.get(f) is not None:
+            cols[f] = from_numpy_u32(np.asarray(fields[f]), device)
     return ChainingTable(**cols, direct_shift=direct_shift,
                          num_buckets=num_buckets, hashfun=hashfun)
+
+
+def nested_table_from_numpy(fields: dict[str, np.ndarray], *,
+                            num_buckets: int, hashfun: str, device,
+                            direct_shift: int = 0) -> NestedTable:
+    """A JAX ``NestedTable`` as the port's.  A dense-direct table
+    (``fields`` has ``direct``) carries :data:`NESTED_DENSE_FIELDS` and
+    ``direct_shift``; a compacted one carries :data:`NESTED_FIELDS`
+    (``groups.n_keys`` a scalar)."""
+    if fields.get("direct") is not None:
+        cols = _columns(fields, NESTED_DENSE_FIELDS, device)
+        n = cols["keys"].shape[0]
+        return NestedTable(groups=empty_group_index(n, torch.device(device)),
+                           main_pos_by_group=torch.zeros(
+                               0, dtype=I32, device=device),
+                           num_buckets=num_buckets, hashfun=hashfun,
+                           direct_shift=direct_shift, **cols)
+    arrays = [f for f in NESTED_FIELDS if f != "groups.n_keys"]
+    cols = _columns(fields, arrays, device)
+    groups = GroupIndex(
+        **{f.split(".")[1]: cols.pop(f) for f in arrays
+           if f.startswith("groups.")},
+        n_keys=torch.tensor(int(fields["groups.n_keys"]), dtype=I32,
+                            device=device))
+    return NestedTable(groups=groups, num_buckets=num_buckets,
+                       hashfun=hashfun, **cols)

@@ -1,14 +1,17 @@
 """Chaining hash table: the dense-direct build of exp-1's R side.
 
 Port of ``hashjoin3d_tpu/ops/chaining.py`` (``ChainingTable``,
-``can_use_dense_direct``, ``_build_chaining_dense``, the dense branch of
-``build_chaining_host``).  Semantics of the reference ``HtChaining1``
-(``ht_chaining.hh``): a row's bucket is ``murmur32(key) % num_buckets``; each
+``can_use_dense_direct``, ``_build_chaining_dense`` with its
+``full_chain_index``, the dense branch of ``build_chaining_host``).
+Semantics of the reference ``HtChaining1`` (``ht_chaining.hh``): a row's
+bucket is ``murmur32(key) % num_buckets``; each
 bucket's chain is [first-inserted row, then the rest in reverse insertion
 order].  When the build keys are a permutation of [0, n) (exp-1's R.k) the
 probe needs no directory: ``direct[key]`` packs
 ``row | (chain_pos + 1) << direct_shift``, so one lookup answers a probe
-and its early-exit comparison count.
+and its early-exit comparison count.  Probes without early exit (plan
+CsrUU) count whole chains: ``chain_by_key[key]`` is the chain length of
+the key's bucket.
 """
 
 from __future__ import annotations
@@ -36,6 +39,21 @@ class ChainingTable:
     direct_shift: int
     num_buckets: int
     hashfun: str = "murmur"
+    #: i32[n] full chain length of each key's bucket (``full_chain_index``)
+    chain_by_key: torch.Tensor | None = None
+
+    def memory_consumption(self) -> dict:
+        """Device bytes of the table, split like the reference's
+        ``memoryConsupmtion{,Dir,Chains}`` (``ht_chaining.hh:161-177``):
+        ``dir`` the per-bucket arrays, ``chains`` everything row-sized."""
+        dir_bytes = _nbytes(self.bucket_start, self.bucket_len)
+        chains = _nbytes(self.pos_by_row, self.keys, self.direct,
+                         self.chain_by_key)
+        return dict(total=dir_bytes + chains, dir=dir_bytes, chains=chains)
+
+
+def _nbytes(*arrays) -> int:
+    return sum(a.numel() * a.element_size() for a in arrays if a is not None)
 
 
 def can_use_dense_direct(keys_np, num_buckets: int,
@@ -58,11 +76,13 @@ def can_use_dense_direct(keys_np, num_buckets: int,
 
 
 def _build_chaining_dense(keys: torch.Tensor, num_buckets: int,
+                          full_chain_index: bool = False,
                           hashfun: str = "murmur") -> ChainingTable:
     """Dense-direct build (permutation keys only, see
     :func:`can_use_dense_direct`): stable sort by bucket, run structure by
     scans (K3), histogram, chain positions, and the packed ``direct``
-    image."""
+    image; ``full_chain_index`` adds ``chain_by_key`` (key == row for
+    permutation keys)."""
     n = keys.shape[0]
     row = torch.arange(n, dtype=I32, device=keys.device)
     b = bucket_of(hash_key(keys, hashfun), num_buckets)
@@ -79,10 +99,14 @@ def _build_chaining_dense(keys: torch.Tensor, num_buckets: int,
     direct_shift = (n - 1).bit_length()
     packed = row.to(I64) | ((pos_by_row.to(I64) + 1) << direct_shift)
     direct = inverse_permute(keys, i64_to_u32(packed))
+    chain_by_key = None
+    if full_chain_index:
+        chain_by_key = bucket_len[
+            bucket_of(hash_key(row, hashfun), num_buckets).long()]
     return ChainingTable(bucket_start=bucket_start, bucket_len=bucket_len,
                          pos_by_row=pos_by_row, keys=keys, direct=direct,
                          direct_shift=direct_shift, num_buckets=num_buckets,
-                         hashfun=hashfun)
+                         hashfun=hashfun, chain_by_key=chain_by_key)
 
 
 def build_chaining_host(keys: torch.Tensor, num_buckets: int,
@@ -92,13 +116,14 @@ def build_chaining_host(keys: torch.Tensor, num_buckets: int,
                         hashfun: str = "murmur") -> ChainingTable:
     """Build a chaining table from a u32 key column (int32 carrier) on its
     own device.  Only the dense-direct branch (permutation keys,
-    ``dense_direct=True, n_keys=len(keys)``) is ported."""
-    if full_chain_index:
-        raise NotImplementedError(
-            "full_chain_index (plan CsrUU) comes with ROADMAP slice 2")
+    ``dense_direct=True, n_keys=len(keys)``) is ported;
+    ``full_chain_index`` materialises ``chain_by_key`` for probes that
+    count whole chains (plan CsrUU)."""
     if not (dense_direct and n_keys == keys.shape[0]):
         raise NotImplementedError(
             "only the dense-direct build is ported; the compacted builds "
             "(_build_chaining_fused / _build_chaining_phase2) come with "
             "ROADMAP slice 3")
-    return _build_chaining_dense(keys, num_buckets, hashfun=hashfun)
+    return _build_chaining_dense(keys, num_buckets,
+                                 full_chain_index=full_chain_index,
+                                 hashfun=hashfun)

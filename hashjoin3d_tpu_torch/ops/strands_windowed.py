@@ -1,11 +1,14 @@
-"""The sorted windowed probe strand of exp-1 plan Csr.
+"""The sorted windowed probe strands of exp-1's device plans.
 
-Port of ``hashjoin3d_tpu/ops/strands_windowed.py`` for dense-direct
-chaining tables: probes are sorted once (segmented, K1 / K4), every sorted
-probe fetches its packed ``direct`` word with one windowed lookup (K2), and
-missing probes walk their bucket chains through a second sorted stream.
-Emission is in sorted-key order; result pairs equal the reference's as
-multisets and the counters (c_htProbe, c_htProbeCmp) are bit-equal.
+Port of ``hashjoin3d_tpu/ops/strands_windowed.py``: the dense-direct strand
+of plans Csr, CsrUU and Nsr, and the key_direct nested strand of plans Nrs
+and NrsNU.  Probes are sorted once (segmented, K1 / K4) or, for a
+permutation probe column, not at all; every per-key and per-group array is
+then read by one windowed lookup (K2) on a nondecreasing stream, the unnest
+expansion scans with K3, and missing probes walk their bucket chains
+through a second sorted stream.  Emission is in sorted-key order; result
+pairs equal the reference's as multisets and the counters (c_htProbe,
+c_htProbeCmp, c_unnest, c_top) are bit-equal.
 
 The JAX ``lax.cond`` / ``lax.switch`` routes are Python branches here, each
 on one value read back from the device.  Every :func:`safe_lookup` inside a
@@ -24,7 +27,8 @@ import torch
 
 from .bitonic import bitonic_sort_packed_segmented
 from .hashing import bucket_of, hash_key
-from .layout import I32, I64, SIGN, is_sorted_ascending, shr
+from .layout import (I32, I64, SIGN, expand, inverse_permute,
+                     is_sorted_ascending, shr)
 from .sort import (probe_sort_chunk, sort_segmented, sort_segmented_1op,
                    window_for_chunk)
 from .windowed import DEFAULT_C, DEFAULT_W, windowed_lookup_covered
@@ -200,23 +204,25 @@ def _miss_chain_cmps(table_bucket_len, num_buckets, skey, miss_mask,
 @_with_route
 def direct_probe_strand_sorted(table, pk: torch.Tensor, unique: bool = False,
                                nested: bool = False, mask=None) -> dict:
-    """Windowed Csr probe strand over a dense-direct chaining table.
+    """Windowed Csr / CsrUU / Nsr probe strand over a dense-direct table.
 
-    ``pk``: probe keys, u32 carrier on the table's device.  Returns the
-    result pairs (``probe_row``, ``build_row``; -1 where a sorted probe
-    missed), ``total`` / ``c_htProbe`` (matches) and ``c_htProbeCmp``, plus
-    ``route_worst`` / ``route_nbad``.  Only ``unique=True`` (early exit) is
-    ported; ``unique=False`` (CsrUU) and ``nested=True`` (Nsr) come with
-    ROADMAP slice 2, ``mask`` (CsrSel) with the mask path of slice 3.
+    ``pk``: probe keys, u32 carrier on the table's device.  One windowed
+    lookup of the packed ``(row | pos+1 << shift)`` word answers each
+    sorted probe.  ``unique=True`` (Csr) counts the early-exit position;
+    ``unique=False`` (CsrUU, a chaining table built with
+    ``full_chain_index``) counts the key's whole chain, a second lookup of
+    ``chain_by_key``; ``nested=True`` (Nsr, a nested dense-direct table)
+    counts the main-chain position, walks ``bucket_main_len`` on a miss and
+    unnests the singleton groups positionally (``c_unnest`` = matches).
+    Returns the result pairs (``probe_row``, ``build_row``; -1 where a
+    sorted probe missed), ``total`` / ``c_htProbe`` (matches) and
+    ``c_htProbeCmp``, plus ``route_worst`` / ``route_nbad``.  ``mask``
+    (CsrSel) comes with the mask path of ROADMAP slice 3.
     """
     if mask is not None:
         raise NotImplementedError(
             "direct_probe_strand_sorted: mask (plan CsrSel) comes with the "
             "mask path of ROADMAP slice 3")
-    if not unique or nested:
-        raise NotImplementedError(
-            "direct_probe_strand_sorted: only unique=True without nested is "
-            "ported (ROADMAP slice 2 brings CsrUU and Nsr)")
     direct = table.direct
     if pk.device != direct.device:
         raise ValueError(f"probe keys on {pk.device}, table on "
@@ -228,17 +234,133 @@ def direct_probe_strand_sorted(table, pk: torch.Tensor, unique: bool = False,
     hit = d != 0  # packed words carry a 1-based chain position: never 0
     shift = table.direct_shift
     row = d & ((1 << shift) - 1)
-    pos1 = shr(d, shift) if shift else d
 
-    miss_cmps = _miss_chain_cmps(table.bucket_len, table.num_buckets, skey,
-                                 ~hit, table.hashfun)
-    cmps = torch.where(hit, pos1, 0).to(I64).sum() + miss_cmps
+    blen = table.bucket_main_len if nested else table.bucket_len
+    miss_cmps = _miss_chain_cmps(blen, table.num_buckets, skey, ~hit,
+                                 table.hashfun)
+    if unique or nested:
+        walked = shr(d, shift) if shift else d
+    else:
+        # no early exit: every hit walks its key's whole chain
+        walked = safe_lookup(table.chain_by_key, skey, W=Wk)
+    cmps = torch.where(hit, walked, 0).to(I64).sum() + miss_cmps
     m = hit.to(I64).sum()
-    return dict(
+    out = dict(
         probe_row=torch.where(hit, srow, -1),
         build_row=torch.where(hit, row, -1),
         total=m,
         c_htProbe=m,
         c_htProbeCmp=cmps,
     )
+    if nested:
+        out["c_unnest"] = m
+    return out
 
+
+def rows_window(P: int, segment: int | None, n_rows: int,
+                out_size: int) -> tuple:
+    """(W, C) for CSR row-position streams (``group_start[g] + within``)
+    emitted by the expansion of a ``segment``-sorted probe stream: a
+    segmented stream revisits the whole ``n_rows`` range once per segment,
+    multiplying the advance rate by ``P / segment``; the window keeps a 2x
+    margin over the expected spread."""
+    nseg = 1 if segment is None else max(P // segment, 1)
+    return stride_params(nseg * n_rows / max(out_size, 1), margin=2.0)
+
+
+def _keydirect_probe(table, skey: torch.Tensor, g: torch.Tensor | None = None,
+                     W: int = DEFAULT_W):
+    """Windowed ``key_direct`` probe of sorted keys: ``(g, hit, glen, pos1,
+    miss_cmps)`` with -1 / 0 miss markers.  ``g`` skips the key_direct
+    lookup when the caller already has the group-id stream (permutation
+    probes: the key_direct image itself).  The g stream inherits the key
+    stream's order, so one window width ``W`` serves both."""
+    if g is None:
+        g = safe_lookup(table.key_direct + 1, skey, W=W) - 1
+    hit = g >= 0
+    glen = safe_lookup(table.groups.group_len, g, W=W)
+    pos1 = safe_lookup(table.main_pos_by_group + 1, g, W=W)
+    miss_cmps = _miss_chain_cmps(table.bucket_main_len, table.num_buckets,
+                                 skey, ~hit, table.hashfun)
+    return g, hit, glen, pos1, miss_cmps
+
+
+@_with_route
+def keydirect_nested_strand_sorted(table, pk: torch.Tensor, out_size: int,
+                                   do_unnest: bool = True,
+                                   probes_iota: bool = False,
+                                   probes_permutation: bool = False,
+                                   mask=None, presorted: bool = False,
+                                   srow_values=None, segment=None) -> dict:
+    """Windowed Nrs / NrsNU probe strand over a ``key_direct`` nested
+    table.
+
+    The probes are sorted (``_sort_probes`` over the key_direct domain), or,
+    with ``probes_permutation`` (keys a permutation of [0, P): exp-1's R.k),
+    not sorted at all: the sorted keys are the identity, the probe rows one
+    inverse permutation, and the key_direct image itself is the group-id
+    stream.  Every per-group array is then read by ``safe_lookup`` (K2) on
+    a nondecreasing stream.  ``do_unnest`` expands each hit into its
+    group's rows (``expand``; build rows ascending within a group, probe
+    rows from ``srow[p]``), up to ``out_size`` result pairs, ``c_unnest`` =
+    the expanded count; without it the nested tuples (``nested_g``,
+    ``nested_hit``, ``nested_probe_row``) go to the top and ``c_top`` =
+    matches.  ``probes_iota`` (exp-4, ROADMAP slice 4), ``mask`` (slice 3)
+    and ``presorted`` / ``srow_values`` / ``segment`` (slice 6) are not
+    ported yet.
+    """
+    if probes_iota:
+        raise NotImplementedError(
+            "keydirect_nested_strand_sorted: probes_iota (exp-4) comes with "
+            "ROADMAP slice 4")
+    if mask is not None:
+        raise NotImplementedError(
+            "keydirect_nested_strand_sorted: mask (plan NrsSel) comes with "
+            "the mask path of ROADMAP slice 3")
+    if presorted or srow_values is not None or segment is not None:
+        raise NotImplementedError(
+            "keydirect_nested_strand_sorted: presorted / srow_values / "
+            "segment (the distributed strands) come with ROADMAP slice 6")
+    kd = table.key_direct
+    if pk.device != kd.device:
+        raise ValueError(f"probe keys on {pk.device}, table on {kd.device}")
+    P = pk.shape[0]
+    dom = kd.shape[0]
+    if probes_permutation:
+        # sorted(permutation of [0, P)) is the identity; srow its inverse
+        rowv = torch.arange(P, dtype=I32, device=pk.device)
+        skey, srow, Wk, seg = rowv, inverse_permute(pk, rowv), DEFAULT_W, None
+        g0 = (kd[:P] if P <= dom else
+              torch.cat([kd, kd.new_full((P - dom,), -1)]))
+        g, hit, glen, pos1, miss_cmps = _keydirect_probe(table, skey, g=g0)
+    else:
+        skey, srow, Wk, seg = _sort_probes(pk, domain=dom)
+        g, hit, glen, pos1, miss_cmps = _keydirect_probe(table, skey, W=Wk)
+    m = hit.to(I64).sum()
+    cmps = pos1.to(I64).sum() + miss_cmps
+
+    if not do_unnest:
+        return dict(nested_g=torch.where(hit, g, -1), nested_hit=hit,
+                    nested_probe_row=srow, c_htProbe=m, c_htProbeCmp=cmps,
+                    c_top=m)
+
+    gstart_by_p = safe_lookup(table.groups.group_start, g, W=Wk)
+    p, within, valid, total = expand(glen, out_size)[:4]
+    # p-keyed lookups advance by ~P/out_size per output slot
+    Wp, Cp = stride_params(P / out_size)
+    gst = safe_lookup(gstart_by_p, p, W=Wp, C=Cp)
+    # ascending within-group emission keeps group_rows positions
+    # near-contiguous, so the windowed lookup covers even a million-row
+    # group; pairs are multiset-equal to the reference's [first, rest LIFO]
+    Wr, Cr = rows_window(P, seg, table.groups.group_rows.shape[0], out_size)
+    build_row = safe_lookup(table.groups.group_rows, gst + within, W=Wr,
+                            C=Cr)
+    probe_row = safe_lookup(srow, p, W=Wp, C=Cp)
+    total = total.to(I64)
+    return dict(
+        probe_row=torch.where(valid, probe_row, -1),
+        build_row=torch.where(valid, build_row, -1),
+        total=total,
+        c_htProbe=m, c_htProbeCmp=cmps,
+        c_unnest=total,
+    )

@@ -11,13 +11,16 @@ The measurement tools (``tools/roofline.py``, ``tools/csrprof.py``,
 ``tools/mosaic_probe.py``) time on CUDA events with :func:`events_ms`, name
 the card with :func:`card`, and state each bound with :func:`bound_ms`;
 :func:`host_device_us` splits a small call's time into its host and device
-parts.
+parts.  :class:`Timers` are the harness's named start/stop timers
+(``--print-timers``).
 """
 
 from __future__ import annotations
 
 import subprocess
+import sys
 import time
+from dataclasses import dataclass, field
 
 import torch
 
@@ -27,7 +30,8 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS = 1979e12
 
 
-def _sync(device: torch.device) -> None:
+def sync(device: torch.device) -> None:
+    """Wait for the device's queued work (a no-op for the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
@@ -40,15 +44,35 @@ def repeat_mintime(min_time_s: float, func, device: torch.device,
     i = 0
     out = None
     while i < n:
-        _sync(device)
+        sync(device)
         t0 = time.perf_counter()
         out = func()
-        _sync(device)
+        sync(device)
         total += time.perf_counter() - t0
         if i == n - 1 and total < min_time_s:
             n *= 2
         i += 1
     return total, n, out
+
+
+@dataclass
+class Timers:
+    """Named start/stop experiment timers on the host clock
+    (``main_experiment1.cc:199-201,1349-1359``)."""
+
+    points: dict = field(default_factory=dict)
+
+    def start(self, desc: str) -> None:
+        self.points[desc] = [time.perf_counter(), None]
+
+    def stop(self, desc: str) -> None:
+        self.points[desc][1] = time.perf_counter()
+
+    def print(self, out=None) -> None:
+        out = out or sys.stdout
+        for desc, (t0, t1) in sorted(self.points.items()):
+            end = t1 if t1 is not None else time.perf_counter()
+            out.write(f"  {desc}|{(end - t0) * 1e3:.3f} ms\n")
 
 
 def require_cuda() -> torch.device:

@@ -139,6 +139,8 @@ def test_only_the_dense_build_is_ported():
     keys = t32(np.arange(16, dtype=np.uint32))
     with pytest.raises(NotImplementedError, match="slice 3"):
         build_chaining_host(keys, 16)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        build_chaining_host(keys, 16, dense_direct=True, n_keys=16,
-                            full_chain_index=True)
+    # the dense build's full chain index (plan CsrUU) is ported
+    tbl = build_chaining_host(keys, 16, dense_direct=True, n_keys=16,
+                              full_chain_index=True)
+    want = tbl.bucket_len[th.bucket_of(th.hash_key(keys), 16).long()]
+    assert torch.equal(tbl.chain_by_key, want)

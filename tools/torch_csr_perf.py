@@ -36,6 +36,11 @@ prints the card and its power limit (``nvidia-smi``) first.
 ``profile``: where the time of the build and the probe strand goes::
 
     python3 tools/torch_csr_perf.py profile [--reps 10] [--root TREE]
+        [--plans Csr,CsrUU,Nsr,Nrs,NrsNU]
+
+  ``--plans`` (default Csr) names the exp-1 plans at R20/S24 t=0 to
+  profile; a plan other than Csr takes its strands from
+  ``Experiment1.join_plan`` (a tree without it profiles Csr only).
 
   Each strand runs ``reps`` times in one ``torch.profiler`` window, between
   two synchronisations.  Printed per rep: the window's host wall time, the
@@ -151,6 +156,20 @@ def strands(dev):
     table = build()
     return build, lambda: direct_probe_strand_sorted(table, sa,
                                                      unique=True), sa, rk
+
+
+def plan_strands(dev, plan: str):
+    """(build, probe) closures of an exp-1 plan at R20/S24 t=0, wired as
+    ``Experiment1`` wires it."""
+    from hashjoin3d_tpu_torch.models.exp1 import Experiment1
+
+    exp = Experiment1(LOG2_R, LOG2_S, False, 0, plans=(plan,), trace=False,
+                      device=dev)
+    exp.init()
+    jp = exp.join_plan(plan)
+    table = jp.build(jp.build_keys)
+    return (lambda: jp.build(jp.build_keys),
+            lambda: jp.probe(table, jp.probe_keys))
 
 
 def k3_calls(rk) -> dict:
@@ -517,6 +536,7 @@ def main() -> int:
     p = sub.add_parser("profile")
     p.add_argument("--reps", type=int, default=10)
     p.add_argument("--root", type=Path, default=here)
+    p.add_argument("--plans", default="Csr")
     la = sub.add_parser("launch")
     la.add_argument("--root", type=Path, default=here)
     la.add_argument("--probes", nargs="?", const=",".join(LAUNCH_PROBES),
@@ -549,9 +569,13 @@ def main() -> int:
                   + (f"  share of bound {r['share_of_bound']:.3f}"
                      if "bound_us" in r else ""))
     else:
-        build, probe, _, _ = strands(dev)
-        profile_strand("build", build, args.reps)
-        profile_strand("probe", probe, args.reps)
+        for plan in args.plans.split(","):
+            build, probe = (strands(dev)[:2] if plan == "Csr"
+                            else plan_strands(dev, plan))
+            profile_strand(f"{plan} build", build, args.reps)
+            profile_strand(f"{plan} probe", probe, args.reps)
+            del build, probe
+            torch.cuda.empty_cache()
     return 0
 
 
