@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port on one GPU: exp-1's seven device plans.
+"""Smoke run of the PyTorch/CUDA port on one GPU: exp-1's eleven device
+plans and exp-4's three.
 
 Run from the repository root on a machine with one CUDA GPU:
 
@@ -8,8 +9,9 @@ Run from the repository root on a machine with one CUDA GPU:
 It builds the hand-written kernels from ``hashjoin3d_tpu_torch/csrc`` and
 drives the port's main path, the reference's headline configuration
 (``main_experiment1 -R 20 -S 24 --no-skew -t 0 -b 1``: R.k 2^20 keys, S.a
-2^24 foreign keys) under the plans scr, scs, Csr, CsrUU, Nsr, Nrs and
-NrsNU.  Phases, any failure exits non-zero:
+2^24 foreign keys) under every plan (``all`` and the three *Sel plans),
+then exp-4 (``main_experiment4 -R 24 -a 4 -A 4 -b 2 -B 2``: |R| 2^24,
+|S| = |T| = 12,582,912).  Phases, any failure exits non-zero:
 
 0. the card and its power limit (``nvidia-smi``), the kernel build time;
 1. each kernel against its plain PyTorch version on the same CUDA tensors at
@@ -25,25 +27,31 @@ NrsNU.  Phases, any failure exits non-zero:
    widths, bit-equal except take_min with a shuffled payload, whose
    equal-key payload order is free (keys equal, each segment's payload a
    permutation that carries its own key);
-2. ``Experiment1(20, 24, t=0, plans=scr .. NrsNU, device="cuda")``, the
-   launch counts set to 0 just before each plan: every row's value columns
-   (c_*, ht_*, parameters) equal the same plan's row of
-   ``artifacts/r5/e1_t0c.csv``, ``route_worst`` is 0 on every join plan,
-   each join plan's build fields equal the plain build's on CPU copies
-   (``chain_by_key``, the nested ``direct``/``bucket_main_len``, the
-   compacted directory, ``main_pos_by_group`` and ``key_direct``) and its
-   result pairs (NrsNU: probe row and group key) equal, as a multiset,
-   those of the same strand run with the plain versions on the CPU; one
-   line a plan with its strand times;
+2. ``Experiment1(20, 24, t=0, plans=all + CsrSel, CrsSel, NrsSel,
+   device="cuda")``, the launch counts set to 0 just before each plan:
+   every row of ``all``'s plans equals the same plan's row of
+   ``artifacts/r5/e1_t0c.csv`` in its value columns (c_*, ht_*,
+   parameters); the *Sel rows' c_selProbe, c_htProbe and c_top equal their
+   numpy counts; ``route_worst`` is 0 on every join plan; each join plan's
+   build fields equal the plain build's on CPU copies (``chain_by_key``,
+   the nested ``direct``/``bucket_main_len``, the compacted directories,
+   ``main_pos_by_group`` and ``key_direct``) and its counters and result
+   pairs (NrsNU: probe row and group key) equal, as a multiset, those of
+   the same strand run with the plain versions on the CPU; one line a plan
+   with its strand times; then one call of Crs's strand on its sorted
+   route (R.k not declared a permutation: K1 sorts it), equal to the
+   permutation route's counters and pairs;
 3. a Csr probe with misses (2^24 keys, numpy seed 0, over
    [0, 2^20 + 2^18)): counters bit-equal and pairs multiset-equal to the
-   CPU plain run; 3b. Nrs and NrsNU at R20/S24 ``-t 4`` and ``--skew -t 0``
-   (misses, 16 and 256 rows a key, a 1.16M-row hot group; 0.05 s minimum
-   time): rows equal to ``e1_t4.csv`` / ``e1_zipf.csv``, route 0, NrsNU's
-   c_htProbe and c_htProbeCmp equal Nrs's, builds and pairs equal to the
-   CPU run;
+   CPU plain run; 3b. Crs, Nrs and NrsNU at R20/S24 ``-t 4`` and ``--skew
+   -t 0`` (misses, 16 and 256 rows a key, a 1.16M-row hot group; 0.05 s
+   minimum time): rows equal to ``e1_t4.csv`` / ``e1_zipf.csv``, route 0,
+   NrsNU's c_htProbe and c_htProbeCmp equal Nrs's, builds and pairs equal
+   to the CPU run;
 4. launch counts: K1, K2 and K3 launched in phase 2's Csr, CsrUU and Nsr,
-   K2 and K3 in its Nrs, K4 in phase 3 and in phase 3b's Nrs at t=4 (the
+   K2 and K3 in its Nrs and in each new plan (Crs and the *Sel plans), K4
+   in its Crs and CrsSel (their whole-chain walks), K1 on the sorted route
+   of Crs's strand, K4 in phase 3 and in phase 3b's Nrs at t=4 (the other
    t=0 plans never miss, so they bypass K4);
 5. K2b, the kernel only the measurement tools reach, bit-equal to K2 (with
    and without coverage) and to the plain lookup on phase 2's table, at
@@ -66,12 +74,23 @@ NrsNU.  Phases, any failure exits non-zero:
    minimum time, counts reset just before them: K2b must launch there, and
    csrprof's ``safe_lookup`` stages print.
 
+6. ``Experiment4`` with plans Ndu, Chj and Nnu at ``-R 24 -a 4 -A 4 -b 2
+   -B 2`` (the reference's timing protocol) and at ``-R 20`` (0.05 s
+   minimum time), the launch counts set to 0 just before each plan: Ndu's
+   and Chj's rows equal ``artifacts/r5/e4_24.csv`` / ``e4_20.csv`` in
+   every value column, Nnu's c_top equals numFkCommon, ``route_worst`` is
+   0; at R20 every plan's counters, result triples (Nnu: its nested
+   tuples) equal the CPU run's, as multisets, and K2, K3 and K4 launch in
+   each plan (at R24 the probe walks sort globally, with no K4).
+
 Prints one JSON line of per-kernel results, then, last,
 ``{"ok": true, "device": {...}}``.  ``launches`` there is the main path's
 count (phase 2's plans summed), ``plan_launches`` each plan's, phase 3b's
-runs under "Nrs t=4" and the like; ``miss_probe_launches`` is phase 3's,
-``probe_tool_launches`` phase 5's probe runner's (its check and timed
-launches) and ``tool_launches`` phase 5's roofline and csrprof path's.
+runs under "Nrs t=4" and the like, phase 6's under "Ndu R24" and the
+like, the sorted-route call under "Crs sorted route";
+``miss_probe_launches`` is phase 3's, ``probe_tool_launches`` phase 5's
+probe runner's (its check and timed launches) and ``tool_launches`` phase
+5's roofline and csrprof path's.
 ``bound_ms`` is the kernel's bytes
 (each input read once, each output written once) over 3.35 TB/s, or for P4
 its u8 tensor-core operations over 1979 TOP/s where that is larger;
@@ -94,27 +113,40 @@ import torch
 
 REPO = Path(__file__).resolve().parent
 REFERENCE_CSV = REPO / "artifacts" / "r5" / "e1_t0c.csv"
-#: the plans phase 2 runs, in the reference's order
-PLANS = ("scr", "scs", "Csr", "CsrUU", "Nsr", "Nrs", "NrsNU")
+#: the plans phase 2 runs, in the harness's order; the *Sel plans have no
+#: reference row
+PLANS = ("scr", "scs", "Csr", "CsrUU", "Crs", "Nsr", "Nrs", "NrsNU",
+         "CsrSel", "CrsSel", "NrsSel")
+SEL_PLANS = ("CsrSel", "CrsSel", "NrsSel")
+REF_PLANS = tuple(p for p in PLANS if p not in SEL_PLANS)
 #: phase 3b's runs with misses: (label, Experiment1 arguments, reference)
 MISS_RUNS = (("t=4", dict(skew=False, t=4),
               REPO / "artifacts" / "r5" / "e1_t4.csv"),
              ("zipf", dict(skew=True, t=0),
               REPO / "artifacts" / "r5" / "e1_zipf.csv"))
-MISS_PLANS = ("Nrs", "NrsNU")
+MISS_PLANS = ("Crs", "Nrs", "NrsNU")
 MISS_MIN_TIME = 0.05
 #: each join plan's build fields held against the plain build on the CPU
-_NESTED_FIELDS = ("main_pos_by_group", "bucket_main_len", "key_direct",
-                  "groups.ukey", "groups.group_start", "groups.group_len",
-                  "groups.group_rows", "groups.first_row", "groups.n_keys")
+_GROUP_FIELDS = ("key_direct", "groups.ukey", "groups.group_start",
+                 "groups.group_len", "groups.group_rows", "groups.first_row",
+                 "groups.n_keys")
+_NESTED_FIELDS = ("main_pos_by_group", "bucket_main_len", *_GROUP_FIELDS)
 BUILD_FIELDS = {
     "Csr": ("direct", "bucket_len", "bucket_start", "pos_by_row"),
     "CsrUU": ("direct", "bucket_len", "bucket_start", "pos_by_row",
               "chain_by_key"),
+    "Crs": ("bucket_len", "bucket_start", *_GROUP_FIELDS),
     "Nsr": ("direct", "bucket_main_len"),
     "Nrs": _NESTED_FIELDS,
-    "NrsNU": _NESTED_FIELDS,
 }
+#: plans whose build is another plan's (one CPU build serves both)
+SAME_BUILD = {"NrsNU": "Nrs", "NrsSel": "Nrs", "CsrSel": "Csr",
+              "CrsSel": "Crs"}
+#: phase 6's exp-4 runs: (label, -R, reference CSV, minimum time)
+EXP4_RUNS = (("R24", 24, REPO / "artifacts" / "r5" / "e4_24.csv", 0.3),
+             ("R20", 20, REPO / "artifacts" / "r5" / "e4_20.csv", 0.05))
+EXP4_PARAMS = dict(alpha=4, mult_alpha=4, beta=2, mult_beta=2)
+EXP4_PLANS = ("Ndu", "Chj", "Nnu")
 LOG2_R, LOG2_S = 20, 24
 SEGMENT, WINDOW, KEY_BITS = 1 << 18, 8192, 20
 
@@ -479,11 +511,13 @@ def pairs_multiset_key(out: dict) -> torch.Tensor:
 
 
 def same_join(got, want, what):
-    for k in ("c_htProbe", "c_htProbeCmp", "total"):
+    for k in ("c_htProbe", "c_htProbeCmp", "total", "c_selProbe"):
+        if k not in want:
+            continue
         require(int(got[k]) == int(want[k]),
                 f"{what}: {k} {int(got[k])} != plain {int(want[k])}")
     require(torch.equal(pairs_multiset_key(got).cpu(),
-                        pairs_multiset_key(want)),
+                        pairs_multiset_key(want).cpu()),
             f"{what}: result pairs differ from the plain run")
 
 
@@ -522,17 +556,17 @@ def check_against_cpu(exp, exp_cpu, plans, what):
     """Each plan's build and strand output on the card equal to the same
     build and strand run with the plain versions on CPU copies of the
     inputs: build fields bit-equal, counters equal, result pairs (NrsNU:
-    probe row and group key) equal as multisets.  Nrs and NrsNU share one
-    CPU build."""
+    probe row and group key) equal as multisets.  Plans with the same
+    build share one CPU build (``SAME_BUILD``)."""
     cpu_tables = {}
     for plan in plans:
         table, out = exp.results[plan]
         jp = exp_cpu.join_plan(plan)
-        build = "Nrs" if plan == "NrsNU" else plan
+        build = SAME_BUILD.get(plan, plan)
         if build not in cpu_tables:
             cpu_tables[build] = jp.build(jp.build_keys)
         tcpu = cpu_tables[build]
-        for f in BUILD_FIELDS[plan]:
+        for f in BUILD_FIELDS[build]:
             require(torch.equal(field(table, f).cpu(), field(tcpu, f)),
                     f"{what} {plan}: build field {f} differs from the "
                     "plain build")
@@ -566,14 +600,16 @@ def plan_line(hdr, row, what, card) -> str:
     return (f"{what} {row[9]} on {card}: t_buildStr {col['t_buildStr']} ns, "
             f"t_probeStr {t_probe} ns, "
             f"{probes / (t_probe * 1e-9) / 1e6:.1f} M probes/s, reps "
-            f"{col['reps']}, c_htProbe {col['c_htProbe']}, c_htProbeCmp "
+            f"{col['reps']}, c_selProbe {col['c_selProbe']}, c_htProbe "
+            f"{col['c_htProbe']}, c_htProbeCmp "
             f"{col['c_htProbeCmp']}, c_unnest {col['c_unnest']}, c_top "
             f"{col['c_top']}")
 
 
 def phase3b_misses(dev, card):
-    """Nrs and NrsNU at R20/S24 t=4 and under zipf (misses, 16-256 rows a
-    key, a 1.16M-row hot group): rows equal to the reference's, route 0,
+    """Crs, Nrs and NrsNU at R20/S24 t=4 and under zipf (misses, 16-256
+    rows a key, a 1.16M-row hot group): rows equal to the reference's,
+    route 0,
     NrsNU's shared counters equal Nrs's, card equal to the CPU run; the
     launch counts of each plan from 0."""
     from hashjoin3d_tpu_torch.models.exp1 import Experiment1
@@ -867,6 +903,150 @@ def phase5_tools(dev):
     return dict(kernels.LAUNCHES), times
 
 
+def check_sel_rows(hdr, rows, rk_np, sa_np):
+    """The *Sel rows' c_selProbe, c_htProbe and c_top against numpy counts
+    of filter-then-join at R20/S24 t=0: CsrSel keeps S.a < 2^19 (every one
+    hits R), CrsSel and NrsSel keep R.k < 2^19 (CrsSel matches each S row
+    of those keys, NrsSel each distinct key once and unnests its rows)."""
+    half = 1 << (LOG2_R - 1)
+    sel_s = sa_np[sa_np < half]
+    want = {"CsrSel": (sel_s.size, sel_s.size, sel_s.size),
+            "CrsSel": (int((rk_np < half).sum()), sel_s.size, sel_s.size),
+            "NrsSel": (int((rk_np < half).sum()), np.unique(sel_s).size,
+                       sel_s.size)}
+    for plan, counts in want.items():
+        got = tuple(int(rows[plan][hdr.index(k)])
+                    for k in ("c_selProbe", "c_htProbe", "c_top"))
+        require(got == counts, f"phase 2 {plan}: (c_selProbe, c_htProbe, "
+                f"c_top) {got}, numpy {counts}")
+
+
+def phase2_sorted_route(exp):
+    """Crs's strand on its sorted route: R.k not declared a permutation,
+    so ``_sort_probes`` sorts it (K1 over 2^18-key segments); counters and
+    pairs equal the permutation route's.  The four sorted segments each
+    restart the expansion's row stream, and its window (8192, the cap)
+    keeps no margin there, so a few boundary chunks take the patched route
+    (1, exact), as the same call does on the CPU.  Returns the call's
+    launch counts, from 0, and its (route, nbad)."""
+    from hashjoin3d_tpu_torch import kernels
+    from hashjoin3d_tpu_torch.ops.strands_windowed import (
+        keydirect_chaining_strand_sorted)
+
+    table, out = exp.results["Crs"]
+    kernels.reset_launch_counts()
+    got = keydirect_chaining_strand_sorted(table, exp.rk, 1 << LOG2_S)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    same_join(got, out, "phase 2 Crs sorted route")
+    require(got["route_worst"] <= 1, f"phase 2 Crs sorted route: "
+            f"route_worst {got['route_worst']}")
+    require(launches["bitonic_sort_packed_segmented"] > 0,
+            "bitonic_sort_packed_segmented not launched on Crs's sorted "
+            "route")
+    return launches, (got["route_worst"], got["route_nbad"])
+
+
+def triples_key(out: dict) -> torch.Tensor:
+    """An exp-4 strand's result triples as one sorted int64 column
+    (r << 42 | s << 21 | t; rows below 2^21 at R20)."""
+    live = out["r_row"] >= 0
+    r, s, t = (out[k][live].to(torch.int64) for k in ("r_row", "s_row",
+                                                       "t_row"))
+    return torch.sort((r << 42) | (s << 21) | t).values
+
+
+def exp4_line(hdr, row, what, card) -> str:
+    col = dict(zip(hdr, row))
+    return (f"{what} {row[10]} on {card}: t_build_S {col['t_build_S']} ns, "
+            f"t_build_T {col['t_build_T']} ns, t_probe_R {col['t_probe_R']}"
+            f" ns, reps {col['reps']}, c_probe_RS {col['c_probe_RS']}, "
+            f"c_probe_RS_cmp {col['c_probe_RS_cmp']}, c_probe_RT "
+            f"{col['c_probe_RT']}, c_probe_RT_cmp {col['c_probe_RT_cmp']}, "
+            f"c_top {col['c_top']}")
+
+
+def phase6_exp4(dev, card):
+    """Ndu, Chj and Nnu at R24 and R20 (``EXP4_RUNS``), the launch counts
+    set to 0 just before each plan: Ndu's and Chj's rows equal the
+    reference's in every value column, Nnu's c_top is numFkCommon, route
+    0; at R20 counters, triples and Nnu's nested tuples equal the CPU
+    run's, and K2, K3 and K4 launch in every plan."""
+    from hashjoin3d_tpu_torch import kernels
+    from hashjoin3d_tpu_torch.models.exp4 import Experiment4
+
+    launches = {}
+    for label, log2_r, ref, min_time in EXP4_RUNS:
+        buf = io.StringIO()
+        exp = Experiment4(log2_r, **EXP4_PARAMS, plans=EXP4_PLANS,
+                          measure_file=buf, min_runtime_s=min_time,
+                          device=dev)
+        exp.init()
+        exp.write_header()
+        for plan in EXP4_PLANS:
+            kernels.reset_launch_counts()
+            exp.run_plan(plan)
+            torch.cuda.synchronize()
+            launches[f"{plan} {label}"] = dict(kernels.LAUNCHES)
+        rows = list(csv.reader(io.StringIO(buf.getvalue()), delimiter=";"))
+        hdr, got = rows[0], {r[10]: r for r in rows[1:]}
+        ref_rows = list(csv.reader(io.StringIO(ref.read_text()),
+                                   delimiter=";"))
+        require(ref_rows[0] == hdr, f"phase 6 {label}: CSV header differs")
+        keep = [i for i, c in enumerate(hdr) if c.startswith(("c_", "card"))
+                or c in ("plan", "ht_impl", "log2CardR", "a", "aM", "b",
+                         "bM")]
+        for want in ref_rows[1:]:
+            bad = [(hdr[i], got[want[10]][i], want[i]) for i in keep
+                   if got[want[10]][i] != want[i]]
+            require(not bad, f"phase 6 {label} {want[10]}: row differs from "
+                    f"{ref.name}: {bad}")
+        require(int(got["Nnu"][hdr.index("c_top")]) == exp.num_fk_common,
+                f"phase 6 {label} Nnu: c_top is not numFkCommon")
+        for plan in EXP4_PLANS:
+            route = exp.results[plan][2]["route_worst"]
+            require(route == 0, f"phase 6 {label} {plan}: route_worst "
+                    f"{route}")
+            print(exp4_line(hdr, got[plan], f"phase 6 {label}", card))
+            print("CSV " + ";".join(got[plan]))
+        if log2_r == 20:
+            check_exp4_against_cpu(exp, launches, label)
+        del exp
+        torch.cuda.empty_cache()
+    return launches
+
+
+def check_exp4_against_cpu(exp, launches, label):
+    """Each plan's strand on the CPU (plain versions) over CPU copies of
+    the inputs and builds: counters equal, triples (Nnu: nested tuples)
+    equal as multisets; K2, K3 and K4 launched in every plan's run."""
+    from hashjoin3d_tpu_torch.models.exp4 import Experiment4
+
+    cpu = Experiment4(exp.log2_card_r, **EXP4_PARAMS, plans=EXP4_PLANS,
+                      device="cpu", trace=False)
+    cpu.init()
+    for plan in EXP4_PLANS:
+        _, _, out = exp.results[plan]
+        ocpu = cpu.probe(plan, cpu.build(plan, cpu.sa),
+                         cpu.build(plan, cpu.ta), cpu.rk)
+        for k, v in ocpu.items():
+            if k.startswith("c_"):
+                require(int(out[k]) == int(v), f"phase 6 {label} {plan}: {k} "
+                        f"{int(out[k])} != plain {int(v)}")
+        if plan == "Nnu":
+            for k in ("g_s", "g_t"):
+                require(torch.equal(out[k].cpu(), ocpu[k]),
+                        f"phase 6 {label} Nnu: {k} differs from the CPU run")
+        else:
+            require(torch.equal(triples_key(out).cpu(), triples_key(ocpu)),
+                    f"phase 6 {label} {plan}: triples differ from the CPU "
+                    "run")
+        for name in ("windowed_lookup", "multi_scan",
+                     "bitonic_sort_segmented"):
+            require(launches[f"{plan} {label}"][name] > 0,
+                    f"{name} not launched in phase 6's {plan} {label}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -903,14 +1083,16 @@ def main() -> int:
               f"{r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms")
     del table
 
-    # phase 2: the main path, Experiment1's seven plans on the card, the
+    # phase 2: the main path, Experiment1's eleven plans on the card, the
     # launch counts set to 0 just before each plan
     buf = io.StringIO()
     exp = Experiment1(LOG2_R, LOG2_S, skew=False, t=0, b=1, plans=PLANS,
                       measure_file=buf, device=dev)
     exp.init()
     plan_launches = run_plans(exp, PLANS)
-    hdr, rows = check_rows(buf.getvalue(), REFERENCE_CSV, PLANS, "phase 2")
+    hdr, rows = check_rows(buf.getvalue(), REFERENCE_CSV, REF_PLANS,
+                           "phase 2")
+    check_sel_rows(hdr, rows, rk_np, sa_np)
     for plan in PLANS[2:]:
         route = exp.results[plan][1]["route_worst"]
         require(route == 0, f"phase 2 {plan}: route_worst {route} at the "
@@ -924,6 +1106,9 @@ def main() -> int:
                           device="cpu", trace=False)
     exp_cpu.init()
     check_against_cpu(exp, exp_cpu, PLANS[2:], "phase 2")
+    sorted_route, route = phase2_sorted_route(exp)
+    print("phase 2 Crs sorted route (K1): counters and pairs equal the "
+          f"permutation route's; (route, nbad) {route}")
     table_gpu, out_gpu = exp.results["Csr"]
     table_cpu = exp_cpu.join_plan("Csr").build(exp_cpu.rk)
     after2 = {k: sum(c[k] for c in plan_launches.values())
@@ -941,23 +1126,29 @@ def main() -> int:
           f"{out3['route_worst']} (route_nbad {out3['route_nbad']})")
     del exp_cpu, table_cpu
 
-    # phase 3b: Nrs and NrsNU at t=4 and under zipf
+    # phase 3b: Crs, Nrs and NrsNU at t=4 and under zipf
     miss_launches = phase3b_misses(dev, card)
 
     # phase 4: the paths went through the kernels
     need = {"Csr": ("bitonic_sort_packed_segmented", "windowed_lookup",
                     "multi_scan"),
-            "Nrs": ("windowed_lookup", "multi_scan")}
+            "Nrs": ("windowed_lookup", "multi_scan"),
+            "Crs": ("windowed_lookup", "multi_scan",
+                    "bitonic_sort_segmented")}
     need["CsrUU"] = need["Nsr"] = need["Csr"]
+    need["CsrSel"] = need["NrsSel"] = need["Nrs"]
+    need["CrsSel"] = need["Crs"]
     for plan, names in need.items():
         for name in names:
             require(plan_launches[plan][name] > 0,
                     f"{name} not launched in phase 2's {plan}")
     require(after3["bitonic_sort_segmented"] > 0,
             "bitonic_sort_segmented not launched in phase 3")
-    require(miss_launches["Nrs t=4"]["bitonic_sort_segmented"] > 0,
-            "bitonic_sort_segmented not launched in phase 3b's Nrs t=4")
+    for run in ("Nrs t=4", "Crs t=4"):
+        require(miss_launches[run]["bitonic_sort_segmented"] > 0,
+                f"bitonic_sort_segmented not launched in phase 3b's {run}")
     plan_launches.update(miss_launches)
+    plan_launches["Crs sorted route"] = sorted_route
     for plan, counts in plan_launches.items():
         print(f"launches {plan}: " + json.dumps(
             {k: v for k, v in counts.items() if v}))
@@ -1005,6 +1196,16 @@ def main() -> int:
     print(f"launches on the tools' path {tools}")
     print("phase 5 csrprof stage 2 on " + card + ": " + json.dumps(
         {k: v for k, v in stage_ms.items() if k.startswith("2")}))
+
+    # phase 6: exp-4's plans at R24 and R20
+    t6 = time.perf_counter()
+    exp4_launches = phase6_exp4(dev, card)
+    print(f"phase 6: {time.perf_counter() - t6:.1f} s; smoke so far "
+          f"{time.perf_counter() - t0:.1f} s")
+    plan_launches.update(exp4_launches)
+    for plan, counts in exp4_launches.items():
+        print(f"launches {plan}: " + json.dumps(
+            {k: v for k, v in counts.items() if v}))
 
     entries = [
         dict(name=name, route="cuda", source=src, replaces=rep,

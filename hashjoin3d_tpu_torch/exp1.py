@@ -4,7 +4,7 @@ Mirrors the reference executable's interface (``main_experiment1.cc:
 1374-1461``) and the JAX package's ``exp1.py``::
 
   python3 -m hashjoin3d_tpu_torch.exp1 -R 20 -S 24 --no-skew -t 0 -b 1 \\
-      --measure-file - -p scr,scs,Csr,CsrUU,Nsr,Nrs,NrsNU
+      --measure-file - -p all,CsrSel,CrsSel,NrsSel
 
 Runs on the first CUDA GPU unless ``--device cpu`` asks for the CPU (plain
 PyTorch versions of every kernel); ``cuda`` on a host without a GPU fails.
@@ -18,8 +18,6 @@ import sys
 
 
 def main(argv=None) -> int:
-    from .models.exp1 import PORTED_PLANS
-
     ap = argparse.ArgumentParser(
         description="Hash Table Experiment 1 (PyTorch/CUDA port)")
     ap.add_argument("-R", "--card-R", type=int, required=True,
@@ -38,11 +36,12 @@ def main(argv=None) -> int:
                     help="bucket scale-down: #buckets = #dv/b")
     ap.add_argument("--measure-file", required=True,
                     help="CSV output path ('-' for stdout)")
-    ap.add_argument("-p", "--plans", default=",".join(PORTED_PLANS),
-                    help="comma-separated plans (scr,scs,Csr,CsrUU,Nsr,Nrs,"
-                    "NrsNU; 'all' also selects Crs, which is not ported yet) "
-                    "or numeric plans_e bitmask values (e.g. 4,32 = "
-                    "Csr,Nsr); default: every ported plan")
+    ap.add_argument("-p", "--plans", default="all",
+                    help="comma-separated plans (scr,scs,Csr,CsrUU,Crs,Nsr,"
+                    "Nrs,NrsNU,all; plus CsrSel,CrsSel,NrsSel, the "
+                    "reference's declared-only selection plans, which 'all' "
+                    "leaves out like its ALL mask) or numeric plans_e "
+                    "bitmask values (e.g. 4,8 = Csr,Crs)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="run on the GPU (default) or, with the kernels' "
                     "plain PyTorch versions, on the CPU")

@@ -2,18 +2,24 @@
 
 Port of ``hashjoin3d_tpu/models/exp1.py`` (``main_experiment1.cc``): R.k is
 a shuffled iota of 2^R keys, S.a 2^S foreign keys over [0, 2^(R-t)),
-uniform or zipf(1.0).  Plans ported:
+uniform or zipf(1.0).  All eleven plans of the JAX harness:
 
   scr/scs  scan-only calibration (one un-repeated scan -> top run)
   Csr      chaining table, build R probe S, early exit
   CsrUU    the same without early exit (whole chains counted)
+  Crs      chaining table, build S probe R (duplicate chains)
   Nsr      3D table, build R probe S, + unnest
   Nrs      3D table, build S probe R, + unnest
   NrsNU    3D table, build S probe R, nested tuples straight to the top
+  CsrSel, CrsSel, NrsSel
+           Csr, Crs and Nrs with a selection pushed under the probe
+           (``attr < domain / 2``); the reference declares them but never
+           implements them, so their rows hold to the JAX harness's
 
 The R-side builds are the dense-direct ones (R.k is a permutation), the
-S-side builds the compacted nested build with the key-domain index; the
-probes are the sorted windowed strands.  Each join plan times its build
+S-side builds the compacted ones with the key-domain index (Crs's and
+CrsSel's without the early-exit index); the probes are the sorted
+windowed strands.  Each join plan times its build
 strand and its probe strand with the reference's repetition protocol
 (>= 300 ms, >= 8 reps) and writes one CSV row with the reference's header;
 the c_* and ht_* columns are bit-equal to the reference binaries'.  The
@@ -31,10 +37,11 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..ops.chaining import build_chaining_host, can_use_dense_direct
-from ..ops.layout import SIGN, from_numpy_u32, resolve_device
+from ..ops.layout import SIGN, from_numpy_u32, resolve_device, u32_to_i64
 from ..ops.nested import build_nested_host
 from ..ops.stats import chaining_statistics, nested_statistics
 from ..ops.strands_windowed import (direct_probe_strand_sorted,
+                                    keydirect_chaining_strand_sorted,
                                     keydirect_nested_strand_sorted)
 from ..utils.csv_writer import CSVWriter
 from ..utils.gen import exp1_data
@@ -49,10 +56,6 @@ DEFAULT_PLANS = ["scr", "scs", "Csr", "CsrUU", "Crs", "Nsr", "Nrs", "NrsNU"]
 PLAN_BITS = {"scr": 1, "scs": 2, "Csr": 4, "Crs": 8, "Nrs": 16, "Nsr": 32,
              "NrsNU": 64, "CsrSel": 128, "CrsSel": 256, "NrsSel": 512,
              "CsrUU": 8192}
-#: plans of the JAX harness still to port -> ROADMAP slice
-PENDING_PLANS = {"Crs": 3, "CsrSel": 3, "CrsSel": 3, "NrsSel": 3}
-#: the plans the port runs (the default selection)
-PORTED_PLANS = ["scr", "scs", "Csr", "CsrUU", "Nsr", "Nrs", "NrsNU"]
 
 CSV_HEADER = [
     "mintime", "minreps", "log2CardR", "log2CardS", "skew", "t", "fkMax",
@@ -105,6 +108,18 @@ def check_route(plan_name: str, out: dict, allowance: int | None) -> None:
             f"{allowance} (route_nbad={int(out['route_nbad'])})")
 
 
+def with_sel_count(out: dict, sel: torch.Tensor) -> dict:
+    """A *Sel plan's strand output with ``c_selProbe``, the selection's
+    output cardinality."""
+    return dict(out, c_selProbe=sel.to(torch.int64).sum())
+
+
+def sel_mask(keys: torch.Tensor, bound: int) -> torch.Tensor:
+    """The *Sel predicate ``key < bound`` on the unsigned keys (a u32 key
+    >= 2^31 is negative on the int32 carrier, and must not pass)."""
+    return u32_to_i64(keys) < bound
+
+
 class JoinPlan(NamedTuple):
     """A join plan's wiring: its build and probe columns, its strands and
     the CSV row's table columns."""
@@ -128,7 +143,7 @@ class Experiment1:
     """One parameter combination of experiment 1, on ``device``."""
 
     def __init__(self, log2_card_r: int, log2_card_s: int, skew: bool, t: int,
-                 b: int = 1, measure_file=None, plans=tuple(PORTED_PLANS),
+                 b: int = 1, measure_file=None, plans=("all",),
                  min_runtime_s: float = 0.3, min_repeat: int = 8,
                  trace: bool = True, assert_route: int | None = 0, *,
                  device):
@@ -136,11 +151,6 @@ class Experiment1:
             raise ValueError("need 0 <= t <= log2_card_r")
         self.plans = resolve_plan_items(plans, PLAN_NAMES, PLAN_BITS,
                                         all_names=DEFAULT_PLANS)
-        for p in sorted(self.plans):
-            if p in PENDING_PLANS:
-                raise NotImplementedError(
-                    f"plan {p} is not ported yet (ROADMAP slice "
-                    f"{PENDING_PLANS[p]})")
         self.device = resolve_device(device)
         self.log2_card_r = log2_card_r
         self.log2_card_s = log2_card_s
@@ -245,7 +255,8 @@ class Experiment1:
             int(durs["probe"] / reps * 1e9),
             int(durs["last_probe"] * 1e9),
             len(build_keys), "NA", len(build_keys),
-            len(probe_keys), "NA",
+            len(probe_keys),
+            int(out["c_selProbe"]) if "c_selProbe" in out else "NA",
             int(out["c_htProbe"]), int(out["c_htProbeCmp"]),
             int(out["c_unnest"]) if plan.has_unnest else "NA",
             int(out["c_top"] if "c_top" in out else out["total"]),
@@ -306,23 +317,46 @@ class Experiment1:
 
     def join_plan(self, name: str) -> JoinPlan:
         """A join plan's inputs and strands on this experiment's device, as
-        the JAX harness wires them (``models/exp1.py:515-589``)."""
+        the JAX harness wires them (``models/exp1.py:515-632``)."""
         nb_r = max(self.card_r // self.b, 1)      # build on R.k: #dv = |R|
         nb_s = max(self.num_dv_sa // self.b, 1)   # build on S.a: #dv(S.a)
-        if name in ("Csr", "CsrUU", "Nsr") and not self.dense_direct_r:
+        if name in ("Csr", "CsrUU", "Nsr", "CsrSel") and \
+                not self.dense_direct_r:
             raise NotImplementedError(
-                f"{name} without the dense-direct layout needs the "
-                "compacted build (ROADMAP slice 3)")
+                f"{name} without the dense-direct layout of R.k needs the "
+                "clarity layer's probe (ROADMAP slice 5)")
+        perm = self.dense_direct_r
+
+        def build_r(keys, **kw):
+            return build_chaining_host(keys, nb_r, dense_direct=True,
+                                       n_keys=self.card_r, **kw)
+
+        # S.a lies in [0, fkMax) by construction
+        # (main_experiment1.cc:190): the key-domain index applies; Crs's
+        # table is probed only without early exit
+        def build_s_chaining(keys):
+            return build_chaining_host(keys, nb_s, n_keys=self.num_dv_sa,
+                                       key_domain=self.fk_max,
+                                       early_exit_index=False)
+
+        def build_s_nested(keys):
+            return build_nested_host(keys, nb_s, n_keys=self.num_dv_sa,
+                                     key_domain=self.fk_max)
+
         if name in ("Csr", "CsrUU"):
             unique = name == "Csr"
             return JoinPlan(
                 self.rk, self.sa,
-                lambda keys: build_chaining_host(
-                    keys, nb_r, dense_direct=True, n_keys=self.card_r,
-                    full_chain_index=not unique),
+                lambda keys: build_r(keys, full_chain_index=not unique),
                 lambda tbl, p: direct_probe_strand_sorted(tbl, p,
                                                           unique=unique),
                 "chaining", "R", "S", has_unnest=False)
+        if name == "Crs":
+            return JoinPlan(
+                self.sa, self.rk, build_s_chaining,
+                lambda tbl, p: keydirect_chaining_strand_sorted(
+                    tbl, p, self.card_s, probes_permutation=perm),
+                "chaining", "S", "R", has_unnest=False)
         if name == "Nsr":
             return JoinPlan(
                 self.rk, self.sa,
@@ -333,16 +367,39 @@ class Experiment1:
                 "nested", "R", "S", has_unnest=True)
         if name in ("Nrs", "NrsNU"):
             unnest = name == "Nrs"
-            # S.a lies in [0, fkMax) by construction
-            # (main_experiment1.cc:190): the key-domain index applies
             return JoinPlan(
-                self.sa, self.rk,
-                lambda keys: build_nested_host(
-                    keys, nb_s, n_keys=self.num_dv_sa, key_domain=self.fk_max),
+                self.sa, self.rk, build_s_nested,
                 lambda tbl, p: keydirect_nested_strand_sorted(
                     tbl, p, self.card_s if unnest else 1, do_unnest=unnest,
-                    probes_permutation=self.dense_direct_r),
+                    probes_permutation=perm),
                 "nested", "S", "R", has_unnest=unnest)
-        raise NotImplementedError(
-            f"plan {name} is not ported yet (ROADMAP slice "
-            f"{PENDING_PLANS.get(name, '?')})")
+        # the *Sel plans: the probe side passes ``attr < domain / 2`` first
+        # (models/exp1.py:591-632 of the JAX package)
+        if name == "CsrSel":
+            half = max(self.fk_max // 2, 1)
+
+            def probe(tbl, p):
+                sel = sel_mask(p, half)
+                return with_sel_count(direct_probe_strand_sorted(
+                    tbl, p, unique=True, mask=sel), sel)
+
+            return JoinPlan(self.rk, self.sa, build_r, probe, "chaining",
+                            "R", "S", has_unnest=False)
+        half = max(self.card_r // 2, 1)
+        if name == "CrsSel":
+            def probe(tbl, p):
+                sel = sel_mask(p, half)
+                return with_sel_count(keydirect_chaining_strand_sorted(
+                    tbl, p, self.card_s, mask=sel), sel)
+
+            return JoinPlan(self.sa, self.rk, build_s_chaining, probe,
+                            "chaining", "S", "R", has_unnest=False)
+        if name == "NrsSel":
+            def probe(tbl, p):
+                sel = sel_mask(p, half)
+                return with_sel_count(keydirect_nested_strand_sorted(
+                    tbl, p, self.card_s, do_unnest=True, mask=sel), sel)
+
+            return JoinPlan(self.sa, self.rk, build_s_nested, probe,
+                            "nested", "S", "R", has_unnest=True)
+        raise ValueError(f"{name} is not a join plan")

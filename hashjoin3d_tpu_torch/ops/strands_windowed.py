@@ -1,14 +1,17 @@
-"""The sorted windowed probe strands of exp-1's device plans.
+"""The sorted windowed probe strands of the exp-1 and exp-4 device plans.
 
 Port of ``hashjoin3d_tpu/ops/strands_windowed.py``: the dense-direct strand
-of plans Csr, CsrUU and Nsr, and the key_direct nested strand of plans Nrs
-and NrsNU.  Probes are sorted once (segmented, K1 / K4) or, for a
-permutation probe column, not at all; every per-key and per-group array is
-then read by one windowed lookup (K2) on a nondecreasing stream, the unnest
-expansion scans with K3, and missing probes walk their bucket chains
-through a second sorted stream.  Emission is in sorted-key order; result
-pairs equal the reference's as multisets and the counters (c_htProbe,
-c_htProbeCmp, c_unnest, c_top) are bit-equal.
+of plans Csr, CsrUU, Nsr and CsrSel, the key_direct nested strand of plans
+Nrs, NrsNU and NrsSel, the key_direct chaining strand of plans Crs and
+CrsSel, and exp-4's Ndu, Chj and Nnu strands.  Probes are sorted once
+(segmented, K1 / K4), or not at all for a permutation or an iota probe
+column, or globally with their liveness riding the sort under a selection
+``mask``; every per-key and per-group array is then read by one windowed
+lookup (K2) on a nondecreasing stream, the unnest expansions scan with K3,
+and missing probes walk their bucket chains through a second sorted stream
+(K4).  Emission is in sorted-key order; result pairs (exp-4: triples)
+equal the reference's as multisets and the counters (c_htProbe,
+c_htProbeCmp, c_unnest, c_top, exp-4's c_probe_*) are bit-equal.
 
 The JAX ``lax.cond`` / ``lax.switch`` routes are Python branches here, each
 on one value read back from the device.  Every :func:`safe_lookup` inside a
@@ -176,6 +179,17 @@ def _sort_probes(pk: torch.Tensor, domain: int | None = None) -> SortedProbes:
     return SortedProbes(*sort_segmented(pk, chunk, stable=False), W, chunk)
 
 
+def _sort_live(pk: torch.Tensor, mask: torch.Tensor):
+    """The probe sort under a selection ``mask``: dead rows travel as the
+    all-ones key, which sorts last unsigned and reads as a miss on the
+    int32 carrier, and their liveness rides the sort, so a live key
+    0xFFFFFFFF still counts its miss walk.  Returns ``(sorted keys, live,
+    original rows)``."""
+    pk_m = torch.where(mask, pk, -1)
+    s, idx = torch.sort(pk_m ^ SIGN, stable=True)
+    return s ^ SIGN, mask[idx], idx.to(I32)
+
+
 def _sort_bucket_ids(b: torch.Tensor, num_buckets: int):
     """(ascending bucket-id stream, lookup W); segmented when profitable
     (the -1 dead markers sort to each segment's front)."""
@@ -204,7 +218,8 @@ def _miss_chain_cmps(table_bucket_len, num_buckets, skey, miss_mask,
 @_with_route
 def direct_probe_strand_sorted(table, pk: torch.Tensor, unique: bool = False,
                                nested: bool = False, mask=None) -> dict:
-    """Windowed Csr / CsrUU / Nsr probe strand over a dense-direct table.
+    """Windowed Csr / CsrUU / Nsr / CsrSel probe strand over a dense-direct
+    table.
 
     ``pk``: probe keys, u32 carrier on the table's device.  One windowed
     lookup of the packed ``(row | pos+1 << shift)`` word answers each
@@ -214,29 +229,33 @@ def direct_probe_strand_sorted(table, pk: torch.Tensor, unique: bool = False,
     ``chain_by_key``; ``nested=True`` (Nsr, a nested dense-direct table)
     counts the main-chain position, walks ``bucket_main_len`` on a miss and
     unnests the singleton groups positionally (``c_unnest`` = matches).
+    ``mask`` (CsrSel's pushed-down selection) marks the live probe rows:
+    dead rows neither match nor walk a chain (:func:`_sort_live`).
     Returns the result pairs (``probe_row``, ``build_row``; -1 where a
     sorted probe missed), ``total`` / ``c_htProbe`` (matches) and
-    ``c_htProbeCmp``, plus ``route_worst`` / ``route_nbad``.  ``mask``
-    (CsrSel) comes with the mask path of ROADMAP slice 3.
+    ``c_htProbeCmp``, plus ``route_worst`` / ``route_nbad``.
     """
-    if mask is not None:
-        raise NotImplementedError(
-            "direct_probe_strand_sorted: mask (plan CsrSel) comes with the "
-            "mask path of ROADMAP slice 3")
     direct = table.direct
-    if pk.device != direct.device:
-        raise ValueError(f"probe keys on {pk.device}, table on "
-                         f"{direct.device}")
+    _check_device(pk, direct)
     n = direct.shape[0]
-    skey, srow, Wk, _ = _sort_probes(pk, domain=n)
+    if mask is None:
+        skey, srow, Wk, _ = _sort_probes(pk, domain=n)
+        live = None
+    else:
+        skey, live, srow = _sort_live(pk, mask)
+        # the segment policy's window, though the masked sort is global
+        Wk = window_for_chunk(probe_sort_chunk(pk.shape[0], n), n)
     # the int32 carrier already reads keys >= 2^31 as negative = miss
     d = safe_lookup(direct, skey, W=Wk)
     hit = d != 0  # packed words carry a 1-based chain position: never 0
+    if live is not None:
+        hit &= live
     shift = table.direct_shift
     row = d & ((1 << shift) - 1)
 
     blen = table.bucket_main_len if nested else table.bucket_len
-    miss_cmps = _miss_chain_cmps(blen, table.num_buckets, skey, ~hit,
+    miss = ~hit if live is None else live & ~hit
+    miss_cmps = _miss_chain_cmps(blen, table.num_buckets, skey, miss,
                                  table.hashfun)
     if unique or nested:
         walked = shr(d, shift) if shift else d
@@ -269,20 +288,72 @@ def rows_window(P: int, segment: int | None, n_rows: int,
 
 
 def _keydirect_probe(table, skey: torch.Tensor, g: torch.Tensor | None = None,
-                     W: int = DEFAULT_W):
+                     live: torch.Tensor | None = None, W: int = DEFAULT_W):
     """Windowed ``key_direct`` probe of sorted keys: ``(g, hit, glen, pos1,
     miss_cmps)`` with -1 / 0 miss markers.  ``g`` skips the key_direct
     lookup when the caller already has the group-id stream (permutation
-    probes: the key_direct image itself).  The g stream inherits the key
-    stream's order, so one window width ``W`` serves both."""
+    and iota probes: the key_direct image itself); ``live`` keeps dead
+    rows out of the miss walk.  The g stream inherits the key stream's
+    order, so one window width ``W`` serves both."""
     if g is None:
-        g = safe_lookup(table.key_direct + 1, skey, W=W) - 1
+        g = _key_groups(table, skey, W)
     hit = g >= 0
     glen = safe_lookup(table.groups.group_len, g, W=W)
     pos1 = safe_lookup(table.main_pos_by_group + 1, g, W=W)
+    miss = ~hit if live is None else live & ~hit
     miss_cmps = _miss_chain_cmps(table.bucket_main_len, table.num_buckets,
-                                 skey, ~hit, table.hashfun)
+                                 skey, miss, table.hashfun)
     return g, hit, glen, pos1, miss_cmps
+
+
+def _key_groups(table, skey: torch.Tensor, W: int = DEFAULT_W):
+    """Each sorted key's group through ``key_direct`` (-1 = absent)."""
+    return safe_lookup(table.key_direct + 1, skey, W=W) - 1
+
+
+def _iota_groups(key_direct: torch.Tensor, P: int) -> torch.Tensor:
+    """The group stream of the probe keys [0, P): the key_direct image,
+    padded with -1 past its domain."""
+    dom = key_direct.shape[0]
+    return (key_direct[:P] if P <= dom else
+            torch.cat([key_direct, key_direct.new_full((P - dom,), -1)]))
+
+
+def _check_device(pk: torch.Tensor, table_col: torch.Tensor) -> None:
+    if pk.device != table_col.device:
+        raise ValueError(f"probe keys on {pk.device}, table on "
+                         f"{table_col.device}")
+
+
+def _slice6(strand: str, *what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{strand}: {' / '.join(what)} (the distributed strands) come with "
+        "ROADMAP slice 6")
+
+
+def _probe_order(table, pk, probes_iota, probes_permutation, mask):
+    """The probe side of the key_direct strands: ``(skey, srow, g, live,
+    Wk, seg)``.  ``probes_iota`` (keys exactly [0, P): exp-4's R.k) sorts
+    nothing and emits the probe rows as they are (``srow`` None);
+    ``probes_permutation`` (a permutation of [0, P): exp-1's R.k) needs one
+    inverse permutation; both read the key_direct image as the group
+    stream (``g``).  ``mask`` sorts globally with liveness riding
+    (:func:`_sort_live`); anything else takes :func:`_sort_probes`."""
+    P = pk.shape[0]
+    kd = table.key_direct
+    if mask is not None:
+        if probes_iota or probes_permutation:
+            raise ValueError("mask excludes probes_iota / "
+                             "probes_permutation")
+        skey, live, srow = _sort_live(pk, mask)
+        return skey, srow, None, live, DEFAULT_W, None
+    if probes_iota or probes_permutation:
+        rowv = torch.arange(P, dtype=I32, device=pk.device)
+        # sorted(permutation of [0, P)) is the identity; srow its inverse
+        srow = None if probes_iota else inverse_permute(pk, rowv)
+        return rowv, srow, _iota_groups(kd, P), None, DEFAULT_W, None
+    skey, srow, Wk, seg = _sort_probes(pk, domain=kd.shape[0])
+    return skey, srow, None, None, Wk, seg
 
 
 @_with_route
@@ -292,56 +363,37 @@ def keydirect_nested_strand_sorted(table, pk: torch.Tensor, out_size: int,
                                    probes_permutation: bool = False,
                                    mask=None, presorted: bool = False,
                                    srow_values=None, segment=None) -> dict:
-    """Windowed Nrs / NrsNU probe strand over a ``key_direct`` nested
-    table.
+    """Windowed Nrs / NrsNU / NrsSel probe strand over a ``key_direct``
+    nested table.
 
-    The probes are sorted (``_sort_probes`` over the key_direct domain), or,
-    with ``probes_permutation`` (keys a permutation of [0, P): exp-1's R.k),
-    not sorted at all: the sorted keys are the identity, the probe rows one
-    inverse permutation, and the key_direct image itself is the group-id
-    stream.  Every per-group array is then read by ``safe_lookup`` (K2) on
-    a nondecreasing stream.  ``do_unnest`` expands each hit into its
-    group's rows (``expand``; build rows ascending within a group, probe
-    rows from ``srow[p]``), up to ``out_size`` result pairs, ``c_unnest`` =
-    the expanded count; without it the nested tuples (``nested_g``,
+    The probe side comes from :func:`_probe_order`: sorted over the
+    key_direct domain, not sorted at all for an iota or a permutation
+    probe column, or sorted with its liveness under a ``mask`` (NrsSel).
+    Every per-group array is then read by ``safe_lookup`` (K2) on a
+    nondecreasing stream.  ``do_unnest`` expands each hit into its group's
+    rows (``expand``; build rows ascending within a group, probe rows from
+    ``srow[p]``), up to ``out_size`` result pairs, ``c_unnest`` = the
+    expanded count; without it the nested tuples (``nested_g``,
     ``nested_hit``, ``nested_probe_row``) go to the top and ``c_top`` =
-    matches.  ``probes_iota`` (exp-4, ROADMAP slice 4), ``mask`` (slice 3)
-    and ``presorted`` / ``srow_values`` / ``segment`` (slice 6) are not
-    ported yet.
+    matches.  ``presorted`` / ``srow_values`` / ``segment`` (the
+    distributed strands) are not ported yet.
     """
-    if probes_iota:
-        raise NotImplementedError(
-            "keydirect_nested_strand_sorted: probes_iota (exp-4) comes with "
-            "ROADMAP slice 4")
-    if mask is not None:
-        raise NotImplementedError(
-            "keydirect_nested_strand_sorted: mask (plan NrsSel) comes with "
-            "the mask path of ROADMAP slice 3")
     if presorted or srow_values is not None or segment is not None:
-        raise NotImplementedError(
-            "keydirect_nested_strand_sorted: presorted / srow_values / "
-            "segment (the distributed strands) come with ROADMAP slice 6")
-    kd = table.key_direct
-    if pk.device != kd.device:
-        raise ValueError(f"probe keys on {pk.device}, table on {kd.device}")
+        raise _slice6("keydirect_nested_strand_sorted", "presorted",
+                      "srow_values", "segment")
+    _check_device(pk, table.key_direct)
     P = pk.shape[0]
-    dom = kd.shape[0]
-    if probes_permutation:
-        # sorted(permutation of [0, P)) is the identity; srow its inverse
-        rowv = torch.arange(P, dtype=I32, device=pk.device)
-        skey, srow, Wk, seg = rowv, inverse_permute(pk, rowv), DEFAULT_W, None
-        g0 = (kd[:P] if P <= dom else
-              torch.cat([kd, kd.new_full((P - dom,), -1)]))
-        g, hit, glen, pos1, miss_cmps = _keydirect_probe(table, skey, g=g0)
-    else:
-        skey, srow, Wk, seg = _sort_probes(pk, domain=dom)
-        g, hit, glen, pos1, miss_cmps = _keydirect_probe(table, skey, W=Wk)
+    skey, srow, g0, live, Wk, seg = _probe_order(
+        table, pk, probes_iota, probes_permutation, mask)
+    g, hit, glen, pos1, miss_cmps = _keydirect_probe(table, skey, g=g0,
+                                                     live=live, W=Wk)
     m = hit.to(I64).sum()
     cmps = pos1.to(I64).sum() + miss_cmps
 
     if not do_unnest:
+        prow = skey if srow is None else srow  # iota: the rows themselves
         return dict(nested_g=torch.where(hit, g, -1), nested_hit=hit,
-                    nested_probe_row=srow, c_htProbe=m, c_htProbeCmp=cmps,
+                    nested_probe_row=prow, c_htProbe=m, c_htProbeCmp=cmps,
                     c_top=m)
 
     gstart_by_p = safe_lookup(table.groups.group_start, g, W=Wk)
@@ -355,7 +407,7 @@ def keydirect_nested_strand_sorted(table, pk: torch.Tensor, out_size: int,
     Wr, Cr = rows_window(P, seg, table.groups.group_rows.shape[0], out_size)
     build_row = safe_lookup(table.groups.group_rows, gst + within, W=Wr,
                             C=Cr)
-    probe_row = safe_lookup(srow, p, W=Wp, C=Cp)
+    probe_row = p if srow is None else safe_lookup(srow, p, W=Wp, C=Cp)
     total = total.to(I64)
     return dict(
         probe_row=torch.where(valid, probe_row, -1),
@@ -363,4 +415,236 @@ def keydirect_nested_strand_sorted(table, pk: torch.Tensor, out_size: int,
         total=total,
         c_htProbe=m, c_htProbeCmp=cmps,
         c_unnest=total,
+    )
+
+
+def _full_chain_cmps(table, skey: torch.Tensor, live=None) -> torch.Tensor:
+    """Comparisons of probes that walk their whole bucket chain (no early
+    exit): the bucket-length sum over the live probes' sorted bucket-id
+    stream (hash-ordered, so it gets its own sort)."""
+    b = bucket_of(hash_key(skey, table.hashfun), table.num_buckets)
+    if live is not None:
+        b = torch.where(live, b, -1)
+    b_sorted, Wb = _sort_bucket_ids(b, table.num_buckets)
+    return safe_lookup(table.bucket_len, b_sorted, W=Wb).to(I64).sum()
+
+
+@_with_route
+def keydirect_chaining_strand_sorted(table, pk: torch.Tensor, out_size: int,
+                                     unique: bool = False, mask=None,
+                                     presorted: bool = False,
+                                     probes_permutation: bool = False,
+                                     srow_values=None,
+                                     lookup_w: int | None = None) -> dict:
+    """Windowed Crs / CrsSel probe strand over a ``key_direct`` chaining
+    table (``algebra.hh:625-659``).
+
+    The probe side comes from :func:`_probe_order`: permutation probes
+    (Crs, exp-1's R.k) are not sorted, masked probes (CrsSel) sort with
+    their liveness, any other column takes :func:`_sort_probes` (K1 where
+    its keys fit the packed route).  ``unique=False``: every live probe
+    walks its whole bucket chain (:func:`_full_chain_cmps`) and emits its
+    whole key group.  ``unique=True`` (IsBuildKeyUnique): comparisons stop
+    at the key's first node in chain order (``group_min_pos``), a miss
+    walks its chain, and each hit emits ``group_chain_first``; the table
+    needs the early-exit index.  Emission rides ``expand`` (K3) and the
+    windowed lookups, as in the nested strand.  ``presorted`` /
+    ``srow_values`` / ``lookup_w`` (the distributed strands) are not
+    ported yet.
+    """
+    if presorted or srow_values is not None or lookup_w is not None:
+        raise _slice6("keydirect_chaining_strand_sorted", "presorted",
+                      "srow_values", "lookup_w")
+    _check_device(pk, table.key_direct)
+    P = pk.shape[0]
+    skey, srow, g, live, Wk, seg = _probe_order(
+        table, pk, False, probes_permutation, mask)
+    if g is None:
+        g = _key_groups(table, skey, Wk)
+    hit = g >= 0
+    glen = safe_lookup(table.groups.group_len, g, W=Wk)
+
+    if unique:
+        if table.group_min_pos.shape[0] == 0:
+            raise ValueError(
+                "table was built with early_exit_index=False; "
+                "IsBuildKeyUnique probes need the chain-position index")
+        counts = hit.to(I32)
+        m = hit.to(I64).sum()
+        pos1 = safe_lookup(table.group_min_pos + 1, g, W=Wk)
+        miss = ~hit if live is None else live & ~hit
+        cmps = pos1.to(I64).sum() + _miss_chain_cmps(
+            table.bucket_len, table.num_buckets, skey, miss, table.hashfun)
+        # emission source: the first matching row in chain order
+        row_by_p = safe_lookup(table.group_chain_first + 1, g, W=Wk) - 1
+    else:
+        counts = glen
+        m = glen.to(I64).sum()
+        cmps = _full_chain_cmps(table, skey, live)
+
+    p, within, valid, total = expand(counts, out_size)[:4]
+    Wp, Cp = stride_params(P / out_size)
+    if unique:
+        build_row = safe_lookup(row_by_p, p, W=Wp, C=Cp)
+    else:
+        gstart_by_p = safe_lookup(table.groups.group_start, g, W=Wk)
+        gst = safe_lookup(gstart_by_p, p, W=Wp, C=Cp)
+        Wr, Cr = rows_window(P, seg, table.groups.group_rows.shape[0],
+                             out_size)
+        build_row = safe_lookup(table.groups.group_rows, gst + within,
+                                W=Wr, C=Cr)
+    probe_row = safe_lookup(srow, p, W=Wp, C=Cp)
+    return dict(
+        probe_row=torch.where(valid, probe_row, -1),
+        build_row=torch.where(valid, build_row, -1),
+        total=total.to(I64),
+        c_htProbe=m, c_htProbeCmp=cmps,
+    )
+
+
+def _second_probe(tbl_t, sk: torch.Tensor, hit_s: torch.Tensor):
+    """exp-4's T probe of the iota keys, run only under the S hit mask
+    (``algebra.hh:451-458``): ``(g_t, both, glen_t, pos1_t, miss_t)``;
+    T misses count only where S hit."""
+    g_t = torch.where(hit_s, _key_groups(tbl_t, sk), -1)
+    both = g_t >= 0
+    glen_t = safe_lookup(tbl_t.groups.group_len, g_t)
+    pos1_t = safe_lookup(tbl_t.main_pos_by_group + 1, g_t)
+    miss_t = _miss_chain_cmps(tbl_t.bucket_main_len, tbl_t.num_buckets, sk,
+                              hit_s & ~both, tbl_t.hashfun)
+    return g_t, both, glen_t, pos1_t, miss_t
+
+
+@_with_route
+def ndu_strand_sorted(tbl_s, tbl_t, keys_iota: torch.Tensor, out1: int,
+                      out2: int) -> dict:
+    """Windowed exp-4 Ndu probe strand (``main_experiment4.cc:832-941``):
+    scan R -> NestProbe(S) -> NestProbe(T) -> Unnest(T) -> Unnest(S).
+
+    R.k is an iota, so nothing is sorted; both probes read the key_direct
+    images, the T probe only under the S hits, and both unnests ride
+    ``expand`` (K3) and windowed lookups: ``out1`` slots for the T
+    duplicates of the rows that hit both, ``out2`` for the result triples.
+    Returns the triples (``r_row``, ``s_row``, ``t_row``; -1 past the
+    result), ``valid`` and the counters c_probe_RS(_cmp), c_probe_RT(_cmp),
+    c_unnest_1 (T) and c_unnest_2 (S, the result).
+    """
+    _check_device(keys_iota, tbl_s.key_direct)
+    sk = keys_iota
+    P = sk.shape[0]
+    g_s, hit_s, glen_s, pos1_s, miss_s = _keydirect_probe(tbl_s, sk)
+    c_rs = hit_s.to(I64).sum()
+    c_rs_cmp = pos1_s.to(I64).sum() + miss_s
+    g_t, both, glen_t, pos1_t, miss_t = _second_probe(tbl_t, sk, hit_s)
+    c_rt = both.to(I64).sum()
+    c_rt_cmp = pos1_t.to(I64).sum() + miss_t
+
+    # unnest #1 (T): one slot per T duplicate of the rows that hit both
+    W1, C1 = stride_params(P / out1)       # p1 advances ~P/out1 a slot
+    W2, C2 = stride_params(out1 / out2)    # p2 advances ~out1/out2 a slot
+    t_counts = torch.where(both, glen_t, 0)
+    gstart_t_by_p = safe_lookup(tbl_t.groups.group_start, g_t)
+    p1, w1, v1, n_un1 = expand(t_counts, out1)[:4]
+    gst_t = safe_lookup(gstart_t_by_p, p1, W=W1, C=C1)
+    t_row = safe_lookup(tbl_t.groups.group_rows, gst_t + w1)
+
+    # unnest #2 (S): each (r, t_row) by its S group
+    glen_s_m = torch.where(both, glen_s, 0)
+    s_counts = torch.where(v1, safe_lookup(glen_s_m, p1, W=W1, C=C1), 0)
+    gstart_s_by_p = safe_lookup(tbl_s.groups.group_start, g_s)
+    gst_s_by_p1 = safe_lookup(gstart_s_by_p, p1, W=W1, C=C1)
+    p2, w2, v2, n_un2 = expand(s_counts, out2)[:4]
+    gst_s = safe_lookup(gst_s_by_p1, p2, W=W2, C=C2)
+    s_row = safe_lookup(tbl_s.groups.group_rows, gst_s + w2)
+    t_prop = safe_lookup(t_row, p2, W=W2, C=C2)
+    r_prop = safe_lookup(p1, p2, W=W2, C=C2)  # p1 IS the R row
+    return dict(
+        r_row=torch.where(v2, r_prop, -1),
+        s_row=torch.where(v2, s_row, -1),
+        t_row=torch.where(v2, t_prop, -1),
+        valid=v2,
+        c_probe_RS=c_rs, c_probe_RS_cmp=c_rs_cmp,
+        c_probe_RT=c_rt, c_probe_RT_cmp=c_rt_cmp,
+        c_unnest_1=n_un1.to(I64), c_unnest_2=n_un2.to(I64),
+    )
+
+
+@_with_route
+def chj_strand_sorted(tbl_s, tbl_t, keys_iota: torch.Tensor, out1: int,
+                      out2: int) -> dict:
+    """Windowed exp-4 Chj probe strand (``main_experiment4.cc:943-1043``):
+    Probe(S) materialises every RS pair, then each pair probes T with its
+    R key, both probes walking whole chains (no early exit).
+
+    The S chain walks sum ``bucket_len`` over the sorted bucket-id stream
+    (K4); the T walks read each key's chain length from a plain index over
+    the whole key domain (the iota keys' buckets are hash-ordered, so no
+    window could cover them), then a windowed lookup by the pair's R row.
+    Returns the triples and c_probe_RS(_cmp), c_probe_RT(_cmp), c_top.
+    """
+    _check_device(keys_iota, tbl_s.key_direct)
+    sk = keys_iota
+    P = sk.shape[0]
+    g_s = _key_groups(tbl_s, sk)
+    glen_s = safe_lookup(tbl_s.groups.group_len, g_s)
+    c_rs = glen_s.to(I64).sum()
+    c_rs_cmp = _full_chain_cmps(tbl_s, sk)
+
+    # expansion #1: the RS pairs
+    W1, C1 = stride_params(P / out1)
+    W2, C2 = stride_params(out1 / out2)
+    gstart_s_by_p = safe_lookup(tbl_s.groups.group_start, g_s)
+    p1, w1, v1, _ = expand(glen_s, out1)[:4]
+    gst_s = safe_lookup(gstart_s_by_p, p1, W=W1, C=C1)
+    s_row = safe_lookup(tbl_s.groups.group_rows, gst_s + w1)
+
+    # each pair probes T with its R key, which is p1 (the keys are an iota)
+    g_t_by_p = _key_groups(tbl_t, sk)
+    glen_t_by_p = safe_lookup(tbl_t.groups.group_len, g_t_by_p)
+    t_counts = torch.where(v1, safe_lookup(glen_t_by_p, p1, W=W1, C=C1), 0)
+    c_rt = t_counts.to(I64).sum()
+    dom = torch.arange(tbl_t.key_direct.shape[0], dtype=I32,
+                       device=sk.device)
+    chain_t = tbl_t.bucket_len[
+        bucket_of(hash_key(dom, tbl_t.hashfun), tbl_t.num_buckets).long()]
+    cmps_t_by_key = safe_lookup(chain_t, sk)
+    c_rt_cmp = torch.where(v1, safe_lookup(cmps_t_by_key, p1, W=W1, C=C1),
+                           0).to(I64).sum()
+
+    # expansion #2: one slot per T duplicate of each pair
+    gstart_t_by_p = safe_lookup(tbl_t.groups.group_start, g_t_by_p)
+    gst_t_by_p1 = safe_lookup(gstart_t_by_p, p1, W=W1, C=C1)
+    p2, w2, v2, n_rst = expand(t_counts, out2)[:4]
+    gst_t = safe_lookup(gst_t_by_p1, p2, W=W2, C=C2)
+    t_row = safe_lookup(tbl_t.groups.group_rows, gst_t + w2)
+    s_prop = safe_lookup(s_row, p2, W=W2, C=C2)
+    r_prop = safe_lookup(p1, p2, W=W2, C=C2)
+    return dict(
+        r_row=torch.where(v2, r_prop, -1),
+        s_row=torch.where(v2, s_prop, -1),
+        t_row=torch.where(v2, t_row, -1),
+        c_probe_RS=c_rs, c_probe_RS_cmp=c_rs_cmp,
+        c_probe_RT=c_rt, c_probe_RT_cmp=c_rt_cmp,
+        c_top=n_rst.to(I64),
+    )
+
+
+@_with_route
+def nnu_strand_sorted(tbl_s, tbl_t, keys_iota: torch.Tensor) -> dict:
+    """Windowed exp-4 Nnu probe strand: the two nested probes of Ndu, no
+    unnesting; the nested tuples (``g_s``, ``g_t``; -1 unless both hit)
+    go to the top, ``c_top`` = rows that hit both."""
+    _check_device(keys_iota, tbl_s.key_direct)
+    sk = keys_iota
+    g_s, hit_s, _, pos1_s, miss_s = _keydirect_probe(tbl_s, sk)
+    g_t, both, _, pos1_t, miss_t = _second_probe(tbl_t, sk, hit_s)
+    c_rt = both.to(I64).sum()
+    return dict(
+        g_s=torch.where(both, g_s, -1),
+        g_t=torch.where(both, g_t, -1),
+        c_probe_RS=hit_s.to(I64).sum(),
+        c_probe_RS_cmp=pos1_s.to(I64).sum() + miss_s,
+        c_probe_RT=c_rt,
+        c_probe_RT_cmp=pos1_t.to(I64).sum() + miss_t,
+        c_top=c_rt,
     )

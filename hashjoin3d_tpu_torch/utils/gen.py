@@ -1,4 +1,5 @@
-"""Experiment-1 inputs from the reference-exact native generator.
+"""Experiment-1 and experiment-4 inputs from the reference-exact native
+generator.
 
 The generator is ``hashjoin3d_tpu_torch/native/hj3gen.cpp``, the port's own
 byte-equal copy of the JAX package's ``native/hj3gen.cpp``: it calls the
@@ -32,6 +33,9 @@ def _gen_lib() -> ctypes.CDLL:
         lib.hj3_exp1.argtypes = [ctypes.c_uint32, ctypes.c_uint32,
                                  ctypes.c_int, ctypes.c_uint32,
                                  ctypes.c_void_p, ctypes.c_void_p]
+        lib.hj3_exp4.restype = None
+        lib.hj3_exp4.argtypes = [ctypes.c_uint32] * 5 + [
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
         _lib = lib
     return _lib
 
@@ -48,3 +52,24 @@ def exp1_data(log2_card_r: int, log2_card_s: int, skew: bool, t: int):
     ndv = _gen_lib().hj3_exp1(log2_card_r, log2_card_s, int(skew), t,
                               rk.ctypes.data, sa.ctypes.data)
     return rk, sa, int(ndv)
+
+
+def exp4_data(log2_card_r: int, alpha: int, mult_a: int, beta: int,
+              mult_b: int, shuffle: bool = True):
+    """``(S_a, T_a)`` as u32 numpy columns, each of ``(2^R >> alpha) *
+    mult_a + (2^R >> beta) * mult_b`` rows: the common FK values [0,
+    nCommon) ``mult_a`` times each, then S's exclusive values [nCommon,
+    nCommon + nExcl) or T's [nCommon + nExcl, nCommon + 2 nExcl) ``mult_b``
+    times each, shuffled in the reference's order
+    (``main_experiment4.cc:517-575``).  R.k is the iota 0 .. 2^R - 1."""
+    if not 0 <= alpha <= log2_card_r <= 31 or not 0 <= beta <= log2_card_r:
+        raise ValueError("need 0 <= alpha, beta <= log2_card_r <= 31")
+    if mult_a < 0 or mult_b < 0:
+        raise ValueError("multiplicities must be >= 0")
+    card_r = 1 << log2_card_r
+    card = (card_r >> alpha) * mult_a + (card_r >> beta) * mult_b
+    sa = np.empty(card, np.uint32)
+    ta = np.empty(card, np.uint32)
+    _gen_lib().hj3_exp4(log2_card_r, alpha, mult_a, beta, mult_b,
+                        int(shuffle), sa.ctypes.data, ta.ctypes.data)
+    return sa, ta

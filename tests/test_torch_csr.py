@@ -9,6 +9,8 @@
 * ``Experiment1(plans=("Csr",), device="cpu")`` against the Csr rows of the
   reference binaries' golden CSVs (the ``_VALUE_COLS`` rule of
   ``test_experiments.py``);
+* the CsrSel strand (the mask path) against the JAX package's, and the
+  once-pending plans running, with the slice-6 parts still raising;
 * the port's rules: no jax import, no silent CPU run for a CUDA request.
 """
 
@@ -29,7 +31,8 @@ from hashjoin3d_tpu.ops.strands_windowed import (
 from hashjoin3d_tpu_torch.convert import FIELDS, chaining_table_from_numpy
 from hashjoin3d_tpu_torch.models.exp1 import Experiment1
 from hashjoin3d_tpu_torch.ops import strands_windowed as tw
-from hashjoin3d_tpu_torch.ops.chaining import build_chaining_host
+from hashjoin3d_tpu_torch.ops.chaining import (_build_chaining_fused,
+                                               build_chaining_host)
 from hashjoin3d_tpu_torch.ops.layout import from_numpy_u32
 
 from test_experiments import GOLDEN, _VALUE_COLS
@@ -116,35 +119,62 @@ def test_exp1_csr_row_matches_reference(golden, params):
 
 
 def test_plans_not_yet_ported_name_their_slice():
-    """What is still pending names its ROADMAP slice: Crs and the *Sel
-    plans slice 3, exp-4's iota probes slice 4, the distributed strands'
-    presorted streams slice 6."""
-    for plan in ("Crs", "CsrSel", "CrsSel", "NrsSel"):
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            Experiment1(6, 8, False, 0, plans=(plan,), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tw.keydirect_nested_strand_sorted(None, None, 8, probes_iota=True)
+    """Every exp-1 plan of the JAX harness runs; what is still pending (the
+    distributed strands' presorted streams and row ids, the distributed
+    builds' dead keys) names its ROADMAP slice, 6."""
+    exp = Experiment1(6, 8, False, 0, plans=("Crs", "CsrSel", "CrsSel",
+                                             "NrsSel"),
+                      measure_file=io.StringIO(), min_runtime_s=0.0,
+                      min_repeat=1, trace=False, device="cpu")
+    exp.init()
+    exp.run()
+    assert sorted(exp.results) == ["Crs", "CrsSel", "CsrSel", "NrsSel"]
+    rows = torch.zeros(4, dtype=torch.int32)
+    for strand, window in ((tw.keydirect_nested_strand_sorted, "segment"),
+                           (tw.keydirect_chaining_strand_sorted, "lookup_w")):
+        for kw in (dict(presorted=True), dict(srow_values=rows),
+                   {window: 1024}):
+            with pytest.raises(NotImplementedError, match="slice 6"):
+                strand(None, None, 8, **kw)
+    keys = from_numpy_u32(np.arange(16, dtype=np.uint32) % 4, "cpu")
     with pytest.raises(NotImplementedError, match="slice 6"):
-        tw.keydirect_nested_strand_sorted(None, None, 8, presorted=True)
-    mask = torch.ones(4, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tw.keydirect_nested_strand_sorted(None, None, 8, mask=mask)
+        _build_chaining_fused(keys, 4, 4, False, drop_pad_key=True)
 
 
 def test_csrsel_strand_names_slice_3():
-    """CsrSel's mask path comes with slice 3, as ``PENDING_PLANS`` says."""
-    from hashjoin3d_tpu_torch.models.exp1 import PENDING_PLANS
-
-    assert PENDING_PLANS["CsrSel"] == 3
-    mask = torch.ones(4, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tw.direct_probe_strand_sorted(None, None, unique=True, mask=mask)
+    """CsrSel's strand (the mask path of the dense-direct strand) equals the
+    JAX package's: only live rows probe, and the predicate's live keys past
+    the table, 0xFFFFFFFF among them, count their miss walks."""
+    rng = np.random.default_rng(3)
+    n, nb, P = 2048, 1000, 8192
+    bk = rng.permutation(n).astype(np.uint32)
+    pk = rng.integers(0, n + n // 4, P, dtype=np.uint32)
+    pk[:64] = 2**32 - 1 - np.arange(64, dtype=np.uint32)  # keys >= 2^31
+    mask = rng.random(P) < 0.5
+    mask[:8] = True
+    jax_tbl = jax_build(bk, nb, dense_direct=True, n_keys=n)
+    port_tbl = build_chaining_host(from_numpy_u32(bk, "cpu"), nb,
+                                   dense_direct=True, n_keys=n)
+    want = jax_strand(jax_tbl, pk, unique=True, mask=mask)
+    got = tw.direct_probe_strand_sorted(port_tbl, from_numpy_u32(pk, "cpu"),
+                                        unique=True,
+                                        mask=torch.from_numpy(mask))
+    for k in ("c_htProbe", "c_htProbeCmp", "total"):
+        assert int(got[k]) == int(want[k]), k
+    assert _pairs(got["probe_row"], got["build_row"]) == _pairs(
+        want["probe_row"], want["build_row"])
+    assert int(got["c_htProbe"]) < int(mask.sum())
 
 
 def test_port_imports_no_jax():
     code = ("import sys, hashjoin3d_tpu_torch.models.exp1, "
+            "hashjoin3d_tpu_torch.models.exp4, "
             "hashjoin3d_tpu_torch.convert, hashjoin3d_tpu_torch.kernels, "
-            "hashjoin3d_tpu_torch.exp1, hashjoin3d_tpu_torch.ops.nested, "
+            "hashjoin3d_tpu_torch.exp1, hashjoin3d_tpu_torch.exp4, "
+            "hashjoin3d_tpu_torch.ops.chaining, "
+            "hashjoin3d_tpu_torch.ops.strands_windowed, "
+            "hashjoin3d_tpu_torch.utils.gen, "
+            "hashjoin3d_tpu_torch.ops.nested, "
             "hashjoin3d_tpu_torch.ops.stats, "
             "hashjoin3d_tpu_torch.utils.aggregate, "
             "hashjoin3d_tpu_torch.utils.measure; "

@@ -1,7 +1,7 @@
 """Port ops (hashjoin3d_tpu_torch.ops) against the JAX package, exactly.
 
-Hashing, the run-structure primitives and the dense-direct chaining build
-take the same seeded numpy inputs on both sides; every output is compared
+Hashing, the run-structure primitives and the chaining builds take the
+same seeded numpy inputs on both sides; every output is compared
 bit for bit (integer work: the tolerance is zero).
 """
 
@@ -15,6 +15,7 @@ from hashjoin3d_tpu.ops import hashing as jh
 from hashjoin3d_tpu.ops import layout as jl
 from hashjoin3d_tpu.ops.chaining import (
     _build_chaining_dense as jax_build_dense)
+from hashjoin3d_tpu.ops.chaining import build_chaining_host as jax_chaining
 
 from hashjoin3d_tpu_torch.ops import hashing as th
 from hashjoin3d_tpu_torch.ops import layout as tl
@@ -136,10 +137,17 @@ def test_generator_source_is_the_ports_own_copy():
 
 
 def test_only_the_dense_build_is_ported():
+    """Both builds of ``build_chaining_host``: without ``dense_direct`` the
+    compacted one (here with one count read back), equal to the JAX
+    package's; with it the dense one and its full chain index (CsrUU)."""
     keys = t32(np.arange(16, dtype=np.uint32))
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        build_chaining_host(keys, 16)
-    # the dense build's full chain index (plan CsrUU) is ported
+    want = jax_chaining(np.arange(16, dtype=np.uint32) // 2, 16)
+    got = build_chaining_host(keys // 2, 16)
+    assert got.direct is None and int(got.groups.n_keys) == 8
+    for f in ("bucket_len", "pos_by_row", "group_min_pos",
+              "group_chain_first"):
+        assert np.array_equal(getattr(got, f).numpy(),
+                              np.asarray(getattr(want, f))), f
     tbl = build_chaining_host(keys, 16, dense_direct=True, n_keys=16,
                               full_chain_index=True)
     want = tbl.bucket_len[th.bucket_of(th.hash_key(keys), 16).long()]

@@ -1,4 +1,4 @@
-"""The port's exp-1 plans scr ... NrsNU on the CPU against the JAX package.
+"""The port's exp-1 plans on the CPU against the JAX package.
 
 * ``resolve_plan_items`` against the JAX harness's: names, ``all``,
   ``none``, numeric masks, an unknown name;
@@ -8,11 +8,12 @@
   counters equal, result pairs equal as multisets;
 * CsrUU's chaining table built by the JAX package, carried over with
   ``convert.py`` and probed by the port;
-* ``Experiment1(device="cpu")`` rows scr ... NrsNU against both golden CSVs
-  of the reference binaries (the ``_VALUE_COLS`` rule of
+* ``Experiment1(device="cpu")`` rows of ``all`` (scr ... NrsNU) against
+  both golden CSVs of the reference binaries (the ``_VALUE_COLS`` rule of
   ``test_experiments.py``);
-* the port's exp-1 CLI in a subprocess on the CPU: the same rows, and a
-  pending plan exits non-zero naming its slice.
+* the port's exp-1 CLI in a subprocess on the CPU: the same rows, Crs and
+  ``all`` against the golden CSV, CsrSel and CrsSel (``-p 256``) against
+  the JAX harness's rows.
 """
 
 import csv
@@ -42,7 +43,7 @@ from hashjoin3d_tpu_torch.ops.nested import build_nested_host
 from test_experiments import GOLDEN, _VALUE_COLS
 
 REPO = Path(__file__).resolve().parent.parent
-PORTED = ["scr", "scs", "Csr", "CsrUU", "Nsr", "Nrs", "NrsNU"]
+PORTED = ["scr", "scs", "Csr", "CsrUU", "Crs", "Nsr", "Nrs", "NrsNU"]
 GOLDENS = [
     ("e1_R6_S8_uni_t0.csv", dict(log2_card_r=6, log2_card_s=8, skew=False,
                                  t=0, b=1)),
@@ -85,8 +86,7 @@ def test_plan_tables_match_jax():
     assert texp1.DEFAULT_PLANS == jexp1.DEFAULT_PLANS
     assert texp1.PLAN_BITS == jexp1.PLAN_BITS
     assert texp1.CSV_HEADER == jexp1._CSV_HEADER
-    assert set(texp1.PORTED_PLANS) | set(texp1.PENDING_PLANS) == set(
-        jexp1.PLAN_NAMES)
+    assert texp1.DEFAULT_PLANS == PORTED
 
 
 @pytest.mark.parametrize("hi,sort_route", [
@@ -150,11 +150,12 @@ def _rows(text):
     return rows[0], {r[9]: r for r in rows[1:]}
 
 
-def _check_rows(text, golden):
-    ref_hdr, ref = _rows((GOLDEN / golden).read_text())
+def _check_rows(text, golden, plans=PORTED):
+    ref_hdr, ref = (_rows((GOLDEN / golden).read_text())
+                    if isinstance(golden, str) else golden)
     got_hdr, got = _rows(text)
     assert got_hdr == ref_hdr
-    assert sorted(got) == sorted(PORTED)
+    assert sorted(got) == sorted(plans)
     cols = _VALUE_COLS(ref_hdr)
     for plan, row in got.items():
         want = ref[plan]
@@ -186,15 +187,37 @@ def test_cli_writes_the_reference_rows(tmp_path):
     r = _cli("-R", "7", "-S", "9", "--skew", "-t", "2", "-b", "2",
              "--measure-file", str(out), "--device", "cpu",
              "--min-time-ms", "0", "--min-repeat", "1", "-p",
-             "scr,scs,Csr,CsrUU,Nsr,Nrs,NrsNU", "--print-timers")
+             "scr,scs,Csr,CsrUU,Crs,Nsr,Nrs,NrsNU", "--print-timers")
     assert r.returncode == 0, r.stdout + r.stderr
     assert "runNrs|" in r.stdout
     _check_rows(out.read_text(), "e1_R7_S9_zipf_t2_b2.csv")
 
 
+@pytest.fixture(scope="module")
+def jax_sel_rows():
+    """The JAX harness's CsrSel and CrsSel rows at the zipf golden's
+    parameters."""
+    buf = io.StringIO()
+    exp = jexp1.Experiment1(**GOLDENS[1][1], measure_file=buf,
+                            min_runtime_s=0.0, min_repeat=1, trace=False,
+                            backend="device", plans=("CsrSel", "CrsSel"))
+    exp.init()
+    exp.run()
+    return _rows(buf.getvalue())
+
+
 @pytest.mark.parametrize("plans", ["Crs", "all", "CsrSel", "256"])
-def test_cli_pending_plan_exits_naming_its_slice(plans, tmp_path):
-    r = _cli("-R", "6", "-S", "8", "--no-skew", "-t", "0", "--device", "cpu",
-             "--measure-file", str(tmp_path / "e1.csv"), "-p", plans)
-    assert r.returncode != 0
-    assert "slice 3" in r.stderr
+def test_cli_pending_plan_exits_naming_its_slice(plans, tmp_path,
+                                                 jax_sel_rows):
+    """The plans that were pending run from the CLI: Crs and ``all`` give
+    the golden rows, CsrSel and CrsSel (bit 256) the JAX harness's."""
+    out = tmp_path / "e1.csv"
+    r = _cli("-R", "7", "-S", "9", "--skew", "-t", "2", "-b", "2",
+             "--device", "cpu", "--min-time-ms", "0", "--min-repeat", "1",
+             "--measure-file", str(out), "-p", plans)
+    assert r.returncode == 0, r.stdout + r.stderr
+    want = {"Crs": ["Crs"], "all": PORTED, "CsrSel": ["CsrSel"],
+            "256": ["CrsSel"]}[plans]
+    golden = ("e1_R7_S9_zipf_t2_b2.csv" if plans in ("Crs", "all")
+              else jax_sel_rows)
+    _check_rows(out.read_text(), golden, want)

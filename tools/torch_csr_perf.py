@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Device-time measurements of the PyTorch/CUDA port's Csr path at R20/S24.
+"""Device-time measurements of the PyTorch/CUDA port's Csr path at R20/S24
+(and, in ``profile``, of every exp-1 plan there and of exp-4's plans).
 
 Needs one CUDA GPU; imports ``torch`` and the port, never JAX.  Every run
 prints the card and its power limit (``nvidia-smi``) first.
@@ -36,11 +37,14 @@ prints the card and its power limit (``nvidia-smi``) first.
 ``profile``: where the time of the build and the probe strand goes::
 
     python3 tools/torch_csr_perf.py profile [--reps 10] [--root TREE]
-        [--plans Csr,CsrUU,Nsr,Nrs,NrsNU]
+        [--plans Csr,CsrUU,Crs,Nsr,Nrs,NrsNU,CsrSel,CrsSel,NrsSel,Ndu,Chj,Nnu]
 
-  ``--plans`` (default Csr) names the exp-1 plans at R20/S24 t=0 to
-  profile; a plan other than Csr takes its strands from
-  ``Experiment1.join_plan`` (a tree without it profiles Csr only).
+  ``--plans`` (default Csr) names the plans to profile: an exp-1 plan at
+  R20/S24 t=0, its build and probe strand; a plan other than Csr takes its
+  strands from ``Experiment1.join_plan`` (a tree without it profiles Csr
+  only).  An exp-4 plan (Ndu, Chj, Nnu) runs at ``-R 24 -a 4 -A 4 -b 2
+  -B 2``, its S build, T build and probe strand, as ``Experiment4``
+  wires them (``build``, ``probe``).
 
   Each strand runs ``reps`` times in one ``torch.profiler`` window, between
   two synchronisations.  Printed per rep: the window's host wall time, the
@@ -170,6 +174,23 @@ def plan_strands(dev, plan: str):
     table = jp.build(jp.build_keys)
     return (lambda: jp.build(jp.build_keys),
             lambda: jp.probe(table, jp.probe_keys))
+
+
+EXP4_PLANS = ("Ndu", "Chj", "Nnu")
+
+
+def exp4_strands(dev, plan: str) -> dict:
+    """{strand name: closure} of an exp-4 plan at R24 -a 4 -A 4 -b 2 -B 2:
+    the S build, the T build and the probe of R.k."""
+    from hashjoin3d_tpu_torch.models.exp4 import Experiment4
+
+    exp = Experiment4(24, 4, 4, 2, 2, plans=(plan,), trace=False,
+                      device=dev)
+    exp.init()
+    tbl_s, tbl_t = exp.build(plan, exp.sa), exp.build(plan, exp.ta)
+    return {"build S": lambda: exp.build(plan, exp.sa),
+            "build T": lambda: exp.build(plan, exp.ta),
+            "probe R": lambda: exp.probe(plan, tbl_s, tbl_t, exp.rk)}
 
 
 def k3_calls(rk) -> dict:
@@ -570,11 +591,15 @@ def main() -> int:
                      if "bound_us" in r else ""))
     else:
         for plan in args.plans.split(","):
-            build, probe = (strands(dev)[:2] if plan == "Csr"
-                            else plan_strands(dev, plan))
-            profile_strand(f"{plan} build", build, args.reps)
-            profile_strand(f"{plan} probe", probe, args.reps)
-            del build, probe
+            if plan in EXP4_PLANS:
+                fns = exp4_strands(dev, plan)
+            else:
+                fns = dict(zip(("build", "probe"), (
+                    strands(dev)[:2] if plan == "Csr"
+                    else plan_strands(dev, plan))))
+            for what, fn in fns.items():
+                profile_strand(f"{plan} {what}", fn, args.reps)
+            del fns
             torch.cuda.empty_cache()
     return 0
 
