@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU: exp-1's eleven device
-plans and exp-4's three.
+plans, exp-4's three and ``join``, the one-call API.
 
 Run from the repository root on a machine with one CUDA GPU:
 
@@ -83,11 +83,30 @@ then exp-4 (``main_experiment4 -R 24 -a 4 -A 4 -b 2 -B 2``: |R| 2^24,
    tuples) equal the CPU run's, as multisets, and K2, K3 and K4 launch in
    each plan (at R24 the probe walks sort globally, with no K4).
 
+7. ``hashjoin3d_tpu_torch.join``, the one-call API, on the same R20/S24
+   t=0 columns: ``join(R.k, S.a, how="chaining", unique=True)``,
+   ``join(R.k, S.a, how="chaining")``, ``join(R.k, S.a)``,
+   ``join(S.a, R.k, how="chaining")`` and ``join(S.a, R.k)`` give the
+   counters of e1_t0c.csv's Csr, CsrUU, Nsr, Crs and Nrs rows; the same
+   five on u64 keys (``k | 0xAB << 40``), the Nrs-shaped call on composite
+   keys (``pack2u32(k >> 10, k & 1023)``) and the Crs-shaped one on sparse
+   u32 keys (``murmur32(k)``) give the u32 calls' pairs, and, at R18/S22,
+   counters and pairs equal to the plain run on the CPU (with the u64
+   Nrs-shaped call under ``hashfun="fib"``); left, semi and anti on the
+   Nrs-shaped u32 and u64 inputs derive from the inner join's hit set
+   with its counters; a post predicate equals numpy's filter of the inner
+   pairs; ``fib`` on the u64 Nrs-shaped call keeps its pairs; K1-K4 all
+   launch.  Each call prints its wall ms (median of 3, host work, sizing
+   read and copy to the host included), ``route_worst`` and its launch
+   counts from 0; then ``lookup_auto``'s two methods timed on the semi
+   path's probe.
+
 Prints one JSON line of per-kernel results, then, last,
 ``{"ok": true, "device": {...}}``.  ``launches`` there is the main path's
 count (phase 2's plans summed), ``plan_launches`` each plan's, phase 3b's
 runs under "Nrs t=4" and the like, phase 6's under "Ndu R24" and the
-like, the sorted-route call under "Crs sorted route";
+like, the sorted-route call under "Crs sorted route"; ``join_launches``
+each phase 7 call's (its first call, from 0);
 ``miss_probe_launches`` is phase 3's, ``probe_tool_launches`` phase 5's
 probe runner's (its check and timed launches) and ``tool_launches`` phase
 5's roofline and csrprof path's.
@@ -893,6 +912,10 @@ def phase5_tools(dev):
 
     roofline.run_rows(roofline.table_rows(d), TOOL_MIN_TIME, False, log)
     roofline.run_rows(roofline.kernel_rows(d), TOOL_MIN_TIME, True, log)
+    strands = roofline.run_rows(roofline.strand_rows(d), TOOL_MIN_TIME,
+                                False, log)
+    log(f"u64 merged / u32 keydirect nested strand: "
+        f"{roofline.strand_ratio(strands):.3f} (the JAX design's bar: <= 2)")
     del d
     times = csrprof.run(csrprof.stages(dev, LOG2_S, LOG2_R), 1 << LOG2_S,
                         TOOL_MIN_TIME,
@@ -1045,6 +1068,250 @@ def check_exp4_against_cpu(exp, launches, label):
                      "bitonic_sort_segmented"):
             require(launches[f"{plan} {label}"][name] > 0,
                     f"{name} not launched in phase 6's {plan} {label}")
+
+
+#: phase 7's five u32 calls: (label, build side, probe side, join
+#: arguments, e1_t0c.csv plan whose counters they reproduce)
+JOIN_CALLS = (("Csr", "R", "S", dict(how="chaining", unique=True), "Csr"),
+              ("CsrUU", "R", "S", dict(how="chaining"), "CsrUU"),
+              ("Nsr", "R", "S", dict(), "Nsr"),
+              ("Crs", "S", "R", dict(how="chaining"), "Crs"),
+              ("Nrs", "S", "R", dict(), "Nrs"))
+#: the hi bits of phase 7's u64 keys
+U64_HI = np.uint64(0xAB << 40)
+#: the scale of phase 7's CPU comparisons (R18/S22: the plain versions on
+#: the CPU stay inside the phase's budget)
+CPU_LOG2_R, CPU_LOG2_S = 18, 22
+JOIN_KERNELS = ("bitonic_sort_packed_segmented", "windowed_lookup",
+                "multi_scan", "bitonic_sort_segmented")
+
+
+def key_maps():
+    """Phase 7's key columns from the u32 ones: u64 with 0xAB << 40 set,
+    composite (k >> 10, k & 1023), sparse u32 murmur32(k); each a
+    bijection, so every join keeps the u32 join's pairs."""
+    from hashjoin3d_tpu_torch import pack2u32
+    from hashjoin3d_tpu_torch.ops.hashing import murmur32_np
+
+    return {"u64": lambda k: k.astype(np.uint64) | U64_HI,
+            "composite": lambda k: pack2u32(k >> 10, k & 1023),
+            "sparse u32": murmur32_np}
+
+
+def merged_calls():
+    """(label, key map, call label it mirrors): the five calls on u64 keys,
+    the Nrs-shaped call on composite keys, the Crs-shaped one on sparse
+    u32 keys."""
+    out = [(f"{label} u64", "u64", label) for label, *_ in JOIN_CALLS]
+    return out + [("Nrs composite", "composite", "Nrs"),
+                  ("Crs sparse u32", "sparse u32", "Crs")]
+
+
+def rows_key(probe_rows, build_rows, dev) -> torch.Tensor:
+    """Row-id pairs as one sorted int64 column on ``dev``: equal multisets
+    give equal columns."""
+    p = torch.from_numpy(np.asarray(probe_rows)).to(dev).to(torch.int64)
+    b = torch.from_numpy(np.asarray(build_rows)).to(dev).to(torch.int64)
+    return torch.sort(p * (1 << 32) + b).values
+
+
+def join_pairs_key(res, dev) -> torch.Tensor:
+    """A JoinResult's pairs as :func:`rows_key`."""
+    return rows_key(res.probe_rows, res.build_rows, dev)
+
+
+def timed_join(args, kw, dev, label, launches):
+    """One join with the launch counts from 0 (``launches[label]``), then
+    the median wall ms of three more (each ending in its copy to the host,
+    which syncs)."""
+    from hashjoin3d_tpu_torch import join, kernels
+
+    kernels.reset_launch_counts()
+    res = join(*args, device=dev, **kw)
+    torch.cuda.synchronize()
+    launches[label] = {k: kernels.LAUNCHES[k] for k in JOIN_KERNELS}
+    times = []
+    for _ in range(3):
+        t = time.perf_counter()
+        join(*args, device=dev, **kw)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return res, float(np.median(times))
+
+
+def join_line(label, res, ms, launches, card) -> str:
+    return (f"phase 7 join {label} on {card}: {ms:.3f} ms (median of 3), "
+            f"num_matches {res.num_matches}, num_cmps {res.num_cmps}, "
+            f"num_results {res.num_results}, route_worst {res.route_worst} "
+            f"(route_nbad {res.route_nbad}), "
+            f"launches {json.dumps(launches[label])}")
+
+
+def phase7_cpu_counters(dev, maps):
+    """The merged calls and the fib call at R18/S22 on the card and with
+    the plain versions on the CPU: counters and pairs equal."""
+    from hashjoin3d_tpu_torch import join
+    from hashjoin3d_tpu_torch.utils.gen import exp1_data
+
+    rk, sa, _ = exp1_data(CPU_LOG2_R, CPU_LOG2_S, False, 0)
+    sides = {"R": rk, "S": sa}
+    calls = {label: (b, p, kw) for label, b, p, kw, _ in JOIN_CALLS}
+    cases = [(label, maps[kind], *calls[base])
+             for label, kind, base in merged_calls()]
+    cases.append(("Nrs u64 fib", maps["u64"], "S", "R", dict(hashfun="fib")))
+    for label, kmap, b, p, kw in cases:
+        args = (kmap(sides[b]), kmap(sides[p]))
+        got = join(*args, device=dev, **kw)
+        want = join(*args, device="cpu", **kw)
+        for k in ("num_matches", "num_cmps", "num_results"):
+            require(getattr(got, k) == getattr(want, k),
+                    f"phase 7 {label} at R{CPU_LOG2_R}/S{CPU_LOG2_S}: {k} "
+                    f"{getattr(got, k)} != the CPU run's {getattr(want, k)}")
+        require(torch.equal(join_pairs_key(got, dev).cpu(),
+                            join_pairs_key(want, "cpu")),
+                f"phase 7 {label} at R{CPU_LOG2_R}/S{CPU_LOG2_S}: pairs "
+                "differ from the CPU run")
+        print(f"phase 7 {label} at R{CPU_LOG2_R}/S{CPU_LOG2_S} (the CPU "
+              f"check's scale): counters and pairs equal the CPU run "
+              f"(num_cmps {got.num_cmps})")
+
+
+def phase7_lookup_methods(dev, sides, card):
+    """``lookup_auto``'s two methods on the semi path's probe, timed on
+    CUDA events: the Nrs-shaped probe (2^20 keys into S.a's 2^20-key
+    directory) and the Nsr-shaped one (2^24 keys into R.k's), u32 and
+    u64, each held equal to the other."""
+    from hashjoin3d_tpu_torch.ops.layout import key_column, widen_u64
+    from hashjoin3d_tpu_torch.ops.nested import build_nested_host, probe_nested
+
+    out = {}
+    for shape, b, p in (("Nrs", "S", "R"), ("Nsr", "R", "S")):
+        for width in ("u32", "u64"):
+            bt, pt = key_column(sides[b], dev), key_column(sides[p], dev)
+            if width == "u64":
+                bt, pt = widen_u64(bt), widen_u64(pt)
+            table = build_nested_host(bt, 1 << LOG2_R)
+            res = {m: probe_nested(table, pt, method=m)
+                   for m in ("search", "merge")}
+            for k in ("hit", "group_len"):
+                require(torch.equal(getattr(res["search"], k),
+                                    getattr(res["merge"], k)),
+                        f"phase 7 lookup {shape} {width}: {k} differs "
+                        "between search and merge")
+            ms = {m: cuda_ms(lambda m=m: probe_nested(table, pt, method=m),
+                             reps=5) for m in ("search", "merge")}
+            out[f"{shape} {width}"] = ms
+            print(f"phase 7 lookup_auto on the semi path, {shape} {width} on "
+                  f"{card}: search {ms['search']:.4f} ms, merge "
+                  f"{ms['merge']:.4f} ms (probe_nested, events)")
+            del table, res
+    return out
+
+
+def phase7_join(dev, card, rk_np, sa_np):
+    """``join`` on the card: the five u32 calls against e1_t0c.csv, the
+    merged calls (u64, composite, sparse u32) against the u32 calls'
+    pairs and the CPU run's counters, the modes, a post predicate, fib,
+    and the lookup methods.  Returns each call's launch counts, from 0."""
+    from hashjoin3d_tpu_torch import join
+
+    t7 = time.perf_counter()
+    ref = plan_rows(REFERENCE_CSV.read_text())
+    hdr, ref_rows = ref
+    sides = {"R": rk_np, "S": sa_np}
+    launches, keys, u32 = {}, {}, {}
+    for label, b, p, kw, plan in JOIN_CALLS:
+        res, ms = timed_join((sides[b], sides[p]), kw, dev, label, launches)
+        row = dict(zip(hdr, ref_rows[plan]))
+        want = (int(row["c_htProbe"]), int(row["c_htProbeCmp"]),
+                int(row["c_unnest"] if plan.startswith("N") else
+                    row["c_top"]))
+        got = (res.num_matches, res.num_cmps, res.num_results)
+        require(got == want, f"phase 7 {label}: (num_matches, num_cmps, "
+                f"num_results) {got}, {REFERENCE_CSV.name} {plan} {want}")
+        require(res.route_worst <= 1, f"phase 7 {label}: route_worst "
+                f"{res.route_worst}")
+        print(join_line(label, res, ms, launches, card))
+        keys[label] = join_pairs_key(res, dev)
+        u32[label] = res
+    maps = key_maps()
+    calls = {label: (b, p, kw) for label, b, p, kw, _ in JOIN_CALLS}
+    for label, kind, base in merged_calls():
+        b, p, kw = calls[base]
+        args = (maps[kind](sides[b]), maps[kind](sides[p]))
+        res, ms = timed_join(args, kw, dev, label, launches)
+        for k in ("num_matches", "num_results"):
+            require(getattr(res, k) == getattr(u32[base], k),
+                    f"phase 7 {label}: {k} {getattr(res, k)} != the u32 "
+                    f"call's {getattr(u32[base], k)}")
+        require(torch.equal(join_pairs_key(res, dev), keys[base]),
+                f"phase 7 {label}: pairs differ from the u32 call's")
+        require(res.route_worst <= 1, f"phase 7 {label}: route_worst "
+                f"{res.route_worst}")
+        print(join_line(label, res, ms, launches, card))
+    phase7_cpu_counters(dev, maps)
+
+    # modes on the Nrs-shaped call, u32 and u64
+    for width, kmap in (("u32", lambda k: k), ("u64", maps["u64"])):
+        args = (kmap(sa_np), kmap(rk_np))
+        inner = join(*args, device=dev)
+        hit = np.zeros(rk_np.size, bool)
+        hit[inner.probe_rows] = True
+        for mode in ("semi", "anti", "left"):
+            label = f"Nrs {width} {mode}"
+            res, ms = timed_join(args, dict(mode=mode), dev, label, launches)
+            want = np.nonzero(hit if mode != "anti" else ~hit)[0]
+            if mode == "left":
+                miss = np.nonzero(~hit)[0]
+                got_key = join_pairs_key(res, dev)
+                want_p = np.concatenate([inner.probe_rows, miss])
+                want_b = np.concatenate([inner.build_rows,
+                                         np.full(miss.size, -1, np.int32)])
+                require(torch.equal(got_key, rows_key(want_p, want_b, dev)),
+                        f"phase 7 {label}: not inner plus anti with -1")
+            else:
+                require(np.array_equal(res.probe_rows, want)
+                        and (res.build_rows == -1).all(),
+                        f"phase 7 {label}: rows differ from the inner "
+                        "join's hit set")
+            require((res.num_matches, res.num_cmps)
+                    == (inner.num_matches, inner.num_cmps),
+                    f"phase 7 {label}: counters differ from inner's")
+            print(join_line(label, res, ms, launches, card))
+    # one post predicate over payload columns
+    pp = {"v": (np.arange(rk_np.size) * 7) % 5}
+    bp = {"v": (np.arange(sa_np.size) * 3) % 5}
+
+    def pred(p, b):
+        return (p["v"] + b["v"]) % 3 != 0
+
+    res, ms = timed_join((sa_np, rk_np), dict(
+        predicate=pred, probe_payload=pp, build_payload=bp), dev,
+        "Nrs u32 post predicate", launches)
+    inner = u32["Nrs"]
+    keep = pred({"v": pp["v"][inner.probe_rows]},
+                {"v": bp["v"][inner.build_rows]})
+    require(torch.equal(join_pairs_key(res, dev),
+                        rows_key(inner.probe_rows[keep],
+                                 inner.build_rows[keep], dev)),
+            "phase 7 post predicate: pairs differ from numpy's filter")
+    print(join_line("Nrs u32 post predicate", res, ms, launches, card))
+    res, ms = timed_join((maps["u64"](sa_np), maps["u64"](rk_np)),
+                         dict(hashfun="fib"), dev, "Nrs u64 fib", launches)
+    require(res.num_results == u32["Nrs"].num_results
+            and torch.equal(join_pairs_key(res, dev), keys["Nrs"]),
+            "phase 7 Nrs u64 fib: pairs differ from the u32 call's")
+    print(join_line("Nrs u64 fib", res, ms, launches, card))
+    del keys
+    methods = phase7_lookup_methods(dev, sides, card)
+    faster = {shape: min(ms, key=ms.get) for shape, ms in methods.items()}
+    print("phase 7 lookup_auto('auto') takes 'search'; the faster method "
+          "here: " + json.dumps(faster))
+    for name in JOIN_KERNELS:
+        require(sum(c[name] for c in launches.values()) > 0,
+                f"{name} not launched in phase 7")
+    print(f"phase 7: {time.perf_counter() - t7:.1f} s")
+    return launches, methods
 
 
 def main() -> int:
@@ -1207,13 +1474,21 @@ def main() -> int:
         print(f"launches {plan}: " + json.dumps(
             {k: v for k, v in counts.items() if v}))
 
+    # phase 7: join, the one-call API, on the card
+    join_launches, lookup_ms = phase7_join(dev, card, rk_np, sa_np)
+    print("phase 7 lookup methods (ms): " + json.dumps(lookup_ms))
+    print(f"smoke so far {time.perf_counter() - t0:.1f} s")
+
     entries = [
         dict(name=name, route="cuda", source=src, replaces=rep,
              launches=after2[key],
              plan_launches={p: c[key] for p, c in plan_launches.items()},
              miss_probe_launches=after3[key],
              tool_launches=tools[key],
-             probe_tool_launches=probe_tools[key], **results[name])
+             probe_tool_launches=probe_tools[key],
+             join_launches={c: n.get(key, 0)
+                            for c, n in join_launches.items()},
+             **results[name])
         for name, (src, rep, key) in KERNELS.items()]
     for pid, (_, line, key) in PROBES.items():
         entries.append(dict(
@@ -1224,7 +1499,8 @@ def main() -> int:
             plan_launches={p: c[key] for p, c in plan_launches.items()},
             miss_probe_launches=after3[key],
             tool_launches=tools[key],
-            probe_tool_launches=probe_tools[key], **probe_results[pid]))
+            probe_tool_launches=probe_tools[key], join_launches={},
+            **probe_results[pid]))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

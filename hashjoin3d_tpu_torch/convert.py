@@ -4,7 +4,9 @@
 (after ``np.asarray``) into the port's table on ``device``, and
 ``nested_table_from_numpy`` does the same for a JAX ``NestedTable``, each
 in either layout (dense-direct or compacted), so the port's probe strands
-can be held against tables the JAX package built.
+can be held against tables the JAX package built.  A 32-bit column becomes
+the int32 carrier, a u64 one (the ``keys`` and ``groups.ukey`` of a table
+built on 64-bit or composite keys) the int64 carrier.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import numpy as np
 import torch
 
 from .ops.chaining import ChainingTable
-from .ops.layout import GroupIndex, I32, empty_group_index, from_numpy_u32
+from .ops.layout import GroupIndex, I32, empty_group_index, key_column
 from .ops.nested import NestedTable
 
 #: the JAX table fields the port's dense-direct chaining table carries
@@ -47,7 +49,7 @@ def _columns(fields: dict, names, device) -> dict:
     missing = [f for f in names if f not in fields]
     if missing:
         raise KeyError(f"missing table fields {missing}")
-    return {f: from_numpy_u32(np.asarray(fields[f]), device) for f in names}
+    return {f: key_column(fields[f], device) for f in names}
 
 
 def _group_index(cols: dict, fields: dict, device) -> GroupIndex:
@@ -66,7 +68,7 @@ def chaining_table_from_numpy(fields: dict[str, np.ndarray], *,
     (``fields`` has ``direct``) carries :data:`FIELDS` and
     ``direct_shift``; a compacted one :data:`CHAINING_FIELDS`.  Either
     carries the :data:`OPTIONAL_FIELDS` it has.  Every column becomes its
-    int32 carrier on ``device``."""
+    carrier on ``device``."""
     if _present(fields, "direct"):
         cols = _columns(fields, FIELDS, device)
         groups = None
@@ -76,7 +78,7 @@ def chaining_table_from_numpy(fields: dict[str, np.ndarray], *,
         groups = _group_index(cols, fields, device)
     for f in OPTIONAL_FIELDS:
         if _present(fields, f):
-            cols[f] = from_numpy_u32(np.asarray(fields[f]), device)
+            cols[f] = key_column(fields[f], device)
     return ChainingTable(**cols, groups=groups, direct_shift=direct_shift,
                          num_buckets=num_buckets, hashfun=hashfun)
 
@@ -87,7 +89,7 @@ def nested_table_from_numpy(fields: dict[str, np.ndarray], *,
     """A JAX ``NestedTable`` as the port's.  A dense-direct table
     (``fields`` has ``direct``) carries :data:`NESTED_DENSE_FIELDS` and
     ``direct_shift``; a compacted one carries :data:`NESTED_FIELDS`
-    (``groups.n_keys`` a scalar)."""
+    (``groups.n_keys`` a scalar; ``key_direct`` where the table has one)."""
     if _present(fields, "direct"):
         cols = _columns(fields, NESTED_DENSE_FIELDS, device)
         n = cols["keys"].shape[0]
@@ -97,7 +99,10 @@ def nested_table_from_numpy(fields: dict[str, np.ndarray], *,
                            num_buckets=num_buckets, hashfun=hashfun,
                            direct_shift=direct_shift, **cols)
     cols = _columns(fields, [f for f in NESTED_FIELDS
-                             if f != "groups.n_keys"], device)
+                             if f not in ("groups.n_keys", "key_direct")],
+                    device)
     groups = _group_index(cols, fields, device)
+    if _present(fields, "key_direct"):
+        cols["key_direct"] = key_column(fields["key_direct"], device)
     return NestedTable(groups=groups, num_buckets=num_buckets,
                        hashfun=hashfun, **cols)

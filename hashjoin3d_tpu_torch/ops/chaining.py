@@ -3,10 +3,12 @@
 Port of ``hashjoin3d_tpu/ops/chaining.py`` (``ChainingTable``,
 ``can_use_dense_direct``, ``build_chaining_host``, ``_build_chaining_dense``
 with its ``full_chain_index``, ``_build_chaining_fused``,
-``_build_chaining_phase2``, ``_assemble_chaining``).  Semantics of the
-reference ``HtChaining1`` (``ht_chaining.hh``): a row's bucket is
-``murmur32(key) % num_buckets``; each bucket's chain is [first-inserted
-row, then the rest in reverse insertion order].
+``_build_chaining_phase2``, ``_assemble_chaining``, ``ChainProbeResult``
+and ``probe_chaining``).  Semantics of the reference ``HtChaining1``
+(``ht_chaining.hh``): a row's bucket is ``hash(key) % num_buckets``, the
+hash matched to the key width (``murmur32`` / ``murmur64`` by default);
+each bucket's chain is [first-inserted row, then the rest in reverse
+insertion order].
 
 When the build keys are a permutation of [0, n) (exp-1's R.k) the probe
 needs no directory: ``direct[key]`` packs ``row | (chain_pos + 1) <<
@@ -14,7 +16,7 @@ direct_shift``, so one lookup answers a probe and its early-exit
 comparison count.  Probes without early exit (plan CsrUU) count whole
 chains: ``chain_by_key[key]`` is the chain length of the key's bucket.
 
-Any other key column takes the compacted build: the distinct-key
+Any other key column, u32 or u64, takes the compacted build: the distinct-key
 directory (:class:`~.layout.GroupIndex`), the bucket histogram and, for
 early-exit probes, each key's first node in chain order
 (``group_min_pos``, ``group_chain_first``).  Keys in a known domain
@@ -32,10 +34,11 @@ import numpy as np
 import torch
 
 from .hashing import bucket_of, hash_key, hash_key_np
-from .layout import (I32, I64, GroupIndex, canon_key_dtype,
+from .layout import (I32, I64, GroupIndex, check_carrier,
                      compact_group_index, empty_group_index, group_capacity,
                      i64_to_u32, inverse_permute, key_direct_index,
-                     run_boundaries, sort_with_rows, sorted_histogram)
+                     key_direct_lookup, lookup_auto, run_boundaries,
+                     same_key_width, sort_with_rows, sorted_histogram)
 
 
 @dataclass(frozen=True)
@@ -150,8 +153,8 @@ def build_chaining_host(keys: torch.Tensor, num_buckets: int,
                         early_exit_index: bool = True,
                         full_chain_index: bool = False,
                         hashfun: str = "murmur") -> ChainingTable:
-    """Build a chaining table from a u32 key column (int32 carrier) on its
-    own device.
+    """Build a chaining table from a key column (the int32 carrier of u32
+    keys, the int64 one of u64 keys) on its own device.
 
     Permutation keys (``dense_direct`` with ``n_keys == len(keys)``) take
     the slim dense build; ``full_chain_index`` adds ``chain_by_key`` there
@@ -162,7 +165,7 @@ def build_chaining_host(keys: torch.Tensor, num_buckets: int,
     ``early_exit_index=False`` (tables only probed without early exit:
     Crs, exp-4's Chj) leaves out the chain-position index.
     """
-    canon_key_dtype(keys)
+    check_carrier(keys)
     n = keys.shape[0]
     if dense_direct and n_keys == n:
         return _build_chaining_dense(keys, num_buckets,
@@ -300,3 +303,101 @@ def _assemble_chaining(groups, bucket_start, bucket_len, pos_by_row,
                          group_min_pos=group_min_pos,
                          group_chain_first=group_chain_first,
                          key_direct=key_direct)
+
+
+@dataclass(frozen=True)
+class ChainProbeResult:
+    """Per-probe match descriptors and the plan counters."""
+
+    g: torch.Tensor            # i32[P] candidate group (the build row itself
+    #                                   when ``from_direct``)
+    hit: torch.Tensor          # bool[P]
+    match_count: torch.Tensor  # i32[P] tuples this probe emits
+    num_matches: torch.Tensor  # i64[] total emitted tuples (c_htProbe)
+    num_cmps: torch.Tensor     # i64[] chain comparisons (c_htProbeCmp)
+    from_direct: bool = False
+
+
+def _check_probe(table, pk: torch.Tensor) -> None:
+    if pk.device != table.keys.device:
+        raise ValueError(f"probe keys on {pk.device}, table on "
+                         f"{table.keys.device}")
+    same_key_width(table.keys, pk)
+
+
+def _direct_probe(direct: torch.Tensor, shift: int, pk: torch.Tensor,
+                  mask):
+    """A dense-direct table's one gather: ``(in_range, hit, row, pos1)``;
+    keys at or past ``n``, compared unsigned, are out of range."""
+    n = direct.shape[0]
+    in_range = (pk >= 0) & (pk < n)
+    hit = in_range if mask is None else in_range & mask
+    d = direct[torch.where(in_range, pk, n - 1).long()]
+    row = d & ((1 << shift) - 1)
+    pos1 = (d >> shift) & ((1 << (32 - shift)) - 1)
+    return in_range, hit, row, pos1
+
+
+def probe_chaining(table: ChainingTable, probe_keys: torch.Tensor,
+                   unique: bool = False, mask: torch.Tensor | None = None,
+                   method: str = "auto") -> ChainProbeResult:
+    """Vectorized ``AlgHashJoinProbe`` (``algebra.hh:625-659``).
+
+    ``unique`` is ``IsBuildKeyUnique``: the walk stops at the first
+    matching node, so a probe emits at most one tuple and counts the
+    match's chain position.  ``mask`` marks the live probe rows.  Four
+    branches: a dense-direct table with and without ``unique`` (one gather
+    of the packed word; without the early exit every live probe counts its
+    bucket's chain), a ``key_direct`` table (one gather of the map) and a
+    compacted table without one (:func:`~.layout.lookup_auto` with
+    ``method``).  ``probe_keys`` ride the table's key carrier."""
+    pk = probe_keys
+    _check_probe(table, pk)
+
+    def blen_of(keys):
+        return table.bucket_len[bucket_of(hash_key(keys, table.hashfun),
+                                          table.num_buckets).long()]
+
+    if table.direct is not None:
+        in_range, hit, row, pos1 = _direct_probe(
+            table.direct, table.direct_shift, pk, mask)
+        if unique:
+            live_miss = ~in_range if mask is None else mask & ~in_range
+            cmps = torch.where(hit, pos1, 0).to(I64).sum()
+            if bool(live_miss.any()):
+                cmps = cmps + torch.where(live_miss, blen_of(pk),
+                                          0).to(I64).sum()
+        else:
+            # no early exit (CsrUU): every live probe walks its whole chain
+            walked = blen_of(pk)
+            if mask is not None:
+                walked = torch.where(mask, walked, 0)
+            cmps = walked.to(I64).sum()
+        return ChainProbeResult(g=row, hit=hit, match_count=hit.to(I32),
+                                num_matches=hit.to(I64).sum(),
+                                num_cmps=cmps, from_direct=True)
+
+    blen = blen_of(pk)
+    if table.key_direct is not None:
+        g, hit = key_direct_lookup(table.key_direct, pk)
+    else:
+        g, hit = lookup_auto(table.groups, pk, method)
+    if mask is not None:
+        hit = hit & mask
+    gl = g.long()
+    glen = torch.where(hit, table.groups.group_len[gl], 0)
+    if unique:
+        if table.group_min_pos.shape[0] == 0:
+            raise ValueError(
+                "table was built with early_exit_index=False; "
+                "IsBuildKeyUnique probes need the chain-position index")
+        cmps = torch.where(hit, table.group_min_pos[gl] + 1, blen)
+        match_count = hit.to(I32)
+    else:
+        cmps = blen
+        match_count = glen
+    if mask is not None:
+        cmps = torch.where(mask, cmps, 0)
+    return ChainProbeResult(g=g, hit=hit, match_count=match_count,
+                            num_matches=match_count.to(I64).sum(),
+                            num_cmps=cmps.to(I64).sum())

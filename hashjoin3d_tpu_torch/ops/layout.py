@@ -1,15 +1,20 @@
-"""Integer carriers, the run-structure primitives and the CSR group layout.
+"""Integer carriers, the run-structure primitives, the CSR group layout
+and the directory lookups.
 
-Port of ``hashjoin3d_tpu/ops/layout.py`` (the parts the dense-direct builds,
-the compacted nested build and the unnest expansion use).  PyTorch's
-``uint32`` has no add, shifts, ``<``, ``%``, cummax or scatter, so every
-u32 column rides as the int32 tensor with the same bits:
+Port of ``hashjoin3d_tpu/ops/layout.py`` (the parts the builds, the unnest
+expansion and the probe ops use).  PyTorch's ``uint32`` and ``uint64`` have
+no add, shifts, ``<``, ``%``, cummax or scatter, so every u32 column rides
+as the int32 tensor with the same bits, and every u64 column (a 64-bit or a
+composite :func:`pack2u32` key) as the int64 tensor with the same bits:
 
-* add and multiply wrap exactly as u32;
-* an unsigned compare or sort flips the sign bit first (``x ^ SIGN``);
-* a logical right shift is :func:`shr`;
-* arithmetic that must see the unsigned value widens to int64 with
-  :func:`u32_to_i64` and comes back through :func:`i64_to_u32`.
+* add and multiply wrap exactly as the unsigned type;
+* an unsigned compare or sort flips the sign bit first (:func:`uorder`:
+  ``x ^ SIGN`` on int32, ``x ^ SIGN64`` on int64);
+* a logical right shift is :func:`shr` (``hashing.shr64`` on int64);
+* 32-bit arithmetic that must see the unsigned value widens to int64 with
+  :func:`u32_to_i64` and comes back through :func:`i64_to_u32`; a u32
+  column that meets a u64 one zero-extends the same way, so the padding
+  key 0xFFFFFFFF stays 2^32 - 1.
 
 Counters are int64.
 
@@ -31,9 +36,12 @@ I32 = torch.int32
 I64 = torch.int64
 #: int32 sign bit: ``x ^ SIGN`` maps u32 order onto int32 order
 SIGN = -0x80000000
+#: int64 sign bit: ``x ^ SIGN64`` maps u64 order onto int64 order
+SIGN64 = -0x8000000000000000
 U32_MASK = 0xFFFFFFFF
-#: padding key of the sorted distinct-key array (u32 0xFFFFFFFF on the
-#: carrier); padding groups also carry ``group_len == 0``
+#: padding key of the sorted distinct-key array: all ones, u32 or u64, is
+#: -1 on either carrier (the JAX package's ``ukey_pad(dtype)``); padding
+#: groups also carry ``group_len == 0``
 UKEY_PAD = -1
 
 
@@ -64,13 +72,54 @@ def empty_group_index(n_keys: int, device) -> GroupIndex:
                       n_keys=torch.tensor(n_keys, dtype=I32, device=device))
 
 
-def canon_key_dtype(keys: torch.Tensor) -> torch.dtype:
-    """The key carrier: int32 for 32-bit keys.  64-bit keys are not
-    ported yet."""
-    if keys.element_size() == 8:
-        raise NotImplementedError(
-            "64-bit keys come with ROADMAP slice 4 (the merged strands)")
-    return I32
+def canon_key_dtype(keys) -> torch.dtype:
+    """The key carrier of a column (tensor or numpy): int64 for 8-byte
+    keys, int32 for the rest."""
+    size = (keys.element_size() if isinstance(keys, torch.Tensor)
+            else np.asarray(keys).dtype.itemsize)
+    return I64 if size == 8 else I32
+
+
+def check_carrier(keys: torch.Tensor) -> None:
+    """Refuse a key tensor that is neither carrier (int32 or int64)."""
+    if keys.dtype not in (I32, I64):
+        raise TypeError(f"key columns ride int32 (u32) or int64 (u64) "
+                        f"carriers, got {keys.dtype}")
+
+
+def uorder(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with its sign bit flipped: unsigned order as signed order."""
+    return x ^ (SIGN64 if x.dtype == I64 else SIGN)
+
+
+def pack2u32(hi, lo) -> np.ndarray:
+    """Pack a composite (hi, lo) u32 key pair into one u64 join key (host
+    columns in, a numpy uint64 column out)."""
+    hi = np.asarray(hi).astype(np.uint32).astype(np.uint64)
+    lo = np.asarray(lo).astype(np.uint32).astype(np.uint64)
+    return (hi << np.uint64(32)) | lo
+
+
+def key_column(a, device) -> torch.Tensor:
+    """A host key column as its carrier on ``device``: 8-byte integers as
+    int64 with the u64 bits, narrower integers as int32 with the bits of
+    ``astype(uint32)`` (a signed column sign-extends first, as numpy and
+    the JAX package cast it)."""
+    a = np.asarray(a)
+    if a.dtype.kind not in "iu":
+        raise TypeError(f"expected an integer key column, got {a.dtype}")
+    # astype copies, so the tensor never aliases the caller's column
+    if canon_key_dtype(a) == I64:
+        host = a.astype(np.uint64, order="C").view(np.int64)
+    else:
+        host = a.astype(np.uint32, order="C").view(np.int32)
+    return torch.from_numpy(host).to(resolve_device(device))
+
+
+def widen_u64(x: torch.Tensor) -> torch.Tensor:
+    """A key carrier as int64: a u32 column zero-extends, never
+    sign-extends."""
+    return x if x.dtype == I64 else u32_to_i64(x)
 
 
 def resolve_device(device) -> torch.device:
@@ -162,28 +211,30 @@ def inverse_permute(perm: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
 
 
 def is_sorted_ascending(keys: torch.Tensor, unsigned: bool = True) -> bool:
-    """True iff ``keys`` is ascending (u32 order by default)."""
+    """True iff ``keys`` is ascending (unsigned order of its carrier by
+    default)."""
     if keys.shape[0] < 2:
         return True
-    k = keys ^ SIGN if unsigned else keys
+    k = uorder(keys) if unsigned else keys
     return bool((k[1:] >= k[:-1]).all())
 
 
 def sort_rows_maybe_skip(keys: torch.Tensor):
-    """Stable u32 sort of ``keys`` with its row ids, skipped when ``keys``
-    is already ascending (a STABLE sort of an ascending stream is the
-    identity, so the skip is exact).  Returns ``(sorted keys, rows)``."""
+    """Stable unsigned sort of ``keys`` (either carrier) with its row ids,
+    skipped when ``keys`` is already ascending (a STABLE sort of an
+    ascending stream is the identity, so the skip is exact).  Returns
+    ``(sorted keys, rows)``."""
     if is_sorted_ascending(keys):
         return keys, torch.arange(keys.shape[0], dtype=I32,
                                   device=keys.device)
-    s, idx = torch.sort(keys ^ SIGN, stable=True)
-    return s ^ SIGN, idx.to(I32)
+    s, idx = torch.sort(uorder(keys), stable=True)
+    return uorder(s), idx.to(I32)
 
 
 def sort_with_rows(keys: torch.Tensor):
     """Phase 1 of the compacted builds: ``(sorted keys, rows, n_keys)``,
     the distinct-key count a device scalar."""
-    canon_key_dtype(keys)
+    check_carrier(keys)
     skey, srow = sort_rows_maybe_skip(keys)
     n = skey.shape[0]
     if n == 0:
@@ -206,15 +257,16 @@ def compact_group_index(keys: torch.Tensor, skey: torch.Tensor,
     ascend with the sorted keys), then the key, run length and first row
     of each group are fetched at those positions: by ``safe_lookup`` (K2)
     while heads stride at most 8 rows per key, by a plain gather past that
-    (the window would have to grow past its cap).  ``gid_by_row`` is not
-    materialised (no probe reads it).
+    (the window would have to grow past its cap).  A 64-bit key is fetched
+    as its two u32 halves.  ``gid_by_row`` is not materialised (no probe
+    reads it).
     """
     n = keys.shape[0]
     dev = keys.device
     i = torch.arange(n, dtype=I32, device=dev)
     is_first, gid, _, run_len = run_boundaries(skey, n)
     if n == 0:
-        ukey = torch.full((cap,), UKEY_PAD, dtype=I32, device=dev)
+        ukey = torch.full((cap,), UKEY_PAD, dtype=skey.dtype, device=dev)
         group_start = torch.zeros(cap, dtype=I32, device=dev)
         group_len = torch.zeros(cap, dtype=I32, device=dev)
         first_row = torch.zeros(cap, dtype=I32, device=dev)
@@ -240,7 +292,13 @@ def compact_group_index(keys: torch.Tensor, skey: torch.Tensor,
         else:
             def fetch(vals):
                 return vals[hp.long()]
-        ukey = torch.where(pad, UKEY_PAD, fetch(skey))
+        if skey.dtype == I64:
+            hi = fetch(i64_to_u32(skey >> 32))
+            lo = fetch(i64_to_u32(skey))
+            skey_hp = (hi.to(I64) << 32) | u32_to_i64(lo)
+        else:
+            skey_hp = fetch(skey)
+        ukey = torch.where(pad, UKEY_PAD, skey_hp)
         group_start = torch.where(pad, n, head)
         group_len = torch.where(pad, 0, fetch(run_len))
         first_row = torch.where(pad, n, fetch(srow))
@@ -254,17 +312,112 @@ def compact_group_index(keys: torch.Tensor, skey: torch.Tensor,
 def key_direct_index(groups: GroupIndex, key_domain: int) -> torch.Tensor:
     """Dense key -> group map over the domain [0, ``key_domain``): one
     scatter at build time, one lookup a probe.  ``-1`` marks absent keys;
-    keys at or past the domain (compared unsigned, so the padding key
-    0xFFFFFFFF too) are left out."""
+    keys at or past the domain (compared unsigned, so the padding key too)
+    are left out."""
     cap = groups.ukey.shape[0]
     dev = groups.ukey.device
     slot = torch.arange(cap, dtype=I64, device=dev)
-    uk = u32_to_i64(groups.ukey)
-    ok = (groups.group_len > 0) & (uk < key_domain)
+    uk = widen_u64(groups.ukey)
+    # an int64 carrier below 0 is a u64 key of at least 2^63
+    ok = (groups.group_len > 0) & (uk >= 0) & (uk < key_domain)
     tgt = torch.where(ok, uk, key_domain + slot)
     out = torch.full((key_domain + cap,), -1, dtype=I32, device=dev)
     out[tgt] = slot.to(I32)
     return out[:key_domain]
+
+
+def same_key_width(build: torch.Tensor, pk: torch.Tensor) -> None:
+    """Refuse probe keys of another carrier than the build side's: build
+    and probe must hash with one functor width (``api.join`` widens both
+    columns to u64 when either is 64-bit)."""
+    if pk.dtype != build.dtype:
+        raise ValueError(f"probe keys ride {pk.dtype}, the build side "
+                         f"{build.dtype}: widen both columns to one key "
+                         "width before the build")
+
+
+def lookup(groups: GroupIndex, probe_keys: torch.Tensor):
+    """Each probe key's group id by binary search over the sorted distinct
+    keys: ``(g, hit)``.  A hit also needs a non-empty group: padding slots
+    carry the all-ones key, which a probe may equal, but ``group_len`` 0
+    (and a real key of that value sorts before its padding, so the left
+    insertion point finds it first)."""
+    same_key_width(groups.ukey, probe_keys)
+    cap = groups.ukey.shape[0]
+    g = torch.searchsorted(uorder(groups.ukey), uorder(probe_keys),
+                           side="left").to(I32)
+    g = torch.clamp(g, max=cap - 1)
+    gl = g.long()
+    hit = (groups.ukey[gl] == probe_keys) & (groups.group_len[gl] > 0)
+    return g, hit
+
+
+def merge_lookup(groups: GroupIndex, probe_keys: torch.Tensor,
+                 mask: torch.Tensor | None = None):
+    """Sort-merge twin of :func:`lookup`, same ``(g, hit)``: one stable
+    sort of the directory keys and the probe keys (each directory entry
+    before its equal probe keys), the last directory entry carried forward
+    by running maxima, and one scatter back to probe order.  Padding
+    directory slots stay out of the carry; the scatter sends directory
+    entries to slots of their own past the probes."""
+    same_key_width(groups.ukey, probe_keys)
+    n = groups.ukey.shape[0]
+    P = probe_keys.shape[0]
+    dev = probe_keys.device
+    vals = uorder(torch.cat([groups.ukey, probe_keys]))
+    svals, order = torch.sort(vals, stable=True)
+    dir_gid = torch.where(groups.group_len > 0,
+                          torch.arange(n, dtype=I32, device=dev), -1)
+    gid_in = torch.cat([dir_gid, torch.full((P,), -1, dtype=I32,
+                                            device=dev)])
+    sgid = gid_in[order]
+    srow = order.to(I64) - n          # probe row, or < 0 for a directory slot
+    is_dir = sgid >= 0
+    g_prop = torch.cummax(sgid, 0).values
+    # the carrier's minimum is the running maximum's identity
+    floor = SIGN64 if vals.dtype == I64 else SIGN
+    k_prop = torch.cummax(torch.where(is_dir, svals, floor), 0).values
+    hit_s = ~is_dir & (k_prop == svals) & (g_prop >= 0)
+    slot = torch.arange(n + P, dtype=I64, device=dev)
+    tgt = torch.where(srow >= 0, srow, P + slot)
+    g = torch.zeros(n + 2 * P, dtype=I32, device=dev)
+    g[tgt] = torch.clamp(g_prop, min=0)
+    hit = torch.zeros(n + 2 * P, dtype=torch.bool, device=dev)
+    hit[tgt] = hit_s
+    g, hit = g[:P], hit[:P]
+    hit = hit & (groups.group_len[g.long()] > 0)
+    if mask is not None:
+        hit = hit & mask
+    return g, hit
+
+
+def lookup_auto(groups: GroupIndex, probe_keys: torch.Tensor,
+                method: str = "auto"):
+    """:func:`lookup` or :func:`merge_lookup`.  ``"auto"`` is the binary
+    search on both device types: on the CPU as in the JAX package, and on
+    CUDA because it measured 10-21x faster than the sort-merge on
+    ``join``'s semi path on an NVIDIA H100 80GB HBM3 at 700 W
+    (``chip_smoke.py`` phase 7, PERF.md §6; the JAX package's TPU rule
+    picks the merge)."""
+    if method == "auto":
+        method = "search"
+    if method == "merge":
+        return merge_lookup(groups, probe_keys)
+    if method != "search":
+        raise ValueError(f"method must be 'auto', 'search' or 'merge', got "
+                         f"{method!r}")
+    return lookup(groups, probe_keys)
+
+
+def key_direct_lookup(key_direct: torch.Tensor, probe_keys: torch.Tensor):
+    """One-gather probe of a :func:`key_direct_index` map: ``(g, hit)``.
+    Keys at or past the domain, compared unsigned, miss."""
+    dom = key_direct.shape[0]
+    pk = probe_keys
+    in_dom = (pk >= 0) & (pk < dom)  # a negative carrier is >= 2^31 or 2^63
+    g = torch.where(in_dom, key_direct[torch.clamp(pk, 0, dom - 1).long()],
+                    -1)
+    return torch.clamp(g, min=0), g >= 0
 
 
 def expand(counts: torch.Tensor, out_size: int, payloads: tuple = (),

@@ -2,7 +2,8 @@
 
 Port of ``hashjoin3d_tpu/ops/nested.py`` (``NestedTable``,
 ``can_use_dense_direct``, ``build_nested_host``, ``_build_nested_dense``,
-``_build_nested_fused``, ``_build_nested_phase2``).  Semantics of the
+``_build_nested_fused``, ``_build_nested_phase2``, ``NestedBatch`` and
+``probe_nested``).  Semantics of the
 reference ``HtNested1`` (``ht_nested.hh:71-251``): one MainNode per
 distinct build key, its duplicate rows in a SubNode list.  A probe walks
 the bucket's main chain, one node per distinct key, so its comparison
@@ -26,13 +27,14 @@ from dataclasses import dataclass
 
 import torch
 
-from .chaining import _nbytes
+from .chaining import _check_probe, _direct_probe, _nbytes
 from .chaining import can_use_dense_direct as _chaining_dense_ok
 from .hashing import bucket_of, hash_key
-from .layout import (I32, I64, GroupIndex, canon_key_dtype,
+from .layout import (I32, I64, GroupIndex, check_carrier,
                      compact_group_index, empty_group_index, group_capacity,
                      i64_to_u32, inverse_permute, key_direct_index,
-                     run_boundaries, sort_with_rows, sorted_histogram)
+                     key_direct_lookup, lookup_auto, run_boundaries,
+                     sort_with_rows, sorted_histogram)
 
 
 @dataclass(frozen=True)
@@ -81,8 +83,8 @@ def build_nested_host(keys: torch.Tensor, num_buckets: int,
                       dense_direct: bool = False, n_keys: int | None = None,
                       key_domain: int | None = None,
                       hashfun: str = "murmur") -> NestedTable:
-    """Build the 3D table from a u32 key column (int32 carrier) on its own
-    device.
+    """Build the 3D table from a key column (the int32 carrier of u32
+    keys, the int64 one of u64 keys) on its own device.
 
     Permutation keys (``dense_direct`` with ``n_keys == len(keys)``) take
     the slim dense build.  Otherwise the directory is compacted to
@@ -92,7 +94,7 @@ def build_nested_host(keys: torch.Tensor, num_buckets: int,
     once after the sort.  A smaller ``n_keys`` than the true count
     truncates the directory.  ``key_domain`` adds the dense key -> group map.
     """
-    canon_key_dtype(keys)
+    check_carrier(keys)
     if dense_direct and n_keys == keys.shape[0]:
         return _build_nested_dense(keys, num_buckets, hashfun)
     if n_keys is not None:
@@ -184,3 +186,70 @@ def _build_nested_phase2(keys: torch.Tensor, skey: torch.Tensor,
                        num_buckets=num_buckets, direct=direct,
                        direct_shift=direct_shift, key_direct=key_direct,
                        hashfun=hashfun)
+
+
+@dataclass(frozen=True)
+class NestedBatch:
+    """A batch of nested tuples, the vectorized ``(probe*, MainNode*)``
+    pair: ``probe_row[i]`` (positional, ``arange(P)``) pairs with group
+    ``g[i]`` where ``hit[i]`` (``algebra.hh:451-458``)."""
+
+    probe_row: torch.Tensor    # i32[P]
+    g: torch.Tensor            # i32[P]
+    hit: torch.Tensor          # bool[P]
+    group_len: torch.Tensor    # i32[P] (0 where no hit)
+    num_matches: torch.Tensor  # i64[] probes with a match
+    num_cmps: torch.Tensor     # i64[] main-chain comparisons
+    #: i32[P] the single matching build row (dense-direct tables)
+    direct_row: torch.Tensor | None = None
+
+
+def probe_nested(table: NestedTable, probe_keys: torch.Tensor,
+                 mask: torch.Tensor | None = None,
+                 method: str = "auto") -> NestedBatch:
+    """Vectorized ``AlgNestJoinProbe`` (``algebra.hh:435-459``): at most
+    one nested tuple per live probe row, counting the matching MainNode's
+    1-based main-chain position, or the whole main chain on a miss.  A
+    dense-direct table answers with one gather of the packed word; a
+    compacted one through ``key_direct`` (one gather) or
+    :func:`~.layout.lookup_auto` with ``method``.  ``probe_keys`` ride
+    the table's key carrier."""
+    pk = probe_keys
+    _check_probe(table, pk)
+    P = pk.shape[0]
+    rows = torch.arange(P, dtype=I32, device=pk.device)
+
+    def main_len_of(keys):
+        return table.bucket_main_len[bucket_of(
+            hash_key(keys, table.hashfun), table.num_buckets).long()]
+
+    if table.direct is not None:
+        n = table.direct.shape[0]
+        in_range, hit, row, pos1 = _direct_probe(
+            table.direct, table.direct_shift, pk, mask)
+        cmps = torch.where(hit, pos1, 0).to(I64).sum()
+        live_miss = ~in_range if mask is None else mask & ~in_range
+        if bool(live_miss.any()):
+            cmps = cmps + torch.where(live_miss, main_len_of(pk),
+                                      0).to(I64).sum()
+        return NestedBatch(probe_row=rows,
+                           g=torch.where(in_range, pk, n - 1).to(I32),
+                           hit=hit, group_len=hit.to(I32),
+                           num_matches=hit.to(I64).sum(), num_cmps=cmps,
+                           direct_row=row)
+
+    if table.key_direct is not None:
+        g, hit = key_direct_lookup(table.key_direct, pk)
+    else:
+        g, hit = lookup_auto(table.groups, pk, method)
+    if mask is not None:
+        hit = hit & mask
+    gl = g.long()
+    cmps = torch.where(hit, table.main_pos_by_group[gl] + 1, main_len_of(pk))
+    if mask is not None:
+        cmps = torch.where(mask, cmps, 0)
+    return NestedBatch(probe_row=rows, g=g, hit=hit,
+                       group_len=torch.where(hit, table.groups.group_len[gl],
+                                             0),
+                       num_matches=hit.to(I64).sum(),
+                       num_cmps=cmps.to(I64).sum())

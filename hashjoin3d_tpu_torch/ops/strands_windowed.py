@@ -3,7 +3,10 @@
 Port of ``hashjoin3d_tpu/ops/strands_windowed.py``: the dense-direct strand
 of plans Csr, CsrUU, Nsr and CsrSel, the key_direct nested strand of plans
 Nrs, NrsNU and NrsSel, the key_direct chaining strand of plans Crs and
-CrsSel, and exp-4's Ndu, Chj and Nnu strands.  Probes are sorted once
+CrsSel, exp-4's Ndu, Chj and Nnu strands, and the merged nested and
+chaining strands of ``api.join``'s u64, composite and sparse keys (group
+ids from one sort-merge of the directory and the probes, kept in merged
+order so every later access stays a windowed lookup).  Probes are sorted once
 (segmented, K1 / K4), or not at all for a permutation or an iota probe
 column, or globally with their liveness riding the sort under a selection
 ``mask``; every per-key and per-group array is then read by one windowed
@@ -31,7 +34,7 @@ import torch
 from .bitonic import bitonic_sort_packed_segmented
 from .hashing import bucket_of, hash_key
 from .layout import (I32, I64, SIGN, expand, inverse_permute,
-                     is_sorted_ascending, shr)
+                     is_sorted_ascending, same_key_width, shr, uorder)
 from .sort import (probe_sort_chunk, sort_segmented, sort_segmented_1op,
                    window_for_chunk)
 from .windowed import DEFAULT_C, DEFAULT_W, windowed_lookup_covered
@@ -374,9 +377,11 @@ def keydirect_nested_strand_sorted(table, pk: torch.Tensor, out_size: int,
     rows (``expand``; build rows ascending within a group, probe rows from
     ``srow[p]``), up to ``out_size`` result pairs, ``c_unnest`` = the
     expanded count; without it the nested tuples (``nested_g``,
-    ``nested_hit``, ``nested_probe_row``) go to the top and ``c_top`` =
-    matches.  ``presorted`` / ``srow_values`` / ``segment`` (the
-    distributed strands) are not ported yet.
+    ``nested_hit``, ``nested_probe_row``) go to the top, ``c_top`` =
+    matches and ``c_expand_total`` is the hits' group-length sum, the
+    exact unnested size ``api.join`` sizes its buffer from.
+    ``presorted`` / ``srow_values`` / ``segment`` (the distributed
+    strands) are not ported yet.
     """
     if presorted or srow_values is not None or segment is not None:
         raise _slice6("keydirect_nested_strand_sorted", "presorted",
@@ -394,7 +399,7 @@ def keydirect_nested_strand_sorted(table, pk: torch.Tensor, out_size: int,
         prow = skey if srow is None else srow  # iota: the rows themselves
         return dict(nested_g=torch.where(hit, g, -1), nested_hit=hit,
                     nested_probe_row=prow, c_htProbe=m, c_htProbeCmp=cmps,
-                    c_top=m)
+                    c_top=m, c_expand_total=glen.to(I64).sum())
 
     gstart_by_p = safe_lookup(table.groups.group_start, g, W=Wk)
     p, within, valid, total = expand(glen, out_size)[:4]
@@ -494,6 +499,140 @@ def keydirect_chaining_strand_sorted(table, pk: torch.Tensor, out_size: int,
         build_row = safe_lookup(table.groups.group_rows, gst + within,
                                 W=Wr, C=Cr)
     probe_row = safe_lookup(srow, p, W=Wp, C=Cp)
+    return dict(
+        probe_row=torch.where(valid, probe_row, -1),
+        build_row=torch.where(valid, build_row, -1),
+        total=total.to(I64),
+        c_htProbe=m, c_htProbeCmp=cmps,
+    )
+
+
+def _merge_groups(ukey: torch.Tensor, pk: torch.Tensor):
+    """Sort-merge group resolution that stays in merged (sorted) order, for
+    keys with no dense ``key_direct`` index (u64, composite, sparse u32).
+
+    One stable sort of ``[ukey; pk]`` in unsigned order (the library sort,
+    as the JAX package's is ``lax.sort``): stability puts each directory
+    entry before its equal probe keys.  Each equal-key run's start comes
+    from K3's ``("max",)`` scan, and the run head's source index, fetched
+    by ``safe_lookup`` (K2; ``run_start`` advances at most one a slot, so
+    every window covers it), is the group id.  Returns merged-order
+    ``(skey, g, is_probe, probe_row_by_pos)`` of length ``K + P``; ``g`` is
+    -1 where the run head is a probe (the key is not in the directory);
+    padding slots surface with their own ``g`` and are rejected by the
+    caller's ``group_len > 0`` gate."""
+    from .scan import multi_scan
+
+    same_key_width(ukey, pk)
+    K = ukey.shape[0]
+    M = K + pk.shape[0]
+    s, idx = torch.sort(uorder(torch.cat([ukey, pk])), stable=True)
+    skey = uorder(s)
+    idx_s = idx.to(I32)
+    i = torch.arange(M, dtype=I32, device=pk.device)
+    is_first = torch.ones(M, dtype=torch.bool, device=pk.device)
+    is_first[1:] = skey[1:] != skey[:-1]
+    (run_start,) = multi_scan((torch.where(is_first, i, -1),), ("max",))
+    head = safe_lookup(idx_s, run_start)
+    g = torch.where(head < K, head, -1)
+    return skey, g, idx_s >= K, idx_s - K
+
+
+@_with_route
+def merged_nested_strand_sorted(table, pk: torch.Tensor, out_size: int,
+                                do_unnest: bool = True) -> dict:
+    """Windowed nested probe strand for u64, composite and sparse-domain
+    keys: :func:`keydirect_nested_strand_sorted` with its group ids from
+    :func:`_merge_groups` instead of a ``key_direct`` index.  Counters equal
+    ``probe_nested`` + ``unnest`` (``ht_nested.hh:354-382``); emission is
+    ascending insertion order per group (multiset-equal pairs).
+    ``do_unnest=False`` returns the counters and ``c_expand_total`` (the
+    exact unnested size) without materialising: ``api.join``'s sizing
+    pass.  ``pk`` rides the table's key carrier."""
+    _check_device(pk, table.groups.ukey)
+    ukey = table.groups.ukey
+    M = ukey.shape[0] + pk.shape[0]
+    skey, g, is_probe, prow_by_pos = _merge_groups(ukey, pk)
+    glen = safe_lookup(table.groups.group_len, g)
+    hit = is_probe & (g >= 0) & (glen > 0)
+    pos1 = safe_lookup(table.main_pos_by_group + 1, g)
+    miss_cmps = _miss_chain_cmps(table.bucket_main_len, table.num_buckets,
+                                 skey, is_probe & ~hit, table.hashfun)
+    m = hit.to(I64).sum()
+    # padding slots have no main position: gate by hit
+    cmps = torch.where(hit, pos1, 0).to(I64).sum() + miss_cmps
+    counts = torch.where(hit, glen, 0)
+    if not do_unnest:
+        return dict(c_htProbe=m, c_htProbeCmp=cmps,
+                    c_expand_total=counts.to(I64).sum())
+
+    gstart_by_pos = safe_lookup(table.groups.group_start, g)
+    p, within, valid, total = expand(counts, out_size)[:4]
+    Wp, Cp = stride_params(M / out_size)
+    gst = safe_lookup(gstart_by_pos, p, W=Wp, C=Cp)
+    build_row = safe_lookup(table.groups.group_rows, gst + within)
+    probe_row = safe_lookup(torch.clamp(prow_by_pos, min=0), p, W=Wp, C=Cp)
+    total = total.to(I64)
+    return dict(
+        probe_row=torch.where(valid, probe_row, -1),
+        build_row=torch.where(valid, build_row, -1),
+        total=total,
+        c_htProbe=m, c_htProbeCmp=cmps,
+        c_unnest=total,
+    )
+
+
+@_with_route
+def merged_chaining_strand_sorted(table, pk: torch.Tensor, out_size: int,
+                                  unique: bool = False,
+                                  do_expand: bool = True) -> dict:
+    """Windowed chaining probe strand for u64, composite and sparse-domain
+    keys (``algebra.hh:625-659``): :func:`keydirect_chaining_strand_sorted`
+    with its group ids from :func:`_merge_groups`.  Without ``unique`` the
+    whole-chain counts sum ``bucket_len`` over the probes' sorted bucket
+    ids (:func:`_full_chain_cmps`: K4 where the segment policy picks it).
+    Those ids come from the P probe keys, not from the merged stream: the
+    JAX package hashes all K + P merged keys with the directory's marked
+    dead, which halves the live density of Crs-shaped streams (K = P) and
+    leaves the window no margin (most chunks uncovered, route 2, on the
+    card); the sum is the same.
+    ``do_expand=False`` returns the counters only (the emitted-pair total
+    of a chaining probe is ``c_htProbe``).  ``pk`` rides the table's key
+    carrier."""
+    _check_device(pk, table.groups.ukey)
+    ukey = table.groups.ukey
+    M = ukey.shape[0] + pk.shape[0]
+    skey, g, is_probe, prow_by_pos = _merge_groups(ukey, pk)
+    glen = safe_lookup(table.groups.group_len, g)
+    hit = is_probe & (g >= 0) & (glen > 0)
+    if unique:
+        if table.group_min_pos.shape[0] == 0:
+            raise ValueError(
+                "table was built with early_exit_index=False; "
+                "IsBuildKeyUnique probes need the chain-position index")
+        counts = hit.to(I32)
+        m = hit.to(I64).sum()
+        pos1 = safe_lookup(table.group_min_pos + 1, g)
+        miss_cmps = _miss_chain_cmps(table.bucket_len, table.num_buckets,
+                                     skey, is_probe & ~hit, table.hashfun)
+        cmps = torch.where(hit, pos1, 0).to(I64).sum() + miss_cmps
+        row_by_pos = safe_lookup(table.group_chain_first + 1, g) - 1
+    else:
+        counts = torch.where(hit, glen, 0)
+        m = counts.to(I64).sum()
+        cmps = _full_chain_cmps(table, pk)
+    if not do_expand:
+        return dict(c_htProbe=m, c_htProbeCmp=cmps)
+
+    p, within, valid, total = expand(counts, out_size)[:4]
+    Wp, Cp = stride_params(M / out_size)
+    if unique:
+        build_row = safe_lookup(row_by_pos, p, W=Wp, C=Cp)
+    else:
+        gstart_by_pos = safe_lookup(table.groups.group_start, g)
+        gst = safe_lookup(gstart_by_pos, p, W=Wp, C=Cp)
+        build_row = safe_lookup(table.groups.group_rows, gst + within)
+    probe_row = safe_lookup(torch.clamp(prow_by_pos, min=0), p, W=Wp, C=Cp)
     return dict(
         probe_row=torch.where(valid, probe_row, -1),
         build_row=torch.where(valid, build_row, -1),

@@ -15,6 +15,13 @@ The kernel section gives, for each hand kernel K1, K2, K2b, K3 and K4 at its
 main-path shape, its time, the bound (its bytes over 3.35 TB/s) and the
 time of the PyTorch call that computes the same function.
 
+The strand section (the original's lines 226-252) times the nested probe
+strand of n keys over a permutation of T keys three ways: the u32
+key_direct strand, the u32 merged strand and the u64 merged strand (the
+same keys with 0xAB << 40 set), each checked to unnest exactly n pairs, and
+prints the u64 merged / u32 key_direct ratio (the JAX design's bar was at
+most 2).
+
     python3 -m hashjoin3d_tpu_torch.tools.roofline [--quick] [--n 24] [--t 20]
 
 Times come from CUDA events (:func:`~hashjoin3d_tpu_torch.utils.measure.
@@ -31,10 +38,13 @@ import numpy as np
 import torch
 
 from ..ops import bitonic, windowed
-from ..ops.layout import I32, from_numpy_u32, run_boundaries
+from ..ops.layout import I32, from_numpy_u32, run_boundaries, widen_u64
+from ..ops.nested import build_nested_host
 from ..ops.scan import multi_scan
 from ..ops.sort import probe_sort_chunk, window_for_chunk
-from ..ops.strands_windowed import _pad_table
+from ..ops.strands_windowed import (_pad_table,
+                                    keydirect_nested_strand_sorted,
+                                    merged_nested_strand_sorted)
 from ..utils.measure import (HBM_BYTES_PER_S, bound_ms, card, events_ms,
                              nbytes, require_cuda)
 
@@ -53,6 +63,8 @@ class Row(NamedTuple):
 
 
 def _outputs(out) -> tuple:
+    if isinstance(out, dict):  # a strand's output: its tensors
+        return tuple(v for v in out.values() if isinstance(v, torch.Tensor))
     return tuple(out) if isinstance(out, (tuple, list)) else (out,)
 
 
@@ -62,7 +74,8 @@ def _t(a: np.ndarray, dev) -> torch.Tensor:
 
 def inputs(dev, log_n: int = 24, log_t: int = 20) -> dict:
     """The original's seed-7 inputs on ``dev``, drawn in its order (and
-    after them, the K3 and K4 inputs of the kernel section)."""
+    after them, the K3 and K4 inputs of the kernel section and the strand
+    section's build permutation and probes)."""
     n, T = 1 << log_n, 1 << log_t
     rng = np.random.default_rng(7)
     table_np = rng.integers(1, 2**32, T, dtype=np.uint32)
@@ -73,7 +86,10 @@ def inputs(dev, log_n: int = 24, log_t: int = 20) -> dict:
     perm_np = rng.permutation(np.arange(n, dtype=np.int32))
     wide_np = rng.integers(0, T + T // 4, n, dtype=np.uint32)
     buckets_np = np.sort(rng.integers(0, T, T).astype(np.int32))
+    bk32_np = rng.permutation(np.arange(T, dtype=np.uint32))
+    pk32_np = rng.integers(0, T, n, dtype=np.uint32)
     return dict(
+        bk32=from_numpy_u32(bk32_np, dev), pk32=from_numpy_u32(pk32_np, dev),
         n=n, T=T, log_t=log_t, table=from_numpy_u32(table_np, dev),
         idx=_t(idx_np, dev), idx_sorted=_t(np.sort(idx_np), dev),
         copy=from_numpy_u32(copy_np, dev), upd=_t(upd_np, dev),
@@ -238,6 +254,44 @@ def kernel_rows(d: dict) -> list[Row]:
     ]
 
 
+#: the hi bits the strand section's u64 keys carry
+U64_HI = 0xAB << 40
+STRANDS = ("u32 keydirect nested strand", "u32 merged nested strand",
+           "u64 merged nested strand")
+
+
+def strand_rows(d: dict) -> list[Row]:
+    """The nested probe strand of the n probes over the T-key permutation:
+    u32 key_direct, u32 merged, u64 merged; each must unnest n pairs."""
+    n, T = d["n"], d["T"]
+    bk32, pk32 = d["bk32"], d["pk32"]
+    bk64, pk64 = widen_u64(bk32) | U64_HI, widen_u64(pk32) | U64_HI
+    tbl32 = build_nested_host(bk32, T, n_keys=T, key_domain=T)
+    tbl64 = build_nested_host(bk64, T, n_keys=T)
+
+    def unnests_all(out):
+        return int(out["c_unnest"]) == n and int(out["c_htProbe"]) == n
+
+    shape = f"({n >> 20}Mi probes, {T >> 20}Mi keys)"
+    return [
+        Row(f"{STRANDS[0]} {shape}",
+            lambda: keydirect_nested_strand_sorted(tbl32, pk32, n),
+            (pk32,), n, unnests_all),
+        Row(f"{STRANDS[1]} {shape}",
+            lambda: merged_nested_strand_sorted(tbl32, pk32, n),
+            (pk32,), n, unnests_all),
+        Row(f"{STRANDS[2]} {shape}",
+            lambda: merged_nested_strand_sorted(tbl64, pk64, n),
+            (pk64,), n, unnests_all),
+    ]
+
+
+def strand_ratio(results: list[dict]) -> float:
+    """u64 merged over u32 key_direct, from :func:`run_rows`' results."""
+    ms = {r["name"].split(" (")[0]: r["ms"] for r in results}
+    return ms[STRANDS[2]] / ms[STRANDS[0]]
+
+
 def run_rows(rows: list[Row], min_time: float, kernel_section: bool,
              out=print) -> list[dict]:
     """Check and time each row on the card; print one line each and return
@@ -297,6 +351,9 @@ def main(argv=None) -> int:
                else f"{r['library_ms']:.4f}")
         print(f"| {r['name']} | {r['ms']:.4f} | {r['bound_ms']:.4f} "
               f"({r['bytes']}) | {r['library_name'] or '—'} | {lib} |")
+    print("\nstrand section", flush=True)
+    st = run_rows(strand_rows(d), mt, False)
+    print(f"u64 merged / u32 keydirect nested strand: {strand_ratio(st):.3f}")
     return 0
 
 

@@ -55,8 +55,11 @@ def test_bucket_of_matches_jax(nb):
 
 
 def test_hash_functor_other_than_murmur_names_its_slice():
-    with pytest.raises(NotImplementedError, match="slice"):
-        th.hash_key(t32(EDGES), "boncz")
+    # every registry functor is ported now (tests/test_torch_keys64.py
+    # holds each against the JAX package); a name outside the registry
+    # raises and lists the registry's names
+    with pytest.raises(ValueError, match="boncz"):
+        th.hash_key(t32(EDGES), "crc")
 
 
 @pytest.mark.parametrize("n_valid", [3000, 2500])

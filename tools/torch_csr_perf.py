@@ -54,6 +54,21 @@ prints the card and its power limit (``nvidia-smi``) first.
   The median unprofiled wall time of the same strand, in the same process,
   stands beside it (the profiler itself slows the host).
 
+``join``: where ``hashjoin3d_tpu_torch.join``'s wall time goes::
+
+    python3 tools/torch_csr_perf.py join [--reps 5] [--root TREE]
+
+  ``chip_smoke.py`` phase 7's five u32 calls at R20/S24 t=0 (Csr, CsrUU,
+  Nsr, Crs and Nrs shaped) and the Csr- and Nrs-shaped calls on u64 keys
+  (``k | 0xAB << 40``): one JSON line a call with the median over
+  ``reps`` of its wall ms and of each stage's ms (host clock, the device
+  synchronised before and after each stage): the upload of both columns
+  (``_carriers``), the distinct count (``torch.unique``), the host's
+  dense-direct check, the build, the strand (its sizing and materialising
+  passes together) and the copy back (``_result``); then
+  ``profile_strand``'s busy and idle share of the whole Csr- and
+  Nrs-shaped calls.  A tree whose ``join`` lacks a stage skips it.
+
 ``launch``: the host cost of a kernel wrapper's launch path and the device
 time of the kernels, one JSON line::
 
@@ -547,6 +562,81 @@ def profile_strand(name: str, fn, reps: int) -> None:
               f"x{a.count / reps:g}  {a.key[:100]}")
 
 
+#: the ``join`` mode's calls: (label, build side, probe side, arguments,
+#: u64 keys)
+JOIN_CALLS = (("Csr", "R", "S", dict(how="chaining", unique=True), False),
+              ("CsrUU", "R", "S", dict(how="chaining"), False),
+              ("Nsr", "R", "S", {}, False), ("Crs", "S", "R",
+                                             dict(how="chaining"), False),
+              ("Nrs", "S", "R", {}, False),
+              ("Csr u64", "R", "S", dict(how="chaining", unique=True), True),
+              ("Nrs u64", "S", "R", {}, True))
+JOIN_STAGES = ("_carriers", "can_use_dense_direct", "build_chaining_host",
+               "build_nested_host", "direct_probe_strand_sorted",
+               "keydirect_chaining_strand_sorted",
+               "keydirect_nested_strand_sorted",
+               "merged_chaining_strand_sorted", "merged_nested_strand_sorted",
+               "_result")
+
+
+def join_stages(dev, reps: int) -> None:
+    """Each ``JOIN_CALLS`` call's wall ms and stage ms (medians over
+    ``reps``), then its busy and idle share under the profiler."""
+    import functools
+
+    from hashjoin3d_tpu_torch import api
+    from hashjoin3d_tpu_torch.utils.gen import exp1_data
+
+    rk, sa, _ = exp1_data(LOG2_R, LOG2_S, False, 0)
+    spent = defaultdict(float)
+
+    def timed(name, fn):
+        @functools.wraps(fn)
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[name] += (time.perf_counter() - t0) * 1e3
+            return out
+        return wrapper
+
+    saved = {n: getattr(api, n) for n in JOIN_STAGES if hasattr(api, n)}
+    unique = torch.unique
+    try:
+        for n, fn in saved.items():
+            setattr(api, n, timed(n, fn))
+        torch.unique = timed("torch.unique", unique)
+        for label, b, p, kw, wide in JOIN_CALLS:
+            cols = {"R": rk, "S": sa}
+            if wide:
+                cols = {k: v.astype(np.uint64) | np.uint64(0xAB << 40)
+                        for k, v in cols.items()}
+            args = (cols[b], cols[p])
+            api.join(*args, device=dev, **kw)
+            runs = []
+            for _ in range(reps):
+                spent.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                api.join(*args, device=dev, **kw)
+                torch.cuda.synchronize()
+                runs.append(dict(spent, wall=(time.perf_counter() - t0)
+                                 * 1e3))
+            print(json.dumps(dict(call=label, reps=reps, **{
+                k: statistics.median(r.get(k, 0.0) for r in runs)
+                for k in runs[0]})))
+    finally:
+        for n, fn in saved.items():
+            setattr(api, n, fn)
+        torch.unique = unique
+    for label, b, p, kw, wide in (JOIN_CALLS[0], JOIN_CALLS[4]):
+        profile_strand(f"join {label}",
+                       lambda: api.join({"R": rk, "S": sa}[b],
+                                        {"R": rk, "S": sa}[p], device=dev,
+                                        **kw), 3)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="mode", required=True)
@@ -558,6 +648,9 @@ def main() -> int:
     p.add_argument("--reps", type=int, default=10)
     p.add_argument("--root", type=Path, default=here)
     p.add_argument("--plans", default="Csr")
+    jo = sub.add_parser("join")
+    jo.add_argument("--reps", type=int, default=5)
+    jo.add_argument("--root", type=Path, default=here)
     la = sub.add_parser("launch")
     la.add_argument("--root", type=Path, default=here)
     la.add_argument("--probes", nargs="?", const=",".join(LAUNCH_PROBES),
@@ -578,6 +671,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     if args.mode == "times":
         print(json.dumps(times(args.side, dev)))
+    elif args.mode == "join":
+        join_stages(dev, args.reps)
     elif args.mode == "launch":
         res = ({} if args.probes
                else {**launch_costs(dev), **kernel_device_costs(dev)})
