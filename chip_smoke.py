@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU: exp-1's eleven device
-plans, exp-4's three and ``join``, the one-call API.
+plans, exp-4's three, ``join``, the one-call API, and the algebra.
 
 Run from the repository root on a machine with one CUDA GPU:
 
@@ -101,12 +101,38 @@ then exp-4 (``main_experiment4 -R 24 -a 4 -A 4 -b 2 -B 2``: |R| 2^24,
    counts from 0; then ``lookup_auto``'s two methods timed on the semi
    path's probe.
 
+8. The clarity layer and the algebra (``models/algebra.py``), each plan's
+   launch counts from 0 (``algebra_launches`` in the kernels line): 8a.
+   six plans at R20/S24 t=0 through ``Relation`` and the operators,
+   interpreted (Csr, CsrUU and Crs on ``AlgHashJoinBuild`` /
+   ``AlgHashJoinProbe``, Nsr and Nrs on ``AlgNestJoinBuild`` /
+   ``AlgNestJoinProbe`` / ``AlgUnnestHt``, NrsNU without the unnest):
+   the probe's count and ``num_cmps``, the unnest's and the top's counts
+   equal ``e1_t0c.csv``, the result pairs (NrsNU: probe row and group key)
+   the windowed strand's as multisets; a seventh plan with ``k < |R| /
+   2`` under the Csr build (the masked build) equals numpy; each plan's
+   ``print_strand``; 8b. ``compile_strand`` on Csr, Nsr and Nrs: counters
+   and pairs equal the interpreted run's, a half-size capacity raises,
+   host reads (``cudaStreamSynchronize``) and wall ms of both runs; 8c.
+   ``Experiment1`` Csr, CsrUU and Nsr with R.k declared not dense (the
+   clarity strands): rows equal ``e1_t0c.csv``, pairs the windowed
+   strands', route 0; 8d. exp-4's clarity strands (Ndu, Chj, Nnu) at R24
+   on ``build_nested`` / ``build_chaining`` tables: counters equal
+   ``e4_24.csv`` (Nnu: the sorted strand's), triples the sorted strands'
+   as multisets, and both strands' ms; 8e. ``algebra_example``'s four
+   queries on the card equal the goldens of ``tests/test_algebra.py``;
+   8f. ``hash_aggregate`` (masked, with an ``n_keys`` hint),
+   ``radix_partition`` (both ways) and ``compact`` over S.a's 2^24 rows
+   equal numpy.  K2 and K3 must launch in every join plan of 8a, 8c and
+   8d.
+
 Prints one JSON line of per-kernel results, then, last,
 ``{"ok": true, "device": {...}}``.  ``launches`` there is the main path's
 count (phase 2's plans summed), ``plan_launches`` each plan's, phase 3b's
 runs under "Nrs t=4" and the like, phase 6's under "Ndu R24" and the
 like, the sorted-route call under "Crs sorted route"; ``join_launches``
-each phase 7 call's (its first call, from 0);
+each phase 7 call's (its first call, from 0), ``algebra_launches`` each
+phase 8 plan's (where the kernel launched);
 ``miss_probe_launches`` is phase 3's, ``probe_tool_launches`` phase 5's
 probe runner's (its check and timed launches) and ``tool_launches`` phase
 5's roofline and csrprof path's.
@@ -1314,6 +1340,534 @@ def phase7_join(dev, card, rk_np, sa_np):
     return launches, methods
 
 
+#: phase 8a's algebra plans: plan -> (table kind, build side, probe side,
+#: IsBuildKeyUnique); "nested_nu" sends the nested tuples to the top
+ALGEBRA_PLANS = {"Csr": ("chaining", "R", "S", True),
+                 "CsrUU": ("chaining", "R", "S", False),
+                 "Crs": ("chaining", "S", "R", False),
+                 "Nsr": ("nested", "R", "S", None),
+                 "Nrs": ("nested", "S", "R", None),
+                 "NrsNU": ("nested_nu", "S", "R", None)}
+#: each relation's key column and row-id column
+ALGEBRA_COLS = {"R": ("k", "r"), "S": ("a", "s")}
+#: phase 8b's fused strands
+FUSED_PLANS = ("Csr", "Nsr", "Nrs")
+#: phase 8c's plans: exp-1's non-dense route
+CLARITY_PLANS = ("Csr", "CsrUU", "Nsr")
+CLARITY_MIN_TIME = 0.05
+#: phase 8e's goldens (tests/test_algebra.py): the join rows of test2/test3
+EXAMPLE_ROWS = [(1, 11, 1, -3), (1, 11, 1, -2), (1, 11, 1, -1),
+                (2, 21, 2, -2), (2, 21, 2, -1), (3, 31, 3, -1)]
+
+
+def host_reads(fn):
+    """``(result, cudaStreamSynchronize calls, cudaDeviceSynchronize
+    calls)`` of one call of ``fn`` under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    return (out, names.count("cudaStreamSynchronize"),
+            names.count("cudaDeviceSynchronize"))
+
+
+def wall_ms(fn, reps: int = 3) -> float:
+    """Median host milliseconds of ``fn``, the device synchronised around
+    each call."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def csv_counters(path, plan_col: int) -> dict:
+    """{plan: {column: value}} of a reference CSV."""
+    rows = list(csv.reader(io.StringIO(path.read_text()), delimiter=";"))
+    return {r[plan_col]: dict(zip(rows[0], r)) for r in rows[1:]}
+
+
+def top_pairs_key(top, pcol: str, bcol: str) -> torch.Tensor:
+    """An AlgTop result's live (pcol, bcol) row-id pairs as one sorted
+    int64 column, like ``pairs_multiset_key``."""
+    b = top.result
+    p = b.columns[pcol][b.mask].to(torch.int64)
+    q = b.columns[bcol][b.mask].to(torch.int64)
+    return torch.sort(p * (1 << 32) + q).values
+
+
+def top_nested_key(top, pcol: str) -> torch.Tensor:
+    """NrsNU's nested tuples at the AlgTop: (probe row, group key), like
+    ``nested_pairs_key``."""
+    b = top.result
+    nest = b.nests["nest"]
+    ukey = nest.table.groups.ukey[nest.group[b.mask].long()]
+    packed = (b.columns[pcol][b.mask].to(torch.int64) * (1 << 32)
+              + (ukey.to(torch.int64) & 0xFFFFFFFF))
+    return torch.sort(packed).values
+
+
+def algebra_plan(plan: str, rels: dict, nb: int, build_sel=None) -> dict:
+    """The operators of one phase 8a plan, the build strand run: the probe
+    strand is ``ops["scan_p"].run()``."""
+    from hashjoin3d_tpu_torch.models import algebra as alg
+
+    kind, bside, pside, unique = ALGEBRA_PLANS[plan]
+    bkey, pkey = ALGEBRA_COLS[bside][0], ALGEBRA_COLS[pside][0]
+    top = alg.AlgTop(io.StringIO())
+    unn = None
+    if kind == "chaining":
+        build = alg.AlgHashJoinBuild(bkey, nb)
+        probe = alg.AlgHashJoinProbe(top, build, pkey, unique=unique)
+        expanding = probe
+        cols = ("l." + ALGEBRA_COLS[pside][1], "r." + ALGEBRA_COLS[bside][1])
+    else:
+        build = alg.AlgNestJoinBuild(bkey, nb)
+        if kind == "nested":
+            unn = alg.AlgUnnestHt(top)
+        probe = alg.AlgNestJoinProbe(unn or top, build, pkey)
+        expanding = unn
+        cols = (ALGEBRA_COLS[pside][1], "r." + ALGEBRA_COLS[bside][1])
+    first = build if build_sel is None else alg.AlgSelection(build,
+                                                             build_sel)
+    scan_b = alg.AlgScan(first, rels[bside])
+    scan_b.run()
+    return dict(scan_b=scan_b, build=build, probe=probe, unnest=unn,
+                top=top, expanding=expanding, cols=cols,
+                scan_p=alg.AlgScan(probe, rels[pside]))
+
+
+def plan_counters(ops) -> dict:
+    out = dict(c_htProbe=ops["probe"].count(),
+               c_htProbeCmp=ops["probe"].num_cmps, c_top=ops["top"].count())
+    if ops["unnest"] is not None:
+        out["c_unnest"] = ops["unnest"].count()
+    return out
+
+
+def plan_key(ops) -> torch.Tensor:
+    if ops["expanding"] is None:  # NrsNU
+        return top_nested_key(ops["top"], ops["cols"][0])
+    return top_pairs_key(ops["top"], *ops["cols"])
+
+
+def check_fused(plan, ops, want_key, card):
+    """8b: ``compile_strand`` of an interpreted plan: counters and pairs
+    equal the interpreted run's, a half-size capacity raises; the host
+    reads and wall ms of both runs."""
+    from hashjoin3d_tpu_torch.models.algebra import compile_strand
+
+    want = plan_counters(ops)
+    _, reads_i, dsync_i = host_reads(ops["scan_p"].run)
+    ms_i = wall_ms(ops["scan_p"].run)
+    run = compile_strand(ops["scan_p"])
+    top, reads_f, dsync_f = host_reads(run)
+    require(top is ops["top"], f"phase 8b {plan}: compile_strand's top")
+    got = plan_counters(ops)
+    require(got == want, f"phase 8b {plan}: fused counters {got} != "
+            f"interpreted {want}")
+    require(torch.equal(plan_key(ops), want_key),
+            f"phase 8b {plan}: fused pairs differ from the interpreted run")
+    ms_f = wall_ms(run)
+    small = compile_strand(ops["scan_p"], out_sizes={
+        ops["expanding"]: max(want["c_top"] // 2, 1)})
+    raised = False
+    try:
+        small()
+    except ValueError as e:
+        raised = "capacity" in str(e)
+    require(raised, f"phase 8b {plan}: a half-size capacity did not raise")
+    print(f"phase 8b {plan} on {card}: interpreted {ms_i:.3f} ms, "
+          f"{reads_i} host reads (cudaStreamSynchronize), {dsync_i} "
+          f"device syncs; fused {ms_f:.3f} ms, {reads_f} host reads, "
+          f"{dsync_f} device syncs")
+    return dict(interpreted_ms=ms_i, interpreted_reads=reads_i,
+                fused_ms=ms_f, fused_reads=reads_f)
+
+
+def sel_expected(rk_np, sa_np, half: int, nb: int):
+    """numpy counters of the Csr plan with ``k < half`` under its build:
+    a dead row enters no chain, so a chain holds the live rows in
+    insertion order, [first, rest LIFO]; a live probe key counts its
+    node's 1-based position, a missing one its whole chain."""
+    from hashjoin3d_tpu_torch.ops.hashing import hash_key_np
+
+    live = rk_np < half
+    b = (hash_key_np(rk_np) % np.uint32(nb)).astype(np.int64)
+    rows = np.nonzero(live)[0]
+    order = np.argsort(b[rows], kind="stable")
+    bs, rs = b[rows][order], rows[order]
+    blen = np.bincount(bs, minlength=nb)
+    rank = np.arange(bs.size) - np.searchsorted(bs, bs, "left")
+    pos = np.where(rank == 0, 0, blen[bs] - rank)
+    pos_of_key = np.zeros(rk_np.size, np.int64)
+    pos_of_key[rk_np[rs]] = pos
+    hit = sa_np < half
+    sb = (hash_key_np(sa_np) % np.uint32(nb)).astype(np.int64)
+    cmps = np.where(hit, pos_of_key[np.minimum(sa_np, rk_np.size - 1)] + 1,
+                    blen[sb])
+    return dict(c_htProbe=int(hit.sum()), c_htProbeCmp=int(cmps.sum()),
+                c_top=int(hit.sum()))
+
+
+def phase8a_algebra(dev, card, exp, rk_np, sa_np, ref_csv):
+    """8a and 8b: the six plans through the algebra, interpreted, each
+    with its launch counts from 0: counters equal the reference CSV's,
+    pairs equal the windowed strand's (phase 2's) as multisets; a seventh
+    plan with ``k < |R| / 2`` under the Csr build equals numpy; then
+    ``compile_strand`` on Csr, Nsr and Nrs.  Returns the launch counts,
+    8b's readings and the windowed strands' pairs of 8c's plans."""
+    from hashjoin3d_tpu_torch import kernels
+    from hashjoin3d_tpu_torch.models.algebra import Relation, print_strand
+
+    card_r, card_s = rk_np.size, sa_np.size
+    rels = {"R": Relation(dev, k=rk_np, r=np.arange(card_r, dtype=np.int32)),
+            "S": Relation(dev, a=sa_np, s=np.arange(card_s, dtype=np.int32))}
+    nbs = {"R": card_r, "S": exp.num_dv_sa}
+    ref = csv_counters(ref_csv, 9)
+    launches, fused, windowed = {}, {}, {}
+    for plan, (_, bside, _, _) in ALGEBRA_PLANS.items():
+        jp = exp.join_plan(plan)
+        table = jp.build(jp.build_keys)
+        out = jp.probe(table, jp.probe_keys)
+        want_key = (nested_pairs_key(out, table) if plan == "NrsNU"
+                    else pairs_multiset_key(out))
+        del jp, table, out
+        if plan in CLARITY_PLANS:
+            windowed[plan] = want_key
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        ops = algebra_plan(plan, rels, nbs[bside])
+        ops["scan_p"].run()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches[plan] = dict(kernels.LAUNCHES)
+        got = plan_counters(ops)
+        want = {k: int(ref[plan][k]) for k in got}
+        require(got == want, f"phase 8a {plan}: counters {got} != "
+                f"{ref_csv.name}'s {want}")
+        key = plan_key(ops)
+        require(torch.equal(key, want_key),
+                f"phase 8a {plan}: pairs differ from the windowed strand's")
+        buf = io.StringIO()
+        print_strand(ops["scan_b"], 1, buf)
+        print_strand(ops["scan_p"], 1, buf)
+        print(f"phase 8a {plan} on {card}: build + probe {ms:.3f} ms, "
+              f"counters {got}, launches " + json.dumps(
+                  {k: v for k, v in launches[plan].items() if v}))
+        print(buf.getvalue().rstrip())
+        if plan in FUSED_PLANS:
+            kernels.reset_launch_counts()
+            fused[plan] = check_fused(plan, ops, key, card)
+            launches[f"{plan} fused"] = dict(kernels.LAUNCHES)
+        del ops, key, want_key
+
+    half = card_r // 2
+    kernels.reset_launch_counts()
+    ops = algebra_plan("Csr", rels, card_r,
+                       build_sel=lambda cols: cols["k"] < half)
+    ops["scan_p"].run()
+    launches["Csr k<|R|/2"] = dict(kernels.LAUNCHES)
+    got = plan_counters(ops)
+    want = sel_expected(rk_np, sa_np, half, card_r)
+    require(got == want, f"phase 8a Csr k<|R|/2: counters {got} != numpy's "
+            f"{want}")
+    require(ops["build"].count() == half, "phase 8a Csr k<|R|/2: the build "
+            "did not count |R| / 2 live rows")
+    r_of_key = torch.from_numpy(np.argsort(rk_np).astype(np.int64)).to(dev)
+    sa = torch.from_numpy(sa_np.astype(np.int64)).to(dev)
+    live = sa < half
+    s_rows = torch.arange(card_s, dtype=torch.int64, device=dev)[live]
+    want_key = torch.sort(s_rows * (1 << 32) + r_of_key[sa[live]]).values
+    require(torch.equal(plan_key(ops), want_key),
+            "phase 8a Csr k<|R|/2: pairs differ from numpy's")
+    buf = io.StringIO()
+    print_strand(ops["scan_p"], 1, buf)
+    print(f"phase 8a Csr k<|R|/2 on {card}: counters {got} equal numpy's")
+    print(buf.getvalue().rstrip())
+    del ops, rels, sa, live, s_rows, want_key
+    return launches, fused, windowed
+
+
+def phase8c_exp1(card, exp, buf, wanted, ref_csv):
+    """8c: Csr, CsrUU and Nsr with R.k declared not dense after ``init``
+    (``exp`` writes its CSV to ``buf``): rows equal the reference CSV's
+    (counters and statistics), pairs equal the windowed strands'
+    (``wanted``), route 0."""
+    exp.dense_direct_r = False
+    launches = run_plans(exp, CLARITY_PLANS)
+    hdr, rows = check_rows(buf.getvalue(), ref_csv, CLARITY_PLANS,
+                           "phase 8c")
+    for plan in CLARITY_PLANS:
+        table, out = exp.results[plan]
+        require(table.direct is None, f"phase 8c {plan}: a dense table")
+        require(out["route_worst"] == 0, f"phase 8c {plan}: route_worst "
+                f"{out['route_worst']}")
+        require(torch.equal(pairs_multiset_key(out), wanted[plan]),
+                f"phase 8c {plan}: pairs differ from the windowed strand's")
+        print(plan_line(hdr, rows[plan], "phase 8c non-dense", card))
+    return {f"{p} non-dense": c for p, c in launches.items()}
+
+
+def triples_sorted(out: dict) -> tuple:
+    """An exp-4 strand's live triples in (r, s, t) order as two columns:
+    r and s << 24 | t (rows below 2^24 at R24)."""
+    live = out["r_row"] >= 0
+    r, s, t = (out[k][live].to(torch.int64) for k in ("r_row", "s_row",
+                                                       "t_row"))
+    st = (s << 24) | t
+    o1 = torch.sort(st, stable=True).indices
+    o2 = torch.sort(r[o1], stable=True).indices
+    return r[o1][o2], st[o1][o2]
+
+
+def phase8d_exp4(dev, card, log2_r, ref_csv):
+    """8d: exp-4's clarity strands on ``build_nested`` / ``build_chaining``
+    tables at ``log2_r``: counters equal the reference CSV's (Nnu: the
+    sorted strand's, c_top numFkCommon), triples (Nnu: hit rows and group
+    keys) equal the sorted strands' (phase 6's) as multisets; wall ms of
+    both probe strands and both builds."""
+    from hashjoin3d_tpu_torch import kernels
+    from hashjoin3d_tpu_torch.models import exp4 as m4
+    from hashjoin3d_tpu_torch.ops.chaining import build_chaining
+    from hashjoin3d_tpu_torch.ops.nested import build_nested
+
+    e = m4.Experiment4(log2_r, **EXP4_PARAMS, plans=EXP4_PLANS, device=dev,
+                       trace=False)
+    e.init()
+    ndv = e.num_fk_common + e.num_fk_exclusive
+    card2 = max(e.calc_join_card2(), 1)
+    ref = csv_counters(ref_csv, 10)
+    csv_of = dict(c_probe_RS="c_probe_RS", c_probe_RS_cmp="c_probe_RS_cmp",
+                  c_probe_RT="c_probe_RT", c_probe_RT_cmp="c_probe_RT_cmp",
+                  c_unnest_1="c_unnest_S", c_unnest_2="c_unnest_T",
+                  c_top="c_top")
+    launches = {}
+    for plan in EXP4_PLANS:
+        ws, wt = e.build(plan, e.sa), e.build(plan, e.ta)
+        sorted_out = e.probe(plan, ws, wt, e.rk)
+        sorted_ms = wall_ms(lambda: e.probe(plan, ws, wt, e.rk))
+        build = build_chaining if plan == "Chj" else build_nested
+        kernels.reset_launch_counts()
+        ts, tt = build(e.sa, ndv), build(e.ta, ndv)
+        if plan == "Ndu":
+            def strand():
+                return m4._ndu_probe_strand(
+                    ts, tt, e.rk, max(card2 // max(e.mult_alpha, 1), 1),
+                    card2)
+        elif plan == "Chj":
+            def strand():
+                return m4._chj_probe_strand(
+                    ts, tt, e.rk, max(e.calc_join_card1(), 1), card2)
+        else:
+            def strand():
+                return m4._nnu_probe_strand(ts, tt, e.rk)
+        out = strand()
+        torch.cuda.synchronize()
+        launches[f"{plan} R{log2_r} clarity"] = dict(kernels.LAUNCHES)
+        for k, col in csv_of.items():
+            if k not in out:
+                continue
+            want = (int(sorted_out[k]) if plan == "Nnu"
+                    else int(ref[plan][col]))
+            require(int(out[k]) == want, f"phase 8d {plan}: {k} "
+                    f"{int(out[k])} != {want}")
+        if plan == "Nnu":
+            require(int(out["c_top"]) == e.num_fk_common,
+                    "phase 8d Nnu: c_top is not numFkCommon")
+            for g, tbl in (("g_s", ts), ("g_t", tt)):
+                hit = out[g] >= 0
+                require(torch.equal(hit, sorted_out[g] >= 0),
+                        f"phase 8d Nnu: {g}'s hit rows differ from the "
+                        "sorted strand's")
+                require(torch.equal(tbl.groups.ukey[out[g][hit].long()],
+                                    e.rk[hit]),
+                        f"phase 8d Nnu: {g}'s groups do not hold the keys")
+        else:
+            for a, b in zip(triples_sorted(out),
+                            triples_sorted(sorted_out)):
+                require(torch.equal(a, b), f"phase 8d {plan}: triples "
+                        "differ from the sorted strand's")
+        ms = wall_ms(strand)
+        build_ms = wall_ms(lambda: build(e.sa, ndv))
+        sorted_build_ms = wall_ms(lambda: e.build(plan, e.sa))
+        print(f"phase 8d {plan} R{log2_r} on {card}: clarity probe strand "
+              f"{ms:.3f} ms vs sorted strand {sorted_ms:.3f} ms; clarity S "
+              f"build {build_ms:.3f} ms vs compacted {sorted_build_ms:.3f} "
+              "ms; counters " + json.dumps(
+                  {k: int(v) for k, v in out.items() if k.startswith("c_")})
+              + ", launches " + json.dumps(
+                  {k: v for k, v in launches[f"{plan} R{log2_r} clarity"]
+                   .items() if v}))
+        del ws, wt, ts, tt, out, sorted_out
+    del e
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase8e_example(dev, card):
+    """8e: algebra_example's four queries on the card, equal to the
+    goldens of tests/test_algebra.py."""
+    from hashjoin3d_tpu_torch.models import algebra_example as ex
+
+    def rows(top, cols):
+        data, mask = top.result.to_numpy(), top.result.mask.cpu().numpy()
+        return sorted(tuple(int(data[c][i]) for c in cols)
+                      for i in np.nonzero(mask)[0])
+
+    buf = io.StringIO()
+    ex.main(["--device", str(dev)], out=buf)
+    scan, sel, top = ex.test0(io.StringIO(), dev)
+    require((top.count(), sel.count(), scan.count()) == (3, 3, 4),
+            "phase 8e test0 counts")
+    require(rows(top, ("a", "b")) == [(1, 11), (2, 21), (3, 31)],
+            "phase 8e test0 rows")
+    o1 = ex.test1(io.StringIO(), dev)
+    require([o1[k].count() for k in ("build", "scan_r", "top", "probe",
+                                     "sel", "scan_l")] == [6, 6, 3, 3, 3, 4],
+            "phase 8e test1 counts")
+    o2 = ex.test2(io.StringIO(), dev)
+    require([o2[k].count() for k in ("top", "unnest", "probe")] == [6, 6, 3],
+            "phase 8e test2 counts")
+    require(rows(o2["top"], ("a", "b", "r.c", "r.d")) == EXAMPLE_ROWS,
+            "phase 8e test2 rows")
+    o3 = ex.test3(io.StringIO(), dev)
+    require([o3["top"].count(), o3["probe"].count(), o3["probe"].num_cmps]
+            == [6, 6, 10], "phase 8e test3 counts")
+    require(rows(o3["top"], ("l.a", "l.b", "r.c", "r.d")) == EXAMPLE_ROWS,
+            "phase 8e test3 rows")
+    print(f"phase 8e algebra_example on {card}: the four queries equal the "
+          "goldens; main's output:")
+    print(buf.getvalue().rstrip())
+
+
+def phase8f_ops(dev, card, sa_np):
+    """8f: hash_aggregate (masked, n_keys hint), radix_partition (both
+    ways) and compact over the 2^24 rows of S.a on the card, each equal to
+    numpy."""
+    from hashjoin3d_tpu_torch.ops.aggregate import hash_aggregate
+    from hashjoin3d_tpu_torch.ops.filter import apply_predicate, compact
+    from hashjoin3d_tpu_torch.ops.hashing import hash_key_np
+    from hashjoin3d_tpu_torch.ops.layout import from_numpy_u32
+    from hashjoin3d_tpu_torch.ops.sort import radix_partition
+
+    n = sa_np.size
+    half = int(sa_np.max()) // 2 + 1
+    sa = from_numpy_u32(sa_np, dev)
+    rows = torch.arange(n, dtype=torch.int32, device=dev)
+    live = sa_np < half
+    cnt = np.bincount(sa_np[live], minlength=half)
+    keys = np.nonzero(cnt)[0]
+    sums = np.bincount(sa_np[live], weights=np.nonzero(live)[0].astype(
+        np.float64), minlength=half)[keys].astype(np.int64)
+    _, first = np.unique(sa_np[live], return_index=True)
+    _, last = np.unique(sa_np[live][::-1], return_index=True)
+    live_rows = np.nonzero(live)[0]
+    t0 = time.perf_counter()
+    res = hash_aggregate(sa, {"s": rows}, mask=apply_predicate(
+        lambda c: c["a"] < half, {"a": sa}), n_keys=keys.size)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    nk = int(res.n_keys)
+    require(nk == keys.size, f"phase 8f hash_aggregate: {nk} keys != "
+            f"{keys.size}")
+    got = {k: v[:nk].cpu().numpy() for k, v in (
+        ("keys", res.keys), ("count", res.count), ("sum", res.sums["s"]),
+        ("min", res.mins["s"]), ("max", res.maxs["s"]))}
+    require(np.array_equal(got["keys"].view(np.uint32), keys.astype(
+        np.uint32)), "phase 8f hash_aggregate: keys differ from numpy's")
+    require(np.array_equal(got["count"], cnt[keys]),
+            "phase 8f hash_aggregate: counts differ from np.bincount's")
+    require(np.array_equal(got["sum"], sums),
+            "phase 8f hash_aggregate: sums differ from np.bincount's")
+    require(np.array_equal(got["min"], live_rows[first]) and np.array_equal(
+        got["max"], live_rows[::-1][last]),
+        "phase 8f hash_aggregate: min / max differ from np.unique's")
+    del res, got
+    parts = 1 << 10
+    for by_hash in (True, False):
+        t1 = time.perf_counter()
+        p, k, r, start, length = radix_partition(sa, parts, rows,
+                                                 by_hash=by_hash)
+        torch.cuda.synchronize()
+        pms = (time.perf_counter() - t1) * 1e3
+        p_np = ((hash_key_np(sa_np) if by_hash else sa_np)
+                % np.uint32(parts)).astype(np.int32)
+        want_len = np.bincount(p_np, minlength=parts)
+        require(np.array_equal(length.cpu().numpy(), want_len),
+                f"phase 8f radix_partition by_hash={by_hash}: part_len "
+                "differs from np.bincount's")
+        require(np.array_equal(start.cpu().numpy(),
+                               np.cumsum(want_len) - want_len),
+                f"phase 8f radix_partition by_hash={by_hash}: part_start")
+        # numpy's stable argsort by p_np, checked on the card: r is a
+        # permutation, p = p_np[r] ascends, r ascends within each part
+        rl = r.long()
+        same_part = p[1:] == p[:-1]
+        require(torch.equal(torch.sort(rl).values, rows.long())
+                and torch.equal(p, torch.from_numpy(p_np).to(dev)[rl])
+                and bool((p[1:] >= p[:-1]).all())
+                and bool((r[1:][same_part] > r[:-1][same_part]).all())
+                and torch.equal(k, sa[rl]),
+                f"phase 8f radix_partition by_hash={by_hash}: rows differ "
+                "from numpy's stable argsort")
+        print(f"phase 8f radix_partition by_hash={by_hash} on {card}: "
+              f"{pms:.3f} ms, {parts} parts equal numpy")
+        del p, k, r, rl, start, length, same_part
+    t2 = time.perf_counter()
+    mask = apply_predicate(lambda c: c["a"] < half, {"a": sa})
+    packed, ids, count = compact(mask, {"a": sa}, 1 << (n - 1).bit_length())
+    torch.cuda.synchronize()
+    cms = (time.perf_counter() - t2) * 1e3
+    c = int(count)
+    require(c == live.sum() and np.array_equal(
+        ids[:c].cpu().numpy(), live_rows) and np.array_equal(
+        packed["a"][:c].cpu().numpy().view(np.uint32), sa_np[live]),
+        "phase 8f compact: rows differ from numpy's boolean indexing")
+    print(f"phase 8f on {card}: hash_aggregate {ms:.3f} ms ({nk} keys of "
+          f"{int(live.sum())} live rows), compact {cms:.3f} ms; all equal "
+          "numpy")
+
+
+def phase8(dev, card, log2_r, log2_s, e1_csv, log2_r4, e4_csv):
+    """Phase 8: the clarity layer and the algebra (8a-8f) at exp-1's
+    ``log2_r`` / ``log2_s`` against ``e1_csv`` and exp-4's ``log2_r4``
+    against ``e4_csv``; returns each plan's launch counts, each counted
+    from 0."""
+    from hashjoin3d_tpu_torch import kernels
+    from hashjoin3d_tpu_torch.models.exp1 import Experiment1
+
+    t8 = time.perf_counter()
+    buf = io.StringIO()
+    exp = Experiment1(log2_r, log2_s, skew=False, t=0, b=1,
+                      plans=CLARITY_PLANS, measure_file=buf,
+                      min_runtime_s=CLARITY_MIN_TIME, device=dev)
+    exp.init()
+    rk_np = exp.rk.cpu().numpy().view(np.uint32)
+    sa_np = exp.sa.cpu().numpy().view(np.uint32)
+    launches, fused, windowed = phase8a_algebra(dev, card, exp, rk_np, sa_np,
+                                                e1_csv)
+    launches.update(phase8c_exp1(card, exp, buf, windowed, e1_csv))
+    del exp
+    torch.cuda.empty_cache()
+    launches.update(phase8d_exp4(dev, card, log2_r4, e4_csv))
+    kernels.reset_launch_counts()
+    phase8e_example(dev, card)
+    launches["algebra_example"] = dict(kernels.LAUNCHES)
+    kernels.reset_launch_counts()
+    phase8f_ops(dev, card, sa_np)
+    launches["ops on S.a"] = dict(kernels.LAUNCHES)
+    print("phase 8b host reads and wall ms: " + json.dumps(fused))
+    print(f"phase 8: {time.perf_counter() - t8:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1479,6 +2033,22 @@ def main() -> int:
     print("phase 7 lookup methods (ms): " + json.dumps(lookup_ms))
     print(f"smoke so far {time.perf_counter() - t0:.1f} s")
 
+    # phase 8: the clarity layer and the algebra on the card
+    _, log2_r4, e4_csv, _ = EXP4_RUNS[0]
+    algebra_launches = phase8(dev, card, LOG2_R, LOG2_S, REFERENCE_CSV,
+                              log2_r4, e4_csv)
+    joins = [*ALGEBRA_PLANS, "Csr k<|R|/2",
+             *(f"{p} non-dense" for p in CLARITY_PLANS),
+             *(f"{p} R{log2_r4} clarity" for p in EXP4_PLANS)]
+    for plan in joins:
+        for name in ("windowed_lookup", "multi_scan"):
+            require(algebra_launches[plan][name] > 0,
+                    f"{name} not launched in phase 8's {plan}")
+    for plan, counts in algebra_launches.items():
+        print(f"launches phase 8 {plan}: " + json.dumps(
+            {k: v for k, v in counts.items() if v}))
+    print(f"smoke so far {time.perf_counter() - t0:.1f} s")
+
     entries = [
         dict(name=name, route="cuda", source=src, replaces=rep,
              launches=after2[key],
@@ -1488,6 +2058,8 @@ def main() -> int:
              probe_tool_launches=probe_tools[key],
              join_launches={c: n.get(key, 0)
                             for c, n in join_launches.items()},
+             algebra_launches={p: c[key] for p, c in algebra_launches.items()
+                               if c[key]},
              **results[name])
         for name, (src, rep, key) in KERNELS.items()]
     for pid, (_, line, key) in PROBES.items():
@@ -1500,6 +2072,8 @@ def main() -> int:
             miss_probe_launches=after3[key],
             tool_launches=tools[key],
             probe_tool_launches=probe_tools[key], join_launches={},
+            algebra_launches={p: c[key] for p, c in algebra_launches.items()
+                              if c[key]},
             **probe_results[pid]))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -12,12 +12,19 @@ Layout mirrors ``hashjoin3d_tpu``:
             row-id pairs and the reference's counters out
   ops/      hash functors of both key widths, integer carriers, scans and
             the kernels' wrappers; the chaining and the nested ("3D")
-            tables (dense-direct and compacted builds, ``probe_chaining``,
-            ``probe_nested``); the windowed probe strands (dense-direct,
-            key_direct nested and chaining, merged nested and chaining,
-            exp-4's Ndu, Chj and Nnu); the in-chain predicate walk
-  models/   experiment harnesses: ``Experiment1`` (exp-1's eleven plans)
-            and ``Experiment4`` (exp-4's Ndu, Chj and Nnu)
+            tables (the clarity builds over ``key_group_index``,
+            dense-direct and compacted builds, ``probe_chaining``,
+            ``probe_nested``, ``materialize_chaining_join``, ``unnest``,
+            ``deferred_two_join_strand``); the windowed probe strands
+            (dense-direct, key_direct nested and chaining, merged nested
+            and chaining, exp-4's Ndu, Chj and Nnu); the in-chain
+            predicate walk; filter, hash aggregate, sorts and the radix
+            partition
+  models/   the algebra (``Relation``, the operators, ``compile_strand``)
+            and its example; experiment harnesses: ``Experiment1``
+            (exp-1's eleven plans, the clarity strands where R.k is not
+            dense) and ``Experiment4`` (exp-4's Ndu, Chj and Nnu, and
+            their clarity strands)
   tools/    roofline, csrprof and mosaic_probe (measurement, CUDA only)
   utils/    data generation (the reference-exact native generator), CSV
             writer, repetition protocol

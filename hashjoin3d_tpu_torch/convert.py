@@ -4,7 +4,10 @@
 (after ``np.asarray``) into the port's table on ``device``, and
 ``nested_table_from_numpy`` does the same for a JAX ``NestedTable``, each
 in either layout (dense-direct or compacted), so the port's probe strands
-can be held against tables the JAX package built.  A 32-bit column becomes
+can be held against tables the JAX package built.  A dense-direct table of
+the clarity builds (``build_chaining`` / ``build_nested`` with
+``dense_direct=True``) also carries its directory and, for chaining, its
+early-exit index.  A 32-bit column becomes
 the int32 carrier, a u64 one (the ``keys`` and ``groups.ukey`` of a table
 built on 64-bit or composite keys) the int64 carrier.
 """
@@ -66,12 +69,19 @@ def chaining_table_from_numpy(fields: dict[str, np.ndarray], *,
                               direct_shift: int = 0) -> ChainingTable:
     """A JAX ``ChainingTable`` as the port's.  A dense-direct table
     (``fields`` has ``direct``) carries :data:`FIELDS` and
-    ``direct_shift``; a compacted one :data:`CHAINING_FIELDS`.  Either
+    ``direct_shift``, and its directory and early-exit index where
+    ``fields`` has them; a compacted one :data:`CHAINING_FIELDS`.  Either
     carries the :data:`OPTIONAL_FIELDS` it has.  Every column becomes its
     carrier on ``device``."""
     if _present(fields, "direct"):
         cols = _columns(fields, FIELDS, device)
         groups = None
+        if all(f in fields for f in GROUP_FIELDS):
+            cols.update(_columns(fields, [f for f in GROUP_FIELDS
+                                          if f != "groups.n_keys"], device))
+            cols.update(_columns(fields, ("group_min_pos",
+                                          "group_chain_first"), device))
+            groups = _group_index(cols, fields, device)
     else:
         cols = _columns(fields, [f for f in CHAINING_FIELDS
                                  if f != "groups.n_keys"], device)
@@ -88,16 +98,24 @@ def nested_table_from_numpy(fields: dict[str, np.ndarray], *,
                             direct_shift: int = 0) -> NestedTable:
     """A JAX ``NestedTable`` as the port's.  A dense-direct table
     (``fields`` has ``direct``) carries :data:`NESTED_DENSE_FIELDS` and
-    ``direct_shift``; a compacted one carries :data:`NESTED_FIELDS`
+    ``direct_shift``, and its directory and ``main_pos_by_group`` where
+    ``fields`` has them; a compacted one carries :data:`NESTED_FIELDS`
     (``groups.n_keys`` a scalar; ``key_direct`` where the table has one)."""
     if _present(fields, "direct"):
         cols = _columns(fields, NESTED_DENSE_FIELDS, device)
         n = cols["keys"].shape[0]
-        return NestedTable(groups=empty_group_index(n, torch.device(device)),
-                           main_pos_by_group=torch.zeros(
-                               0, dtype=I32, device=device),
-                           num_buckets=num_buckets, hashfun=hashfun,
-                           direct_shift=direct_shift, **cols)
+        if all(f in fields for f in GROUP_FIELDS):
+            cols.update(_columns(fields, [f for f in GROUP_FIELDS
+                                          if f != "groups.n_keys"]
+                                 + ["main_pos_by_group"], device))
+            groups = _group_index(cols, fields, device)
+        else:
+            groups = empty_group_index(n, torch.device(device))
+            cols["main_pos_by_group"] = torch.zeros(0, dtype=I32,
+                                                    device=device)
+        return NestedTable(groups=groups, num_buckets=num_buckets,
+                           hashfun=hashfun, direct_shift=direct_shift,
+                           **cols)
     cols = _columns(fields, [f for f in NESTED_FIELDS
                              if f not in ("groups.n_keys", "key_direct")],
                     device)

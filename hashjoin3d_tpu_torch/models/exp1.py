@@ -19,7 +19,11 @@ uniform or zipf(1.0).  All eleven plans of the JAX harness:
 The R-side builds are the dense-direct ones (R.k is a permutation), the
 S-side builds the compacted ones with the key-domain index (Crs's and
 CrsSel's without the early-exit index); the probes are the sorted
-windowed strands.  Each join plan times its build
+windowed strands.  Where R.k fails the dense-direct check
+(``dense_direct_r`` False), Csr, CsrUU and Nsr build R compacted and probe
+with the clarity strands (``probe_chaining`` / ``probe_nested``, then
+``materialize_chaining_join`` / ``unnest``), as the JAX harness does;
+CsrSel needs the dense-direct layout.  Each join plan times its build
 strand and its probe strand with the reference's repetition protocol
 (>= 300 ms, >= 8 reps) and writes one CSV row with the reference's header;
 the c_* and ht_* columns are bit-equal to the reference binaries'.  The
@@ -36,11 +40,12 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ..ops.chaining import build_chaining_host, can_use_dense_direct
+from ..ops.chaining import (build_chaining_host, can_use_dense_direct,
+                            materialize_chaining_join, probe_chaining)
 from ..ops.layout import SIGN, from_numpy_u32, resolve_device, u32_to_i64
-from ..ops.nested import build_nested_host
+from ..ops.nested import build_nested_host, probe_nested, unnest
 from ..ops.stats import chaining_statistics, nested_statistics
-from ..ops.strands_windowed import (direct_probe_strand_sorted,
+from ..ops.strands_windowed import (_with_route, direct_probe_strand_sorted,
                                     keydirect_chaining_strand_sorted,
                                     keydirect_nested_strand_sorted)
 from ..utils.csv_writer import CSVWriter
@@ -132,6 +137,39 @@ class JoinPlan(NamedTuple):
     build_rel: str
     probe_rel: str
     has_unnest: bool
+
+
+@_with_route
+def _chaining_probe_strand(table, probe_keys, out_size: int,
+                           unique: bool) -> dict:
+    """The clarity chaining strand: ``probe_chaining``, then
+    ``materialize_chaining_join`` into ``out_size`` slots."""
+    pr = probe_chaining(table, probe_keys, unique=unique)
+    prow, brow, _, total = materialize_chaining_join(table, pr, out_size,
+                                                     unique=unique)
+    return dict(probe_row=prow, build_row=brow, total=total,
+                c_htProbe=pr.num_matches, c_htProbeCmp=pr.num_cmps)
+
+
+@_with_route
+def _nested_probe_strand(table, probe_keys, out_size: int) -> dict:
+    """The clarity 3D strand: ``probe_nested``, then ``unnest`` into
+    ``out_size`` slots."""
+    nb = probe_nested(table, probe_keys)
+    prow, brow, _, total = unnest(table, nb, out_size)
+    return dict(probe_row=prow, build_row=brow, total=total,
+                c_htProbe=nb.num_matches, c_htProbeCmp=nb.num_cmps,
+                c_unnest=total)
+
+
+@_with_route
+def _nested_probe_strand_nounnest(table, probe_keys) -> dict:
+    """The clarity 3D strand with the nested tuples straight to the top:
+    each probe row's group id under the hit mask."""
+    nb = probe_nested(table, probe_keys)
+    return dict(nested_g=nb.g, nested_hit=nb.hit,
+                c_htProbe=nb.num_matches, c_htProbeCmp=nb.num_cmps,
+                c_top=nb.num_matches)
 
 
 def _scan_strand(col):
@@ -320,12 +358,12 @@ class Experiment1:
         the JAX harness wires them (``models/exp1.py:515-632``)."""
         nb_r = max(self.card_r // self.b, 1)      # build on R.k: #dv = |R|
         nb_s = max(self.num_dv_sa // self.b, 1)   # build on S.a: #dv(S.a)
-        if name in ("Csr", "CsrUU", "Nsr", "CsrSel") and \
-                not self.dense_direct_r:
-            raise NotImplementedError(
-                f"{name} without the dense-direct layout of R.k needs the "
-                "clarity layer's probe (ROADMAP slice 5)")
+        if name == "CsrSel" and not self.dense_direct_r:
+            raise AssertionError(
+                "CsrSel needs the dense-direct layout (R.k dense)")
         perm = self.dense_direct_r
+        if name in ("Csr", "CsrUU", "Nsr") and not perm:
+            return self._clarity_plan(name, nb_r)
 
         def build_r(keys, **kw):
             return build_chaining_host(keys, nb_r, dense_direct=True,
@@ -403,3 +441,23 @@ class Experiment1:
             return JoinPlan(self.sa, self.rk, build_s_nested, probe,
                             "nested", "S", "R", has_unnest=True)
         raise ValueError(f"{name} is not a join plan")
+
+    def _clarity_plan(self, name: str, nb_r: int) -> JoinPlan:
+        """Csr, CsrUU or Nsr where R.k fails the dense-direct check
+        (``models/exp1.py:510-564`` of the JAX package): R's compacted
+        build (its distinct count known, nothing read back) and the
+        clarity strand into |S| slots."""
+        if name == "Nsr":
+            return JoinPlan(
+                self.rk, self.sa,
+                lambda keys: build_nested_host(keys, nb_r,
+                                               n_keys=self.card_r),
+                lambda tbl, p: _nested_probe_strand(tbl, p, self.card_s),
+                "nested", "R", "S", has_unnest=True)
+        unique = name == "Csr"
+        return JoinPlan(
+            self.rk, self.sa,
+            lambda keys: build_chaining_host(keys, nb_r, n_keys=self.card_r),
+            lambda tbl, p: _chaining_probe_strand(tbl, p, self.card_s,
+                                                  unique),
+            "chaining", "R", "S", has_unnest=False)

@@ -16,7 +16,12 @@ result, not the intermediate one.  Plans (``main_experiment4.cc:158-164``):
 
 Both tables are the compacted builds with the key-domain index over
 [0, nCommon + 2 nExcl) (the chaining ones without the early-exit index);
-the probes are the windowed strands of ``ops/strands_windowed.py``.  Each
+the probes are the windowed strands of ``ops/strands_windowed.py``.
+``_ndu_probe_strand``, ``_nnu_probe_strand`` and ``_chj_probe_strand`` are
+the clarity strands of the same plans (``probe_nested`` /
+``probe_chaining``, ``expand``-based unnest and materialisation): not on
+the run path, they are the baselines the windowed strands are held
+against, as in the JAX package.  Each
 plan times its S build, its T build and its probe strand with the
 reference's repetition protocol (>= 300 ms, >= 8 reps, synchronised) and
 writes one CSV row with the reference's header; the c_* columns are
@@ -33,9 +38,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.chaining import build_chaining_host
-from ..ops.layout import I32, from_numpy_u32, resolve_device
-from ..ops.nested import build_nested_host
+from ..ops.chaining import (build_chaining_host, materialize_chaining_join,
+                            probe_chaining)
+from ..ops.layout import I32, I64, from_numpy_u32, resolve_device
+from ..ops.nested import (build_nested_host, deferred_two_join_strand,
+                          probe_nested)
 from ..ops.strands_windowed import (chj_strand_sorted, ndu_strand_sorted,
                                     nnu_strand_sorted)
 from ..utils.csv_writer import CSVWriter
@@ -58,6 +65,48 @@ CSV_HEADER = [
     "c_probe_RS", "c_probe_RS_cmp", "c_probe_RT", "c_probe_RT_cmp",
     "c_unnest_S", "c_unnest_T", "c_top",
 ]
+
+
+def _ndu_probe_strand(tbl_s, tbl_t, r_k, out1: int, out2: int) -> dict:
+    """scan R -> NestProbe(S) -> NestProbe(T) -> Unnest(T) -> Unnest(S) ->
+    Top (``ops.nested.deferred_two_join_strand``); ``c_top`` is the second
+    unnest's count."""
+    out = deferred_two_join_strand(tbl_s, tbl_t, r_k, out1, out2)
+    out.pop("valid")
+    out["c_top"] = out["c_unnest_2"]
+    return out
+
+
+def _nnu_probe_strand(tbl_s, tbl_t, r_k) -> dict:
+    """scan R -> NestProbe(S) -> NestProbe(T) -> Top, no unnest: each
+    surviving R row carries its two group ids (-1 elsewhere); ``c_top``
+    counts the nested tuples, as exp-1's NrsNU."""
+    rs = probe_nested(tbl_s, r_k)
+    rst = probe_nested(tbl_t, r_k, mask=rs.hit)
+    both = rst.hit
+    return dict(g_s=torch.where(both, rs.g, -1),
+                g_t=torch.where(both, rst.g, -1),
+                c_probe_RS=rs.num_matches, c_probe_RS_cmp=rs.num_cmps,
+                c_probe_RT=rst.num_matches, c_probe_RT_cmp=rst.num_cmps,
+                c_top=rst.num_matches.to(I64))
+
+
+def _chj_probe_strand(tbl_s, tbl_t, r_k, out1: int, out2: int) -> dict:
+    """scan R -> Probe(S) -> Probe(T) -> Top with the RS pairs expanded
+    before the T probe (``main_experiment4.cc:943-1043``), which runs once
+    a pair on the pair's R key (HashfunRS, ``main_experiment4.cc:355-361``).
+    """
+    prs = probe_chaining(tbl_s, r_k)
+    r_row1, s_row1, v1, _ = materialize_chaining_join(tbl_s, prs, out1)
+    pair_keys = r_k[torch.clamp(r_row1, min=0).long()]
+    prt = probe_chaining(tbl_t, pair_keys, mask=v1)
+    pr_row2, t_row2, v2, n_rst = materialize_chaining_join(tbl_t, prt, out2)
+    pr2 = torch.clamp(pr_row2, min=0).long()
+    return dict(r_row=torch.where(v2, r_row1[pr2], -1),
+                s_row=torch.where(v2, s_row1[pr2], -1), t_row=t_row2,
+                c_probe_RS=prs.num_matches, c_probe_RS_cmp=prs.num_cmps,
+                c_probe_RT=prt.num_matches, c_probe_RT_cmp=prt.num_cmps,
+                c_top=n_rst)
 
 
 def resolve_plans(plans) -> set:

@@ -1,10 +1,11 @@
 """Chaining hash table: the dense-direct and the compacted builds.
 
 Port of ``hashjoin3d_tpu/ops/chaining.py`` (``ChainingTable``,
-``can_use_dense_direct``, ``build_chaining_host``, ``_build_chaining_dense``
-with its ``full_chain_index``, ``_build_chaining_fused``,
-``_build_chaining_phase2``, ``_assemble_chaining``, ``ChainProbeResult``
-and ``probe_chaining``).  Semantics of the reference ``HtChaining1``
+``can_use_dense_direct``, ``build_chaining``, ``build_chaining_host``,
+``_build_chaining_dense`` with its ``full_chain_index``,
+``_build_chaining_fused``, ``_build_chaining_phase2``,
+``_assemble_chaining``, ``ChainProbeResult``, ``probe_chaining`` and
+``materialize_chaining_join``).  Semantics of the reference ``HtChaining1``
 (``ht_chaining.hh``): a row's bucket is ``hash(key) % num_buckets``, the
 hash matched to the key width (``murmur32`` / ``murmur64`` by default);
 each bucket's chain is [first-inserted row, then the rest in reverse
@@ -16,8 +17,11 @@ direct_shift``, so one lookup answers a probe and its early-exit
 comparison count.  Probes without early exit (plan CsrUU) count whole
 chains: ``chain_by_key[key]`` is the chain length of the key's bucket.
 
-Any other key column, u32 or u64, takes the compacted build: the distinct-key
-directory (:class:`~.layout.GroupIndex`), the bucket histogram and, for
+``build_chaining`` is the clarity build (the algebra's): n-sized
+directories over every row, a ``valid`` mask, nothing read back.  Any
+other key column of the host builds, u32 or u64, takes the compacted
+build: the distinct-key directory (:class:`~.layout.GroupIndex`), the
+bucket histogram and, for
 early-exit probes, each key's first node in chain order
 (``group_min_pos``, ``group_chain_first``).  Keys in a known domain
 (exp-1's S.a, exp-4's FK columns) add the dense key -> group map
@@ -35,10 +39,11 @@ import torch
 
 from .hashing import bucket_of, hash_key, hash_key_np
 from .layout import (I32, I64, GroupIndex, check_carrier,
-                     compact_group_index, empty_group_index, group_capacity,
-                     i64_to_u32, inverse_permute, key_direct_index,
-                     key_direct_lookup, lookup_auto, run_boundaries,
-                     same_key_width, sort_with_rows, sorted_histogram)
+                     compact_group_index, emit_pos, empty_group_index, expand,
+                     group_capacity, i64_to_u32, inverse_permute,
+                     key_direct_index, key_direct_lookup, key_group_index,
+                     lookup_auto, run_boundaries, same_key_width,
+                     sort_with_rows, sorted_histogram)
 
 
 @dataclass(frozen=True)
@@ -144,6 +149,80 @@ def _build_chaining_dense(keys: torch.Tensor, num_buckets: int,
                          hashfun=hashfun, chain_by_key=chain_by_key,
                          groups=empty_group_index(n, keys.device),
                          group_min_pos=empty, group_chain_first=empty)
+
+
+def build_chaining(keys: torch.Tensor, num_buckets: int,
+                   valid: torch.Tensor | None = None,
+                   dense_direct: bool = False,
+                   key_domain: int | None = None, hashfun: str = "murmur",
+                   early_exit_index: bool = True) -> ChainingTable:
+    """The clarity build: one table over every row, directories n-sized,
+    nothing read back (``AlgHashJoinBuild::step``, ``algebra.hh:574-577``).
+
+    ``valid`` marks the live rows; a dead row enters no bucket (parked past
+    the last one) and joins no group.  A stable sort of the bucket ids
+    gives each row its insertion rank in its bucket, the run structure
+    (K3) the histogram and the chain positions; :func:`key_group_index`
+    the directory.  The early-exit index is a scatter-min of chain
+    positions over each key's rows (``group_min_pos``) and a scatter-max
+    of the rows sitting there (``group_chain_first``: the bucket's head
+    row, or the key's last-inserted row); dead rows land on group ``n - 1``
+    with the neutral values ``n`` and -1.  ``dense_direct`` (permutation
+    keys) adds the packed ``direct`` image, ``key_domain`` the key -> group
+    map.
+    """
+    check_carrier(keys)
+    n = keys.shape[0]
+    dev = keys.device
+    row = torch.arange(n, dtype=I32, device=dev)
+    b = bucket_of(hash_key(keys, hashfun), num_buckets)
+    if valid is not None:
+        b = torch.where(valid, b, num_buckets)
+    b_sorted, srow = torch.sort(b, stable=True)
+    srow = srow.to(I32)
+    vs = b_sorted < num_buckets
+    is_first_b, _, run_start_b, run_len_b = run_boundaries(
+        b_sorted, n if valid is None else vs.sum())
+    bucket_start, bucket_len = sorted_histogram(b_sorted, num_buckets,
+                                                is_first_b, run_len_b)
+    rank = row - run_start_b
+    # insertion rank 0 -> chain pos 0 (directory node); rank p > 0 -> len - p
+    pos_sorted = torch.where(vs, torch.where(rank == 0, 0, run_len_b - rank),
+                             n)
+    empty = torch.zeros(0, dtype=I32, device=dev)
+    pos_by_row = (inverse_permute(srow, pos_sorted)
+                  if dense_direct or early_exit_index else empty)
+    groups = key_group_index(keys, valid)
+
+    group_min_pos = group_chain_first = empty
+    if early_exit_index:
+        gid_sorted = torch.where(vs, groups.gid_by_row[srow.long()],
+                                 n - 1).long()
+        group_min_pos = torch.full((n,), n, dtype=I32, device=dev)
+        group_min_pos.scatter_reduce_(0, gid_sorted,
+                                      torch.where(vs, pos_sorted, n),
+                                      "amin", include_self=True)
+        is_min = vs & (pos_sorted == group_min_pos[gid_sorted])
+        group_chain_first = torch.full((n,), -1, dtype=I32, device=dev)
+        group_chain_first.scatter_reduce_(0, gid_sorted,
+                                          torch.where(is_min, srow, -1),
+                                          "amax", include_self=True)
+
+    direct = None
+    direct_shift = 0
+    if dense_direct:
+        direct_shift = (n - 1).bit_length()
+        packed = row.to(I64) | ((pos_by_row.to(I64) + 1) << direct_shift)
+        direct = inverse_permute(keys, i64_to_u32(packed))
+    key_direct = (key_direct_index(groups, key_domain)
+                  if key_domain is not None and not dense_direct else None)
+    return ChainingTable(bucket_start=bucket_start, bucket_len=bucket_len,
+                         pos_by_row=pos_by_row, keys=keys, direct=direct,
+                         direct_shift=direct_shift, num_buckets=num_buckets,
+                         hashfun=hashfun, groups=groups,
+                         group_min_pos=group_min_pos,
+                         group_chain_first=group_chain_first,
+                         key_direct=key_direct)
 
 
 def build_chaining_host(keys: torch.Tensor, num_buckets: int,
@@ -401,3 +480,80 @@ def probe_chaining(table: ChainingTable, probe_keys: torch.Tensor,
     return ChainProbeResult(g=g, hit=hit, match_count=match_count,
                             num_matches=match_count.to(I64).sum(),
                             num_cmps=cmps.to(I64).sum())
+
+
+def _clamped(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``a[idx]`` with ``idx`` clamped into range (the JAX package's gather
+    semantics; every caller masks the clamped slots)."""
+    return a[torch.clamp(idx, 0, max(a.shape[0] - 1, 0)).long()]
+
+
+def materialize_chaining_join(table: ChainingTable, probe: ChainProbeResult,
+                              out_size: int, unique: bool = False,
+                              sync_free: bool = False):
+    """Expand probe matches into (probe_row, build_row) pairs in
+    ``out_size`` slots (``algebra.hh:650-652``): ``(probe_row, build_row,
+    valid, total)``, -1 in the dead slots, ``total`` an int64 device scalar
+    (it may exceed ``out_size``: the pairs past it are cut).
+
+    Three branches.  At most one match a probe (``unique``, or a
+    dense-direct table): positional when ``out_size`` is the probe count,
+    else compacted by a prefix sum and one scatter.  Otherwise the
+    expansion (:func:`~.layout.expand`, K3 and K2) emits each group
+    [first, rest LIFO]; when ``out_size`` is the probe count and no probe
+    matches twice, the positional layout stands instead.  That choice
+    reads the largest match count back once; ``sync_free`` computes both
+    layouts and selects on the device.
+    """
+    P = probe.g.shape[0]
+    dev = probe.g.device
+    p = torch.arange(P, dtype=I32, device=dev)
+    total = probe.match_count.to(I64).sum()
+    if unique or probe.from_direct:
+        # a dense permutation matches at most once, whatever ``unique`` says
+        brow = (probe.g if probe.from_direct
+                else _clamped(table.group_chain_first, probe.g))
+        if out_size == P:
+            return (torch.where(probe.hit, p, -1),
+                    torch.where(probe.hit, brow, -1), probe.hit, total)
+        cnt = probe.match_count
+        off = torch.cumsum(cnt, 0, dtype=I32) - cnt
+        # dropped probes (and pairs past the buffer) to slots of their own
+        tgt = torch.where(probe.hit & (off < out_size), off,
+                          out_size + p).long()
+        probe_row = torch.full((out_size + P,), -1, dtype=I32, device=dev)
+        build_row = torch.full((out_size + P,), -1, dtype=I32, device=dev)
+        probe_row[tgt] = p
+        build_row[tgt] = brow.to(I32)
+        valid = torch.arange(out_size, dtype=I64, device=dev) < total
+        return probe_row[:out_size], build_row[:out_size], valid, total
+
+    groups = table.groups
+
+    def expanded():
+        gstart_by_probe = _clamped(groups.group_start, probe.g)
+        q, within, valid, _, gstart, glen = expand(
+            probe.match_count, out_size, (gstart_by_probe,),
+            with_seg_len=True)
+        brow = _clamped(groups.group_rows, gstart + emit_pos(within, glen))
+        return (torch.where(valid, q, -1), torch.where(valid, brow, -1),
+                valid)
+
+    if out_size != P:
+        return (*expanded(), total)
+
+    def positional():
+        hit1 = probe.match_count > 0
+        brow = _clamped(groups.group_rows,
+                        _clamped(groups.group_start, probe.g))
+        return (torch.where(hit1, p, -1), torch.where(hit1, brow, -1), hit1)
+
+    if P == 0:
+        return (*positional(), total)
+    if not sync_free:
+        pick = positional if int(probe.match_count.max()) <= 1 else expanded
+        return (*pick(), total)
+    at_most_one = probe.match_count.max() <= 1
+    out = tuple(torch.where(at_most_one, a, b)
+                for a, b in zip(positional(), expanded()))
+    return (*out, total)

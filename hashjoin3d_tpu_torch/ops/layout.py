@@ -2,7 +2,8 @@
 and the directory lookups.
 
 Port of ``hashjoin3d_tpu/ops/layout.py`` (the parts the builds, the unnest
-expansion and the probe ops use).  PyTorch's ``uint32`` and ``uint64`` have
+expansion and the probe ops use, the clarity builds' ``key_group_index``
+and ``emit_pos`` among them).  PyTorch's ``uint32`` and ``uint64`` have
 no add, shifts, ``<``, ``%``, cummax or scatter, so every u32 column rides
 as the int32 tensor with the same bits, and every u64 column (a 64-bit or a
 composite :func:`pack2u32` key) as the int64 tensor with the same bits:
@@ -249,9 +250,12 @@ def group_capacity(n_keys: int, n: int) -> int:
 
 
 def compact_group_index(keys: torch.Tensor, skey: torch.Tensor,
-                        srow: torch.Tensor, cap: int) -> GroupIndex:
+                        srow: torch.Tensor, cap: int, n_valid=None,
+                        with_gid_by_row: bool = False) -> GroupIndex:
     """A :class:`GroupIndex` with ``cap``-sized directory arrays, from the
-    phase-1 sort (``skey``, ``srow``).
+    phase-1 sort (``skey``, ``srow``).  ``n_valid`` (default: every row)
+    counts the live leading sorted rows; the rest join no group, and
+    ``with_gid_by_row`` gives them group -1.
 
     The run heads' sorted positions scatter into the directory (group ids
     ascend with the sorted keys), then the key, run length and first row
@@ -259,12 +263,13 @@ def compact_group_index(keys: torch.Tensor, skey: torch.Tensor,
     while heads stride at most 8 rows per key, by a plain gather past that
     (the window would have to grow past its cap).  A 64-bit key is fetched
     as its two u32 halves.  ``gid_by_row`` is not materialised (no probe
-    reads it).
+    reads it) unless ``with_gid_by_row``.
     """
     n = keys.shape[0]
     dev = keys.device
     i = torch.arange(n, dtype=I32, device=dev)
-    is_first, gid, _, run_len = run_boundaries(skey, n)
+    is_first, gid, _, run_len = run_boundaries(
+        skey, n if n_valid is None else n_valid)
     if n == 0:
         ukey = torch.full((cap,), UKEY_PAD, dtype=skey.dtype, device=dev)
         group_start = torch.zeros(cap, dtype=I32, device=dev)
@@ -302,11 +307,63 @@ def compact_group_index(keys: torch.Tensor, skey: torch.Tensor,
         group_start = torch.where(pad, n, head)
         group_len = torch.where(pad, 0, fetch(run_len))
         first_row = torch.where(pad, n, fetch(srow))
+    gid_by_row = torch.zeros(0, dtype=I32, device=dev)
+    if with_gid_by_row:
+        live_gid = gid if n_valid is None else torch.where(i < n_valid, gid,
+                                                           -1)
+        gid_by_row = inverse_permute(srow, live_gid)
     return GroupIndex(ukey=ukey, group_start=group_start,
                       group_len=group_len, group_rows=srow,
-                      first_row=first_row,
-                      gid_by_row=torch.zeros(0, dtype=I32, device=dev),
+                      first_row=first_row, gid_by_row=gid_by_row,
                       n_keys=n_keys.to(I32))
+
+
+def _stable_order(key: torch.Tensor, perm: torch.Tensor | None):
+    """``perm`` followed by the stable ascending order of ``key[perm]``."""
+    idx = torch.sort(key if perm is None else key[perm], stable=True).indices
+    return idx if perm is None else perm[idx]
+
+
+def key_order(keys: torch.Tensor, valid: torch.Tensor | None = None,
+              values: torch.Tensor | None = None) -> torch.Tensor:
+    """The rows' stable order by (dead, key, value): keys unsigned, the
+    live rows under ``valid`` first, ``values`` in their own dtype's
+    order.  One stable pass a sort key, least significant first; a u32
+    key and its dead bit share one int64 word."""
+    perm = None if values is None else _stable_order(values, None)
+    if valid is None:
+        return _stable_order(uorder(keys), perm)
+    dead = (~valid).to(I64)
+    if keys.dtype == I32:
+        return _stable_order((dead << 32) | u32_to_i64(keys), perm)
+    return _stable_order(dead, _stable_order(uorder(keys), perm))
+
+
+def key_group_index(keys: torch.Tensor,
+                    valid: torch.Tensor | None = None) -> GroupIndex:
+    """Group the rows by exact key value: the n-sized directory of the
+    clarity builds (``ht_nested.hh:286-311`` as one sort).
+
+    A stable unsigned sort of the keys (live rows first under ``valid``,
+    :func:`key_order`), then :func:`compact_group_index` at ``cap = n``;
+    ``gid_by_row`` is -1 for a dead row and ``group_rows`` holds each
+    key's rows ascending (:func:`emit_pos` gives the reference's [first,
+    rest LIFO] order).
+    """
+    check_carrier(keys)
+    order = key_order(keys, valid)
+    n_valid = None if valid is None else valid.sum()
+    return compact_group_index(keys, keys[order], order.to(I32),
+                               keys.shape[0], n_valid=n_valid,
+                               with_gid_by_row=True)
+
+
+def emit_pos(within: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
+    """Offset into a group's ascending rows of emission slot ``within`` of
+    a group of ``length`` rows: the reference emits [first-inserted row,
+    the rest LIFO] (``ht_nested.hh:398-412``), so slot 0 reads offset 0
+    and slot w > 0 reads ``length - w``."""
+    return torch.where(within == 0, 0, length - within)
 
 
 def key_direct_index(groups: GroupIndex, key_domain: int) -> torch.Tensor:

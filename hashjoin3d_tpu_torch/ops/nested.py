@@ -1,9 +1,10 @@
 """Nested ("3D") hash table: the dense-direct and the compacted builds.
 
 Port of ``hashjoin3d_tpu/ops/nested.py`` (``NestedTable``,
-``can_use_dense_direct``, ``build_nested_host``, ``_build_nested_dense``,
-``_build_nested_fused``, ``_build_nested_phase2``, ``NestedBatch`` and
-``probe_nested``).  Semantics of the
+``can_use_dense_direct``, ``build_nested``, ``build_nested_host``,
+``_build_nested_dense``, ``_build_nested_fused``, ``_build_nested_phase2``,
+``NestedBatch``, ``probe_nested``, ``unnest`` and
+``deferred_two_join_strand``).  Semantics of the
 reference ``HtNested1`` (``ht_nested.hh:71-251``): one MainNode per
 distinct build key, its duplicate rows in a SubNode list.  A probe walks
 the bucket's main chain, one node per distinct key, so its comparison
@@ -19,6 +20,10 @@ main-chain length ``bucket_main_len``.  Permutation keys (exp-1's R.k) make
 every row its own MainNode: the dense-direct table keeps only the packed
 ``direct`` image and ``bucket_main_len``.  Keys in a known domain (exp-1's
 S.a over [0, fkMax)) add the dense key -> group map ``key_direct``.
+``build_nested`` is the clarity build: the n-sized directory of
+``key_group_index`` over every row, a ``valid`` mask, nothing read back.
+``unnest`` expands nested tuples ([first-inserted row, the rest LIFO])
+with ``expand``.
 """
 
 from __future__ import annotations
@@ -27,14 +32,15 @@ from dataclasses import dataclass
 
 import torch
 
-from .chaining import _check_probe, _direct_probe, _nbytes
+from .chaining import _check_probe, _clamped, _direct_probe, _nbytes
 from .chaining import can_use_dense_direct as _chaining_dense_ok
 from .hashing import bucket_of, hash_key
 from .layout import (I32, I64, GroupIndex, check_carrier,
-                     compact_group_index, empty_group_index, group_capacity,
-                     i64_to_u32, inverse_permute, key_direct_index,
-                     key_direct_lookup, lookup_auto, run_boundaries,
-                     sort_with_rows, sorted_histogram)
+                     compact_group_index, emit_pos, empty_group_index, expand,
+                     group_capacity, i64_to_u32, inverse_permute,
+                     key_direct_index, key_direct_lookup, key_group_index,
+                     lookup_auto, run_boundaries, sort_with_rows,
+                     sorted_histogram)
 
 
 @dataclass(frozen=True)
@@ -77,6 +83,63 @@ def can_use_dense_direct(keys_np, num_buckets: int,
     """Host check that the dense-direct nested layout is exact for these
     keys (the chaining table's condition)."""
     return _chaining_dense_ok(keys_np, num_buckets, hashfun)
+
+
+def _main_chains(groups: GroupIndex, num_buckets: int, hashfun):
+    """``(main_pos_by_group, bucket_main_len)`` of a directory: the groups
+    sort by (bucket, first row), one stable sort of the two packed in an
+    int64 word with the padding groups parked at bucket ``num_buckets``, so
+    within a bucket they stand in first-occurrence order (tail append,
+    ``ht_nested.hh:299-308``) and a group's main-chain position is its rank
+    in its bucket's run."""
+    cap = groups.ukey.shape[0]
+    validg = groups.group_len > 0
+    b_main = torch.where(validg,
+                         bucket_of(hash_key(groups.ukey, hashfun),
+                                   num_buckets), num_buckets)
+    # first_row <= n < 2^31 and b_main <= num_buckets < 2^31: both fit
+    packed = (b_main.to(I64) << 32) | groups.first_row.to(I64)
+    pk_s, gid_s = torch.sort(packed, stable=True)
+    bm_s = (pk_s >> 32).to(I32)
+    is_first_m, _, run_start, run_len_m = run_boundaries(
+        bm_s, validg.sum(dtype=I32))
+    _, bucket_main_len = sorted_histogram(bm_s, num_buckets, is_first_m,
+                                          run_len_m)
+    pos_s = torch.arange(cap, dtype=I32, device=bm_s.device) - run_start
+    return inverse_permute(gid_s.to(I32), pos_s), bucket_main_len
+
+
+def build_nested(keys: torch.Tensor, num_buckets: int,
+                 valid: torch.Tensor | None = None,
+                 dense_direct: bool = False, key_domain: int | None = None,
+                 hashfun: str = "murmur") -> NestedTable:
+    """The clarity 3D build: the n-sized directory of
+    :func:`~.layout.key_group_index` (``valid`` marks the live rows; a dead
+    row joins no group), each group's main-chain position and each bucket's
+    main-chain length, nothing read back (``AlgNestJoinBuild::step``,
+    ``algebra.hh:386-389``).  ``dense_direct`` (permutation keys) adds the
+    packed ``direct`` image, ``key_domain`` the key -> group map."""
+    check_carrier(keys)
+    n = keys.shape[0]
+    groups = key_group_index(keys, valid)
+    main_pos_by_group, bucket_main_len = _main_chains(groups, num_buckets,
+                                                      hashfun)
+    direct = None
+    direct_shift = 0
+    if dense_direct:
+        # permutation keys: ukey[i] == i, one row a group, key == group id
+        direct_shift = (n - 1).bit_length()
+        row = torch.arange(n, dtype=I64, device=keys.device)
+        pos1 = main_pos_by_group[keys.long()].to(I64) + 1
+        direct = inverse_permute(keys, i64_to_u32(row
+                                                  | (pos1 << direct_shift)))
+    key_direct = (key_direct_index(groups, key_domain)
+                  if key_domain is not None and not dense_direct else None)
+    return NestedTable(groups=groups, main_pos_by_group=main_pos_by_group,
+                       bucket_main_len=bucket_main_len, keys=keys,
+                       num_buckets=num_buckets, direct=direct,
+                       direct_shift=direct_shift, key_direct=key_direct,
+                       hashfun=hashfun)
 
 
 def build_nested_host(keys: torch.Tensor, num_buckets: int,
@@ -144,32 +207,12 @@ def _build_nested_phase2(keys: torch.Tensor, skey: torch.Tensor,
                          srow: torch.Tensor, cap: int, num_buckets: int,
                          dense_direct: bool, key_domain: int | None = None,
                          hashfun: str = "murmur") -> NestedTable:
-    """Directory, main chains and indexes from the phase-1 sort.
-
-    Groups sort by (bucket, first row): one stable sort of the two keys
-    packed in an int64 word, padding groups parked at bucket
-    ``num_buckets``.  Within a bucket the groups then stand in
-    first-occurrence order, so a group's main-chain position is its rank
-    in its bucket's run.
-    """
+    """Directory (``cap`` entries), main chains (:func:`_main_chains`) and
+    indexes from the phase-1 sort."""
     n = keys.shape[0]
-    dev = keys.device
     groups = compact_group_index(keys, skey, srow, cap)
-    validg = groups.group_len > 0
-    b_main = torch.where(validg,
-                         bucket_of(hash_key(groups.ukey, hashfun),
-                                   num_buckets), num_buckets)
-    # first_row < 2^31 and b_main <= num_buckets < 2^31: both fit a word
-    packed = (b_main.to(I64) << 32) | groups.first_row.to(I64)
-    pk_s, gid_s = torch.sort(packed, stable=True)
-    bm_s = (pk_s >> 32).to(I32)
-    n_valid_groups = validg.sum(dtype=I32)
-    is_first_m, _, run_start, run_len_m = run_boundaries(bm_s,
-                                                         n_valid_groups)
-    _, bucket_main_len = sorted_histogram(bm_s, num_buckets, is_first_m,
-                                          run_len_m)
-    pos_s = torch.arange(cap, dtype=I32, device=dev) - run_start
-    main_pos_by_group = inverse_permute(gid_s.to(I32), pos_s)
+    main_pos_by_group, bucket_main_len = _main_chains(groups, num_buckets,
+                                                      hashfun)
 
     direct = None
     direct_shift = 0
@@ -253,3 +296,63 @@ def probe_nested(table: NestedTable, probe_keys: torch.Tensor,
                                              0),
                        num_matches=hit.to(I64).sum(),
                        num_cmps=cmps.to(I64).sum())
+
+
+def unnest(table: NestedTable, nested: NestedBatch, out_size: int):
+    """Vectorized ``AlgUnnestHt`` (``algebra.hh:510-541``): one output row
+    per duplicate of each nested tuple's group, [first-inserted row, the
+    rest LIFO], in ``out_size`` slots.  Returns ``(probe_row, build_row,
+    valid, total)``, -1 in the dead slots, ``total`` an int64 device scalar
+    (the unnest's ``_count``; pairs past ``out_size`` are cut).
+
+    A batch from a dense-direct table (``direct_row``: singleton groups)
+    unnests positionally when ``out_size`` is its length; otherwise the
+    expansion (K3, K2) carries each tuple's group start, and the segment
+    index it yields is the probe row (``probe_row`` is ``arange(P)``).
+    """
+    P = nested.g.shape[0]
+    if nested.direct_row is not None and out_size == P:
+        total = nested.hit.to(I64).sum()
+        return (torch.where(nested.hit, nested.probe_row, -1),
+                torch.where(nested.hit, nested.direct_row, -1), nested.hit,
+                total)
+    groups = table.groups
+    p, within, valid, total, gstart, glen = expand(
+        nested.group_len, out_size, (_clamped(groups.group_start, nested.g),),
+        with_seg_len=True)
+    build_row = _clamped(groups.group_rows, gstart + emit_pos(within, glen))
+    return (torch.where(valid, p, -1), torch.where(valid, build_row, -1),
+            valid, total.to(I64))
+
+
+def deferred_two_join_strand(tbl_s: NestedTable, tbl_t: NestedTable,
+                             keys: torch.Tensor, out1: int, out2: int,
+                             mask: torch.Tensor | None = None) -> dict:
+    """Probe S, probe T under the S hits, unnest T, then S: exp-4's Ndu
+    strand (``main_experiment4.cc:832-941``).  The nested tuples cross the
+    second probe unexpanded, so both expansions run only for rows that
+    survived both joins; each segment's attributes ride the expansions as
+    payloads.  Returns ``r_row`` / ``s_row`` / ``t_row`` (-1 in the dead
+    slots), ``valid``, both probes' counters and both unnest counts
+    (``c_unnest_1`` T's, ``c_unnest_2`` S's), int64."""
+    rs = probe_nested(tbl_s, keys, mask=mask)
+    rst = probe_nested(tbl_t, keys, mask=rs.hit)
+    both = rst.hit
+    gt, gs = tbl_t.groups, tbl_s.groups
+    p1, w1, v1, n_unnest1, gst_t, gs1, tlen1 = expand(
+        torch.where(both, rst.group_len, 0), out1,
+        (_clamped(gt.group_start, rst.g), torch.where(both, rs.g, 0)),
+        with_seg_len=True)
+    t_row = _clamped(gt.group_rows, gst_t + emit_pos(w1, tlen1))
+    _, w2, v2, n_unnest2, gst_s, t_prop, r_prop, slen2 = expand(
+        torch.where(v1, _clamped(gs.group_len, gs1), 0), out2,
+        (_clamped(gs.group_start, gs1), torch.where(v1, t_row, 0),
+         torch.where(v1, p1, 0)),
+        with_seg_len=True)
+    s_row = _clamped(gs.group_rows, gst_s + emit_pos(w2, slen2))
+    return dict(
+        r_row=torch.where(v2, r_prop, -1), s_row=torch.where(v2, s_row, -1),
+        t_row=torch.where(v2, t_prop, -1), valid=v2,
+        c_probe_RS=rs.num_matches, c_probe_RS_cmp=rs.num_cmps,
+        c_probe_RT=rst.num_matches, c_probe_RT_cmp=rst.num_cmps,
+        c_unnest_1=n_unnest1.to(I64), c_unnest_2=n_unnest2.to(I64))

@@ -1,7 +1,8 @@
 """Hash-table statistics: the ht_* columns of the exp-1 CSV.
 
 Port of ``hashjoin3d_tpu/ops/stats.py`` (``HtStatistics``,
-``chaining_statistics``, ``nested_statistics``; reference
+``chaining_statistics``, ``nested_statistics``, ``HtBucketStatistics``,
+``bucket_statistics_chaining``, ``bucket_statistics_nested``; reference
 ``ht_statistics.{hh,cc}``, ``ht_chaining.hh:260-292``,
 ``ht_nested.hh:450-482``).  Computed after the measurement from the
 table's bucket histogram, as the reference computes them after its loop.
@@ -22,6 +23,7 @@ import torch
 from ..utils.aggregate import Aggregate
 from .chaining import ChainingTable
 from .hashing import murmur32
+from .layout import u32_to_i64
 from .nested import NestedTable
 
 
@@ -52,6 +54,38 @@ class HtStatistics:
             cc1.min(),
             cc1.max(),
         ]
+
+
+@dataclass
+class HtBucketStatistics:
+    """One bucket's row of the per-bucket dump (``ht_statistics.hh:9-15``)."""
+
+    bucket_index: int
+    num_entries: int
+    chain_len: int
+
+    CSV_HEADER = "bucketIndex;numEntries;chainLen"
+
+    def to_csv_string(self) -> str:
+        return f"{self.bucket_index};{self.num_entries};{self.chain_len}"
+
+
+def bucket_statistics_chaining(table: ChainingTable) -> list:
+    """Per-bucket dump of a chaining table: a chain's length is its
+    entries."""
+    blen = table.bucket_len.cpu().numpy()
+    return [HtBucketStatistics(i, int(v), int(v)) for i, v in enumerate(blen)]
+
+
+def bucket_statistics_nested(table: NestedTable) -> list:
+    """Per-bucket dump of a 3D table: the chain length counts MainNodes,
+    the entries count rows.  The rows are bucketed by ``murmur32`` of the
+    key whatever the table's ``hashfun``, as the JAX package does."""
+    bml = table.bucket_main_len.cpu().numpy()
+    b = (u32_to_i64(murmur32(table.keys)) % table.num_buckets).cpu().numpy()
+    rows = np.bincount(b, minlength=table.num_buckets)
+    return [HtBucketStatistics(i, int(rows[i]), int(bml[i]))
+            for i in range(table.num_buckets)]
 
 
 def _from_chain_lens(chain_lens: np.ndarray, num_entries: int,
