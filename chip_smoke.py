@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU: exp-1's eleven device
-plans, exp-4's three, ``join``, the one-call API, and the algebra.
+plans, exp-4's three, ``join``, the one-call API, the algebra, out-of-core
+streaming and the host engine.
 
 Run from the repository root on a machine with one CUDA GPU:
 
@@ -126,13 +127,48 @@ then exp-4 (``main_experiment4 -R 24 -a 4 -A 4 -b 2 -B 2``: |R| 2^24,
    equal numpy.  K2 and K3 must launch in every join plan of 8a, 8c and
    8d.
 
+9. Out-of-core streaming (``ops/streaming.py``: the probe column on the
+   host, uploaded chunk by chunk through pinned buffers on a side stream),
+   each stream's launch counts from 0 (``stream_launches`` in the kernels
+   line): 9a. Csr, Nsr (2^24 S probes, 3 x 2^20-row chunks) and Crs,
+   Nrs (2^20 R probes, 3 x 2^18-row chunks) through tables built on the
+   card: counters equal ``e1_t0c.csv``, pairs (``collect_pairs``) the
+   whole-column strand's as multisets; 9b. the merged streams (u64
+   Nrs- and Csr-shaped, sparse u32 Crs-shaped) and 9c. a dense-direct
+   ``fib`` Csr stream at R18/S22 equal the same streams on the CPU; 9d.
+   ``tools/oocbench.py`` at 2^25 and 2^27 host probes (a 2^20-key
+   dense-direct chaining table, a 2^24-row nested table over the same
+   domain, 2^22-key chunks): counters equal its numpy model, the peak
+   device memory of each stream at 2^27 equals that at 2^25 within one
+   chunk's working set, and at 2^27 the streamed probes/s, copy-only,
+   probe-only and streamed ms, the profiled split (uploads, probes, their
+   overlap, idle share) and the upload rate print.  K1, K2 and K3 must
+   launch in phase 9.
+
+10. The host engine (``hostengine.py``, the port's own
+   ``native/hj3engine.cpp`` built with ``g++``): 10a. exp-1 ``all`` with
+   ``backend="host"`` at R20/S24 t=0 (one rep a plan): rows equal
+   ``e1_t0c.csv`` in c_* and ht_*; 10b. exp-4's Ndu and Chj on the host at
+   R20 equal ``e4_20.csv``; 10c. ``join`` on both backends at |R| + |S| =
+   17 x 2^R for R = 8, 9, .. 20 (R:S 1:16), equal counters, the median wall ms
+   of 3 each; 10d. exp-1 (Csr, Nrs; R10-R18) and exp-4 (Ndu, Chj;
+   R12-R18) on both backends; then the three crossovers (the smallest row
+   volume from which the device beats the host engine at every larger
+   size measured) that set the ``HOST_CROSSOVER_ROWS`` of ``api.py``,
+   ``models/exp1.py`` and ``models/exp4.py``.
+
+Phases 9 and 10 alone: a driver in a gitignored directory that imports
+``chip_smoke``, calls ``kernels.lib()`` and then ``phase9(dev, card)`` /
+``phase10(dev, card)``.
+
 Prints one JSON line of per-kernel results, then, last,
 ``{"ok": true, "device": {...}}``.  ``launches`` there is the main path's
 count (phase 2's plans summed), ``plan_launches`` each plan's, phase 3b's
 runs under "Nrs t=4" and the like, phase 6's under "Ndu R24" and the
 like, the sorted-route call under "Crs sorted route"; ``join_launches``
 each phase 7 call's (its first call, from 0), ``algebra_launches`` each
-phase 8 plan's (where the kernel launched);
+phase 8 plan's (where the kernel launched), ``stream_launches`` each
+phase 9 stream's;
 ``miss_probe_launches`` is phase 3's, ``probe_tool_launches`` phase 5's
 probe runner's (its check and timed launches) and ``tool_launches`` phase
 5's roofline and csrprof path's.
@@ -1155,7 +1191,7 @@ def timed_join(args, kw, dev, label, launches):
     kernels.reset_launch_counts()
     res = join(*args, device=dev, **kw)
     torch.cuda.synchronize()
-    launches[label] = {k: kernels.LAUNCHES[k] for k in JOIN_KERNELS}
+    launches[label] = dict(kernels.LAUNCHES)
     times = []
     for _ in range(3):
         t = time.perf_counter()
@@ -1165,12 +1201,17 @@ def timed_join(args, kw, dev, label, launches):
     return res, float(np.median(times))
 
 
+def launched(counts) -> dict:
+    """The kernels of a launch-count snapshot that launched."""
+    return {k: v for k, v in counts.items() if v}
+
+
 def join_line(label, res, ms, launches, card) -> str:
     return (f"phase 7 join {label} on {card}: {ms:.3f} ms (median of 3), "
             f"num_matches {res.num_matches}, num_cmps {res.num_cmps}, "
             f"num_results {res.num_results}, route_worst {res.route_worst} "
             f"(route_nbad {res.route_nbad}), "
-            f"launches {json.dumps(launches[label])}")
+            f"launches {json.dumps(launched(launches[label]))}")
 
 
 def phase7_cpu_counters(dev, maps):
@@ -1868,6 +1909,365 @@ def phase8(dev, card, log2_r, log2_s, e1_csv, log2_r4, e4_csv):
     return launches
 
 
+#: phase 9's chunk sizes, each leaving a ragged tail (2^24 S probes: five
+#: chunks of 3 x 2^20 and 2^20; 2^20 R probes: 3 x 2^18 and 2^18) whose
+#: rows stay multiples of the 2^18-key probe-sort segment, so every chunk
+#: takes the segmented sorts (K1, K4)
+STREAM_CHUNK_S = 3 << 20
+STREAM_CHUNK_R = 3 << 18
+STREAM_PLANS = ("Csr", "Nsr", "Crs", "Nrs")
+#: phase 9b/9c's streams at the CPU comparison's scale (R18/S22): (label,
+#: key map, build side, probe side, table kind, unique, hashfun)
+CPU_STREAMS = (("Nrs u64", "u64", "S", "R", "nested", False, "murmur"),
+               ("Crs sparse u32", "sparse u32", "S", "R", "chaining", False,
+                "murmur"),
+               ("Csr u64", "u64", "R", "S", "chaining", True, "murmur"),
+               ("Csr dense fib", None, "R", "S", "chaining", True, "fib"))
+#: oocbench's column sizes in phase 9d: the peak device memory must not
+#: grow from the first to the second
+OOC_LOGPS = (25, 27)
+
+
+def stream_pairs_key(pairs, dev) -> torch.Tensor:
+    """A stream's per-chunk pairs as :func:`rows_key`."""
+    return rows_key(np.concatenate([p for p, _ in pairs]),
+                    np.concatenate([b for _, b in pairs]), dev)
+
+
+def stream(table, keys, kind, unique, chunk, out_per_chunk):
+    """One collecting stream: ``(matches, cmps, unnested or None,
+    pairs)``."""
+    from hashjoin3d_tpu_torch.ops.streaming import (stream_probe_chaining,
+                                                    stream_probe_nested)
+
+    if kind == "nested":
+        return stream_probe_nested(table, keys, chunk_size=chunk,
+                                   collect_pairs=True,
+                                   out_per_chunk=out_per_chunk)
+    m, c, pairs = stream_probe_chaining(table, keys, chunk_size=chunk,
+                                        unique=unique, collect_pairs=True,
+                                        out_per_chunk=out_per_chunk)
+    return m, c, None, pairs
+
+
+def phase9a_exp1(dev, card, launches):
+    """Csr, Nsr, Crs and Nrs at R20/S24 t=0: the probe column streamed
+    from the host through the table built on the card, with a ragged tail;
+    counters equal ``e1_t0c.csv``, pairs the whole-column strand's."""
+    from hashjoin3d_tpu_torch import kernels
+    from hashjoin3d_tpu_torch.models.exp1 import Experiment1
+
+    ref = csv_counters(REFERENCE_CSV, 9)
+    exp = Experiment1(LOG2_R, LOG2_S, skew=False, t=0, device=dev,
+                      trace=False)
+    exp.init()
+    for plan in STREAM_PLANS:
+        jp = exp.join_plan(plan)
+        table = jp.build(jp.build_keys)
+        whole = pairs_multiset_key(jp.probe(table, jp.probe_keys))
+        host = exp.sa_np if jp.probe_rel == "S" else exp.rk_np
+        chunk = STREAM_CHUNK_S if jp.probe_rel == "S" else STREAM_CHUNK_R
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m, c, u, pairs = stream(table, host, jp.impl, plan == "Csr", chunk,
+                                1 << LOG2_S)
+        ms = (time.perf_counter() - t0) * 1e3
+        launches[f"{plan} stream"] = dict(kernels.LAUNCHES)
+        want = ref[plan]
+        got = dict(c_htProbe=m, c_htProbeCmp=c)
+        if u is not None:
+            got["c_unnest"] = u
+        bad = {k: (v, want[k]) for k, v in got.items() if v != int(want[k])}
+        require(not bad, f"phase 9a {plan} stream: counters differ from "
+                f"{REFERENCE_CSV.name}: {bad}")
+        require(torch.equal(stream_pairs_key(pairs, dev), whole),
+                f"phase 9a {plan} stream: pairs differ from the "
+                "whole-column strand's")
+        print(f"phase 9a {plan} streamed from the host on {card}: "
+              f"{host.size} probes in chunks of {chunk}, {ms:.3f} ms with "
+              f"the pairs copied back, counters {json.dumps(got)} equal "
+              f"{REFERENCE_CSV.name}, pairs the whole-column strand's; "
+              f"launches {json.dumps(launched(launches[f'{plan} stream']))}")
+        del table, whole, pairs
+    del exp
+    torch.cuda.empty_cache()
+
+
+def phase9bc_cpu(dev, card, launches):
+    """The merged streams (u64 and sparse u32 keys) and a dense-direct
+    ``fib`` stream at R18/S22 on the card against the same streams run
+    with the plain versions on the CPU: counters and pairs equal."""
+    from hashjoin3d_tpu_torch import kernels
+    from hashjoin3d_tpu_torch.ops.chaining import build_chaining_host
+    from hashjoin3d_tpu_torch.ops.layout import key_column
+    from hashjoin3d_tpu_torch.ops.nested import build_nested_host
+    from hashjoin3d_tpu_torch.utils.gen import exp1_data
+
+    rk, sa, _ = exp1_data(CPU_LOG2_R, CPU_LOG2_S, False, 0)
+    sides = {"R": rk, "S": sa}
+    maps = key_maps()
+    for label, kmap, b, p, kind, unique, hf in CPU_STREAMS:
+        bk = sides[b] if kmap is None else maps[kmap](sides[b])
+        pk = sides[p] if kmap is None else maps[kmap](sides[p])
+        nb = int(np.unique(bk).size)
+        # S probes: 3 x 2^18-row chunks (the tail 2^18, segment-aligned);
+        # R probes: 100,003 (the merged strands sort globally)
+        chunk = 3 << 18 if p == "S" else 100_003
+        out = []
+        for d in (dev, torch.device("cpu")):
+            col = key_column(bk, d)
+            if kmap is None:
+                table = build_chaining_host(col, nb, dense_direct=True,
+                                            n_keys=bk.size, hashfun=hf)
+            elif kind == "nested":
+                table = build_nested_host(col, nb, n_keys=nb, hashfun=hf)
+            else:
+                table = build_chaining_host(col, nb, n_keys=nb, hashfun=hf)
+            require(table.key_direct is None, f"phase 9b {label}: the "
+                    "table took the key_direct layout")
+            kernels.reset_launch_counts()
+            out.append(stream(table, pk, kind, unique, chunk,
+                              1 << CPU_LOG2_S))
+            if not launches.get(f"{label} stream"):  # the card's run
+                torch.cuda.synchronize()
+                launches[f"{label} stream"] = dict(kernels.LAUNCHES)
+        g, w = out
+        require(g[:3] == w[:3], f"phase 9b {label} stream: counters "
+                f"{g[:3]} != the CPU run's {w[:3]}")
+        require(torch.equal(stream_pairs_key(g[3], dev).cpu(),
+                            stream_pairs_key(w[3], "cpu")),
+                f"phase 9b {label} stream: pairs differ from the CPU run")
+        print(f"phase 9{'c' if kmap is None else 'b'} {label} streamed at "
+              f"R{CPU_LOG2_R}/S{CPU_LOG2_S} on {card} (chunks of {chunk}): "
+              f"counters {g[:3]} and pairs equal the CPU run; launches "
+              f"{json.dumps(launched(launches[f'{label} stream']))}")
+
+
+def phase9d_oocbench(dev, card, launches):
+    """``tools/oocbench.py`` at 2^25 and 2^27 host probes: counters equal
+    its numpy model (``run`` raises otherwise); the copy, probe and
+    overlap split at 2^27; the peak device memory of each stream equal at
+    both sizes within one chunk's working set (the peak above what was
+    resident when the stream began)."""
+    from hashjoin3d_tpu_torch.tools import oocbench
+
+    runs = {logp: oocbench.run(dev, logp=logp, timings=logp == OOC_LOGPS[-1])
+            for logp in OOC_LOGPS}
+    last = runs[OOC_LOGPS[-1]]
+    for name in ("chaining", "nested"):
+        a, b = (runs[lp][name] for lp in OOC_LOGPS)
+        working = a["peak_bytes"] - a["resident_bytes"]
+        require(abs(b["peak_bytes"] - a["peak_bytes"]) <= working,
+                f"phase 9d oocbench {name}: peak device memory "
+                f"{a['peak_bytes']} at 2^{OOC_LOGPS[0]} probes, "
+                f"{b['peak_bytes']} at 2^{OOC_LOGPS[1]} (one chunk's "
+                f"working set {working})")
+        for lp in OOC_LOGPS:
+            launches[f"oocbench {name} 2^{lp}"] = runs[lp][name]["launches"]
+        print(f"phase 9d oocbench {name} on {card}: " + json.dumps(dict(
+            {k: b[k] for k in ("counters", "probes_per_s", "ms",
+                               "probe_only_ms", "copy_only_ms",
+                               "host_copy_ms", "profiled_wall_ms", "busy_ms",
+                               "copy_busy_ms", "probe_busy_ms", "overlap_ms",
+                               "idle_share", "device_events",
+                               "serial_ms", "table_bytes")},
+            launches=launched(b["launches"]),
+            peak_bytes={f"2^{lp}": runs[lp][name]["peak_bytes"]
+                        for lp in OOC_LOGPS},
+            resident_bytes={f"2^{lp}": runs[lp][name]["resident_bytes"]
+                            for lp in OOC_LOGPS})))
+    print(f"phase 9d oocbench H2D from pinned memory on {card}: "
+          f"{last['h2d_gbps']:.2f} GB/s")
+    return {name: last[name] for name in ("chaining", "nested")}
+
+
+def phase9(dev, card):
+    """Phase 9: out-of-core streaming (9a-9d); returns each stream's
+    launch counts, each counted from 0."""
+    t9 = time.perf_counter()
+    launches = {}
+    phase9a_exp1(dev, card, launches)
+    phase9bc_cpu(dev, card, launches)
+    phase9d_oocbench(dev, card, launches)
+    for name in ("bitonic_sort_packed_segmented", "windowed_lookup",
+                 "multi_scan"):
+        require(sum(c[name] for c in launches.values()) > 0,
+                f"{name} not launched in phase 9")
+    print(f"phase 9: {time.perf_counter() - t9:.1f} s")
+    return launches
+
+
+#: phase 10's sweeps: exp-1 (R, S = R + 4; plans Csr and Nrs) and exp-4 (R)
+#: on both backends, and join's columns (|R| + |S| = 17 * 2^R, R:S 1:16)
+CROSS_E1_LOG2_R = (10, 12, 14, 16, 18)
+CROSS_E4_LOG2_R = (12, 14, 16, 18)
+CROSS_JOIN_LOG2_R = tuple(range(8, 21))
+CROSS_MIN_TIME = 0.02
+
+
+def crossover(points) -> int | None:
+    """The smallest row volume from which the device's time stays below
+    the host engine's over every larger volume measured; None if the
+    host engine wins at the largest."""
+    best = None
+    for vol, host_ms, dev_ms in sorted(points, reverse=True):
+        if dev_ms >= host_ms:
+            break
+        best = vol
+    return best
+
+
+def phase10a_exp1(dev, card):
+    """exp-1 ``all`` on the host engine at R20/S24 t=0 (one rep a plan):
+    every row equals ``e1_t0c.csv`` in its value columns (c_*, ht_*)."""
+    from hashjoin3d_tpu_torch.models.exp1 import Experiment1
+
+    buf = io.StringIO()
+    exp = Experiment1(LOG2_R, LOG2_S, skew=False, t=0, b=1, plans=REF_PLANS,
+                      measure_file=buf, min_runtime_s=0.0, min_repeat=1,
+                      device=dev, backend="host", trace=False)
+    exp.init()
+    exp.run()
+    hdr, rows = check_rows(buf.getvalue(), REFERENCE_CSV, REF_PLANS,
+                           "phase 10a")
+    for plan in REF_PLANS:
+        print(plan_line(hdr, rows[plan], f"phase 10a host engine "
+                        f"R{LOG2_R}/S{LOG2_S} t=0", card))
+
+
+def phase10b_exp4(card):
+    """exp-4's Ndu and Chj on the host engine at R20: rows equal
+    ``e4_20.csv`` in every value column."""
+    from hashjoin3d_tpu_torch.models.exp4 import Experiment4
+
+    _, log2_r, ref, _ = EXP4_RUNS[1]
+    buf = io.StringIO()
+    exp = Experiment4(log2_r, **EXP4_PARAMS, plans=("Ndu", "Chj"),
+                      measure_file=buf, min_runtime_s=0.0, min_repeat=1,
+                      device="cpu", backend="host", trace=False)
+    exp.init()
+    exp.run()
+    rows = list(csv.reader(io.StringIO(buf.getvalue()), delimiter=";"))
+    hdr, got = rows[0], {r[10]: r for r in rows[1:]}
+    ref_rows = list(csv.reader(io.StringIO(ref.read_text()), delimiter=";"))
+    require(ref_rows[0] == hdr, "phase 10b: CSV header differs")
+    keep = [i for i, c in enumerate(hdr) if c.startswith(("c_", "card"))
+            or c in ("plan", "ht_impl", "log2CardR", "a", "aM", "b", "bM")]
+    for want in ref_rows[1:]:
+        bad = [(hdr[i], got[want[10]][i], want[i]) for i in keep
+               if got[want[10]][i] != want[i]]
+        require(not bad, f"phase 10b {want[10]}: row differs from "
+                f"{ref.name}: {bad}")
+        print(exp4_line(hdr, got[want[10]], f"phase 10b host engine "
+                        f"R{log2_r}", card))
+
+
+def phase10c_join(dev, card) -> dict:
+    """``join`` (nested, build R probe S) on both backends, |R| + |S| from
+    4,352 to 17.8M in steps of 2x: equal counters, the median wall ms of 3
+    each, and the crossover."""
+    from hashjoin3d_tpu_torch import join
+    from hashjoin3d_tpu_torch.utils.gen import exp1_data
+
+    points = []
+    for lr in CROSS_JOIN_LOG2_R:
+        rk, sa, _ = exp1_data(lr, lr + 4, False, 0)
+        res, ms = {}, {}
+        for backend in ("host", "device"):
+            def call():
+                return join(rk, sa, backend=backend, device=dev)
+            res[backend] = call()  # warm-up, and the result checked
+            ms[backend] = wall_ms(call)
+        h, d = res["host"], res["device"]
+        require((h.num_matches, h.num_cmps, h.num_results)
+                == (d.num_matches, d.num_cmps, d.num_results),
+                f"phase 10c join at R{lr}: host and device counters differ")
+        vol = rk.size + sa.size
+        points.append((vol, ms["host"], ms["device"]))
+        print(f"phase 10c join |R|+|S| = {vol} on {card}: host "
+              f"{ms['host']:.3f} ms, device {ms['device']:.3f} ms (median "
+              f"of 3), num_results {h.num_results}")
+    return dict(points=points, crossover=crossover(points))
+
+
+def phase10d_sweeps(dev, card) -> dict:
+    """exp-1 (Csr, Nrs) and exp-4 (Ndu, Chj) on both backends over the
+    sweep sizes: t_total a plan (build + probe, the reference's protocol
+    at CROSS_MIN_TIME) and the crossover in each harness's row volume."""
+    from hashjoin3d_tpu_torch.models.exp1 import Experiment1
+    from hashjoin3d_tpu_torch.models.exp4 import Experiment4
+
+    out = {}
+    points = []
+    for lr in CROSS_E1_LOG2_R:
+        t = {}
+        for backend in ("host", "device"):
+            buf = io.StringIO()
+            exp = Experiment1(lr, lr + 4, False, 0, plans=("Csr", "Nrs"),
+                              measure_file=buf, min_runtime_s=CROSS_MIN_TIME,
+                              min_repeat=3, device=dev, backend=backend,
+                              trace=False)
+            exp.init()
+            exp.run()
+            hdr, rows = plan_rows(buf.getvalue())
+            i = hdr.index("t_total")
+            t[backend] = {p: int(r[i]) / 1e6 for p, r in rows.items()}
+        vol = (1 << lr) + 2 * (1 << (lr + 4))
+        points.append((vol, max(t["host"].values()),
+                       max(t["device"].values())))
+        print(f"phase 10d exp-1 R{lr}/S{lr + 4} (plan volume {vol}) on "
+              f"{card}: t_total ms host {json.dumps(t['host'])}, device "
+              f"{json.dumps(t['device'])}")
+    out["exp1"] = dict(points=points, crossover=crossover(points))
+    points = []
+    for lr in CROSS_E4_LOG2_R:
+        t = {}
+        for backend in ("host", "device"):
+            buf = io.StringIO()
+            exp = Experiment4(lr, **EXP4_PARAMS, plans=("Ndu", "Chj"),
+                              measure_file=buf, min_runtime_s=CROSS_MIN_TIME,
+                              min_repeat=3, device=dev, backend=backend,
+                              trace=False)
+            exp.init()
+            exp.run()
+            rows = list(csv.reader(io.StringIO(buf.getvalue()),
+                                   delimiter=";"))
+            i = rows[0].index("t_total")
+            t[backend] = {r[10]: int(r[i]) / 1e6 for r in rows[1:]}
+        vol = (exp.card_r + exp.card_s + exp.card_t + exp.calc_join_card2())
+        points.append((vol, max(t["host"].values()),
+                       max(t["device"].values())))
+        print(f"phase 10d exp-4 R{lr} (row volume {vol}) on {card}: "
+              f"t_total ms host {json.dumps(t['host'])}, device "
+              f"{json.dumps(t['device'])}")
+    out["exp4"] = dict(points=points, crossover=crossover(points))
+    return out
+
+
+def phase10(dev, card) -> dict:
+    """Phase 10: the host engine (10a-10d); returns the crossovers."""
+    t10 = time.perf_counter()
+    phase10a_exp1(dev, card)
+    print(f"phase 10a: {time.perf_counter() - t10:.1f} s")
+    phase10b_exp4(card)
+    from hashjoin3d_tpu_torch import api
+    from hashjoin3d_tpu_torch.models.exp1 import Experiment1
+    from hashjoin3d_tpu_torch.models.exp4 import Experiment4
+
+    cross = dict(join=phase10c_join(dev, card), **phase10d_sweeps(dev, card))
+    print(f"phase 10 crossovers on {card} (the smallest row volume from "
+          "which the device beats the host engine at every larger size "
+          "measured): " + json.dumps({k: v["crossover"]
+                                      for k, v in cross.items()})
+          + "; the port's HOST_CROSSOVER_ROWS: " + json.dumps(dict(
+              join=api.HOST_CROSSOVER_ROWS,
+              exp1=Experiment1.HOST_CROSSOVER_ROWS,
+              exp4=Experiment4.HOST_CROSSOVER_ROWS)))
+    print(f"phase 10: {time.perf_counter() - t10:.1f} s")
+    return cross
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2049,6 +2449,17 @@ def main() -> int:
             {k: v for k, v in counts.items() if v}))
     print(f"smoke so far {time.perf_counter() - t0:.1f} s")
 
+    # phase 9: out-of-core streaming on the card
+    stream_launches = phase9(dev, card)
+    for label, counts in stream_launches.items():
+        print(f"launches phase 9 {label}: " + json.dumps(
+            {k: v for k, v in counts.items() if v}))
+    print(f"smoke so far {time.perf_counter() - t0:.1f} s")
+
+    # phase 10: the host engine, and the crossovers of backend="auto"
+    phase10(dev, card)
+    print(f"smoke so far {time.perf_counter() - t0:.1f} s")
+
     entries = [
         dict(name=name, route="cuda", source=src, replaces=rep,
              launches=after2[key],
@@ -2056,10 +2467,10 @@ def main() -> int:
              miss_probe_launches=after3[key],
              tool_launches=tools[key],
              probe_tool_launches=probe_tools[key],
-             join_launches={c: n.get(key, 0)
-                            for c, n in join_launches.items()},
+             join_launches={c: n[key] for c, n in join_launches.items()},
              algebra_launches={p: c[key] for p, c in algebra_launches.items()
                                if c[key]},
+             stream_launches={p: c[key] for p, c in stream_launches.items()},
              **results[name])
         for name, (src, rep, key) in KERNELS.items()]
     for pid, (_, line, key) in PROBES.items():
@@ -2071,9 +2482,11 @@ def main() -> int:
             plan_launches={p: c[key] for p, c in plan_launches.items()},
             miss_probe_launches=after3[key],
             tool_launches=tools[key],
-            probe_tool_launches=probe_tools[key], join_launches={},
+            probe_tool_launches=probe_tools[key],
+            join_launches={c: n[key] for c, n in join_launches.items()},
             algebra_launches={p: c[key] for p, c in algebra_launches.items()
                               if c[key]},
+            stream_launches={p: c[key] for p, c in stream_launches.items()},
             **probe_results[pid]))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -25,10 +25,13 @@ other key (u64, composite, signed, sparse u32) takes the merged strands.
 Each of the last two makes one sizing pass whose counters are read back,
 then the materialising pass into a buffer of exactly that size.
 
-``device`` (default ``"cuda"``) places the work: on CUDA every kernel of
-the path launches (or raises), on ``"cpu"`` the plain versions run; asking
-for CUDA on a host without it raises.  ``backend="host"`` (the native C++
-engine) is not ported; ``"auto"`` resolves to the device path.
+``device`` (default ``"cuda"``) places the device path's work: on CUDA
+every kernel of the path launches (or raises), on ``"cpu"`` the plain
+versions run; asking for CUDA on a host without it raises.  ``backend``
+(default ``"device"``) picks the path: ``"host"`` runs the native C++
+engine (``hostengine.py``: the same counters, registry functors only),
+``"auto"`` sends a query of fewer than :data:`HOST_CROSSOVER_ROWS` build
+plus probe rows to the host engine and the rest to the device.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .hostengine import HASHFUN_IDS, host_chaining_join, host_nested_join
 from .ops.chaining import (build_chaining_host, can_use_dense_direct,
                            probe_chaining)
 from .ops.layout import key_column, resolve_device, widen_u64
@@ -86,10 +90,21 @@ class JoinResult:
         return out
 
 
+#: ``backend="auto"``'s crossover: below this many build plus probe rows
+#: the host engine answers a ``join`` call before the device path does.
+#: ``chip_smoke.py`` phase 10c on an NVIDIA H100 80GB HBM3 at 700 W
+#: (nested joins, R:S 1:16, median of 3 calls): three runs put the
+#: smallest size from which the device won at every larger one at
+#: 278,528, 1,114,112 and 557,056 rows; this is their median.  At 557,056
+#: the engine took 27.8 ms against the device's 14.9 (the 2x sweep), at
+#: 278,528 9.5 / 6.8 / 10.9 ms against 7.8 / 9.0 / 15.3.
+HOST_CROSSOVER_ROWS = 557_056
+
+
 def join(build_keys, probe_keys, how: str = "nested",
          num_buckets: int | None = None, unique: bool = False,
          n_keys: int | None = None, key_domain: int | None = None,
-         backend: str = "auto", mode: str = "inner",
+         backend: str = "device", mode: str = "inner",
          hashfun="murmur", predicate=None, predicate_mode: str = "post",
          probe_payload: dict | None = None,
          build_payload: dict | None = None,
@@ -100,8 +115,10 @@ def join(build_keys, probe_keys, how: str = "nested",
     (``ht_chaining.hh``).  ``unique`` is the chaining plan's
     IsBuildKeyUnique early exit.  ``num_buckets`` defaults to the
     distinct-key count.  ``n_keys`` / ``key_domain`` are the optional build
-    hints (``build_*_host``).  ``backend``: "device" or "auto" (both run
-    the device path); "host" raises.
+    hints (``build_*_host``).  ``backend``: "device" (default), "host"
+    (the native engine, u32 or u64 keys, registry functors) or "auto"
+    (the host engine below :data:`HOST_CROSSOVER_ROWS` build plus probe
+    rows with a registry functor, else the device).
 
     ``mode``: "inner" (default); "left" adds (probe_row, -1) for matchless
     probe rows; "semi" the probe rows with a match and "anti" those
@@ -119,7 +136,8 @@ def join(build_keys, probe_keys, how: str = "nested",
     the equality probe's); ``"inchain"`` evaluates it inside the chain
     walk, reference-exact (``ops/predicate.py``, on the host).
 
-    ``device``: "cuda" (default) or "cpu" (the plain versions).
+    ``device``: "cuda" (default) or "cpu" (the plain versions), for the
+    device path.
     """
     if how not in ("nested", "chaining"):
         raise ValueError(f"how must be 'nested' or 'chaining', got {how!r}")
@@ -128,11 +146,10 @@ def join(build_keys, probe_keys, how: str = "nested",
             f"backend must be 'device', 'host' or 'auto', got {backend!r}")
     if mode not in ("inner", "left", "semi", "anti"):
         raise ValueError(f"unknown mode {mode!r}")
-    if backend == "host":
-        raise NotImplementedError(
-            "backend='host' (the native C++ host engine) is not ported: "
-            "ROADMAP slice 5, 'Host engine'; use backend='device'")
-    dev = resolve_device(device)
+    if callable(hashfun) and backend == "host":
+        raise ValueError(
+            "backend='host' supports registry hash functors only "
+            "(callables cannot cross the C ABI); use backend='device'")
 
     bk = np.ascontiguousarray(build_keys)
     pk = np.ascontiguousarray(probe_keys)
@@ -147,13 +164,21 @@ def join(build_keys, probe_keys, how: str = "nested",
                 bk, pk, how, num_buckets, unique, n_keys, mode, hashfun,
                 predicate, probe_payload or {}, build_payload or {})
         return _join_with_predicate(
-            bk, pk, how, num_buckets, unique, n_keys, key_domain, mode,
-            hashfun, predicate, probe_payload or {}, build_payload or {},
-            dev)
+            bk, pk, how, num_buckets, unique, n_keys, key_domain, backend,
+            mode, hashfun, predicate, probe_payload or {},
+            build_payload or {}, device)
 
+    if backend == "auto":
+        small = bk.size + pk.size < HOST_CROSSOVER_ROWS
+        backend = ("host" if small and isinstance(hashfun, str)
+                   and hashfun in HASHFUN_IDS else "device")
     empty = _empty(bk, pk, mode)
     if empty is not None:
         return empty
+    if backend == "host":
+        return _host_join(bk, pk, how, num_buckets, unique, n_keys, mode,
+                          hashfun)
+    dev = resolve_device(device)
     bt, pt = _carriers(bk, pk, dev)
     # counters are bucket-dependent: explicit num_buckets > the n_keys hint
     # > the exact distinct count (counted on the device: a host np.unique
@@ -254,6 +279,24 @@ def _device_join(bk, pk, bt, pt, how, num_buckets, unique, n_keys,
     return _result(out, m, c, total, pre)
 
 
+def _host_join(bk, pk, how, num_buckets, unique, n_keys, mode,
+               hashfun) -> JoinResult:
+    """The host engine's join (``api.py:206-216`` of the JAX package):
+    u32 and u64 keys take the engine's width-matched instantiation; left,
+    semi and anti derive from the inner pairs."""
+    if num_buckets is None:
+        num_buckets = max(1, n_keys if n_keys is not None
+                          else int(np.unique(bk).size))
+    if how == "chaining":
+        prow, brow, m, c = host_chaining_join(bk, pk, num_buckets,
+                                              unique=unique, hashfun=hashfun)
+        total = prow.size
+    else:
+        prow, brow, m, c, total = host_nested_join(bk, pk, num_buckets,
+                                                   hashfun=hashfun)
+    return _derive(mode, pk.shape[0], prow, brow, m, c, total)
+
+
 def _rows_where(hit: np.ndarray) -> np.ndarray:
     return np.nonzero(hit)[0].astype(np.int32)
 
@@ -313,15 +356,15 @@ def _check_keep(keep, shape) -> np.ndarray:
 
 
 def _join_with_predicate(bk, pk, how, num_buckets, unique, n_keys,
-                         key_domain, mode, hashfun, predicate, probe_payload,
-                         build_payload, dev) -> JoinResult:
+                         key_domain, backend, mode, hashfun, predicate,
+                         probe_payload, build_payload, dev) -> JoinResult:
     """Residual predicate, ``predicate_mode="post"``: the equality pairs are
     materialised, the predicate runs once over their columns, and left /
     semi / anti derive from the surviving matches (``concepts.hh:49-56``,
     ``algebra.hh:647-648``)."""
     inner = join(bk, pk, how=how, num_buckets=num_buckets, unique=unique,
-                 n_keys=n_keys, key_domain=key_domain, hashfun=hashfun,
-                 device=dev)
+                 n_keys=n_keys, key_domain=key_domain, backend=backend,
+                 hashfun=hashfun, device=dev)
     pcols = {n: np.asarray(c)[inner.probe_rows]
              for n, c in probe_payload.items()}
     bcols = {n: np.asarray(c)[inner.build_rows]

@@ -8,6 +8,9 @@ Mirrors the reference executable's interface (``main_experiment1.cc:
 
 Runs on the first CUDA GPU unless ``--device cpu`` asks for the CPU (plain
 PyTorch versions of every kernel); ``cuda`` on a host without a GPU fails.
+``--backend host`` runs the join plans on the native C++ host engine
+(``auto``: the plans under the harness's ``HOST_CROSSOVER_ROWS``); the
+default is the device.
 The measurement CSV is column-compatible with the reference binary's.
 """
 
@@ -45,6 +48,11 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="run on the GPU (default) or, with the kernels' "
                     "plain PyTorch versions, on the CPU")
+    ap.add_argument("--backend", default="device",
+                    choices=("device", "host", "auto"),
+                    help="execution backend: the device (default), the "
+                    "native C++ host engine, or auto (small plans to the "
+                    "host engine)")
     ap.add_argument("--print-timers", action="store_true")
     ap.add_argument("--print-relations", action="store_true")
     ap.add_argument("--min-time-ms", type=float, default=300.0,
@@ -65,7 +73,7 @@ def main(argv=None) -> int:
 
     print("Running Experiment 1 with the following config:")
     for k in ("card_R", "card_S", "skew", "param_t", "param_b",
-              "measure_file", "plans", "device"):
+              "measure_file", "plans", "device", "backend"):
         print(f"  --{k.replace('_', '-')} {getattr(args, k)}")
 
     from .models.exp1 import Experiment1
@@ -76,7 +84,7 @@ def main(argv=None) -> int:
         plans=args.plans.split(","),
         min_runtime_s=args.min_time_ms / 1e3, min_repeat=args.min_repeat,
         assert_route=None if args.allow_route >= 2 else args.allow_route,
-        device=args.device)
+        device=args.device, backend=args.backend)
     exp.init()
     if args.print_relations:
         exp.print_relations()

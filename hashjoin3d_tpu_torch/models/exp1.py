@@ -29,6 +29,13 @@ strand and its probe strand with the reference's repetition protocol
 the c_* and ht_* columns are bit-equal to the reference binaries'.  The
 scan plans' rows omit ``reps``, the reference's quirk.
 
+``backend`` (default ``"device"``) picks where the join plans run:
+``"host"`` runs them on the native C++ engine (``hostengine.py``; the same
+counters and ``ht_*`` columns, from ``*_statistics_np``), ``"auto"`` sends
+a plan whose build + probe + output rows fall under
+:attr:`Experiment1.HOST_CROSSOVER_ROWS` there.  The *Sel plans stay on the
+device (the engine has no filtered probe), as in the JAX harness.
+
 Every run names its device; asking for CUDA on a host without it raises.
 """
 
@@ -44,7 +51,8 @@ from ..ops.chaining import (build_chaining_host, can_use_dense_direct,
                             materialize_chaining_join, probe_chaining)
 from ..ops.layout import SIGN, from_numpy_u32, resolve_device, u32_to_i64
 from ..ops.nested import build_nested_host, probe_nested, unnest
-from ..ops.stats import chaining_statistics, nested_statistics
+from ..ops.stats import (chaining_statistics, chaining_statistics_np,
+                         nested_statistics, nested_statistics_np)
 from ..ops.strands_windowed import (_with_route, direct_probe_strand_sorted,
                                     keydirect_chaining_strand_sorted,
                                     keydirect_nested_strand_sorted)
@@ -177,14 +185,33 @@ def _scan_strand(col):
     return (col ^ SIGN).max() ^ SIGN, col.shape[0]
 
 
+#: the join plans' (build side, probe side, output) row volumes, for
+#: ``backend="auto"`` (``models/exp1.py:485`` of the JAX package)
+HOST_VOLUME = {"Csr": ("R", "S", "S"), "CsrUU": ("R", "S", "S"),
+               "Nsr": ("R", "S", "S"), "Crs": ("S", "R", "S"),
+               "Nrs": ("S", "R", "S"), "NrsNU": ("S", "R", None)}
+
+
 class Experiment1:
     """One parameter combination of experiment 1, on ``device``."""
+
+    #: ``backend="auto"``'s crossover: a join plan whose build + probe +
+    #: output rows fall below it runs on the host engine.
+    #: ``chip_smoke.py`` phase 10d on an NVIDIA H100 80GB HBM3 at 700 W
+    #: (Csr and Nrs, ``t_total``): the engine's slower plan took 1.32 ms
+    #: against the device's 3.39 ms at R12/S16 (135,168 rows), and 8.33
+    #: against 3.07 ms at R14/S18 (540,672), the smallest size from which
+    #: the device won at every larger one, in each of three runs.
+    HOST_CROSSOVER_ROWS = 540_672
 
     def __init__(self, log2_card_r: int, log2_card_s: int, skew: bool, t: int,
                  b: int = 1, measure_file=None, plans=("all",),
                  min_runtime_s: float = 0.3, min_repeat: int = 8,
                  trace: bool = True, assert_route: int | None = 0, *,
-                 device):
+                 device, backend: str = "device"):
+        if backend not in ("device", "host", "auto"):
+            raise ValueError(f"backend must be 'device', 'host' or 'auto', "
+                             f"got {backend!r}")
         if not 0 <= t <= log2_card_r:
             raise ValueError("need 0 <= t <= log2_card_r")
         self.plans = resolve_plan_items(plans, PLAN_NAMES, PLAN_BITS,
@@ -199,10 +226,13 @@ class Experiment1:
         self.min_repeat = min_repeat
         self.trace = trace
         self.assert_route = assert_route
+        self.backend = backend
         self.csv = CSVWriter(measure_file)
         self.timers = Timers()
         self.num_dv_sa = None
         self.rk = self.sa = None
+        #: the host columns (u32 numpy) the host engine's plans read
+        self.rk_np = self.sa_np = None
         self.dense_direct_r = False
         #: plan -> (table, probe strand output) of the last timed run
         self.results = {}
@@ -228,6 +258,7 @@ class Experiment1:
         # R.k is a permutation by construction (main_experiment1.cc:425-428)
         self.dense_direct_r = can_use_dense_direct(
             rk, max(self.card_r // self.b, 1))
+        self.rk_np, self.sa_np = rk, sa
         self.rk = from_numpy_u32(rk, self.device)
         self.sa = from_numpy_u32(sa, self.device)
         sync(self.device)
@@ -350,8 +381,88 @@ class Experiment1:
             self._run_scan_plan("scr", self.rk)
         elif name == "scs":
             self._run_scan_plan("scs", self.sa)
+        elif self._backend_for_plan(name) == "host":
+            self._run_join_plan_host(name)
         else:
             self._run_join_plan(name, self.join_plan(name))
+
+    def _backend_for_plan(self, name: str) -> str:
+        """Where a join plan runs: the *Sel plans on the device, the rest
+        on ``backend``, ``"auto"`` by the plan's row volume."""
+        if name not in HOST_VOLUME or self.backend == "device":
+            return "device"
+        if self.backend == "host":
+            return "host"
+        card = {"R": self.card_r, "S": self.card_s, None: 0}
+        vol = sum(card[side] for side in HOST_VOLUME[name])
+        return "host" if vol < self.HOST_CROSSOVER_ROWS else "device"
+
+    def _run_join_plan_host(self, name: str):
+        """One join plan on the native host engine, the reference's
+        protocol around its build and probe, one CSV row of the device
+        rows' shape (``models/exp1.py:267-339`` of the JAX package)."""
+        from ..hostengine import HostTable
+
+        self.timers.start(f"run{name}")
+        build_rel = HOST_VOLUME[name][0]
+        bk, pk = ((self.rk_np, self.sa_np) if build_rel == "R"
+                  else (self.sa_np, self.rk_np))
+        nb = (max(self.card_r // self.b, 1) if build_rel == "R"
+              else max(self.num_dv_sa // self.b, 1))
+        impl = "nested" if name.startswith("N") else "chaining"
+        unnest = name != "NrsNU"
+        out_cap = max(self.card_s, 1)
+        durs = dict(build=0.0, probe=0.0, last_probe=0.0)
+
+        def once():
+            t0 = time.perf_counter()
+            table = HostTable(bk, nb, kind=impl)
+            t1 = time.perf_counter()
+            if impl == "nested":
+                out = table.probe(pk, unnest=unnest, out_cap=out_cap)
+            else:
+                out = table.probe(pk, unique=name == "Csr", out_cap=out_cap)
+            t2 = time.perf_counter()
+            table.close()
+            durs["build"] += t1 - t0
+            durs["probe"] += t2 - t1
+            durs["last_probe"] = t2 - t1
+            return out
+
+        once()  # warm the allocator and the page cache, untimed
+        durs.update(build=0.0, probe=0.0)
+        _, reps, out = repeat_mintime(self.min_runtime_s, once,
+                                      torch.device("cpu"), self.min_repeat)
+        stats = (nested_statistics_np if impl == "nested"
+                 else chaining_statistics_np)(bk, nb)
+        if self.trace:
+            print(f"Plan {name} [host]")
+            print(f"  reps {reps}, build {durs['build'] / reps * 1e3:.3f} "
+                  f"ms, probe {durs['probe'] / reps * 1e3:.3f} ms")
+        if impl == "nested":
+            matches, cmps, unnested = out[2:]
+            c_top = unnested if unnest else matches
+            c_unnest = unnested if unnest else "NA"
+        else:
+            matches, cmps = out[2:]
+            c_top, c_unnest = matches, "NA"
+        self.results[name] = (None, out)
+        row = [
+            name, impl, build_rel, HOST_VOLUME[name][1],
+            *stats.to_csv_fields(),
+            reps,
+            int((durs["build"] + durs["probe"]) / reps * 1e9),
+            int(durs["build"] / reps * 1e9),
+            int(durs["probe"] / reps * 1e9),
+            int(durs["last_probe"] * 1e9),
+            len(bk), "NA", len(bk),
+            len(pk), "NA",
+            int(matches), int(cmps), c_unnest, int(c_top),
+        ]
+        self._write_params()
+        self.csv.write_fields(*row).newline()
+        self.timers.stop(f"run{name}")
+        return out
 
     def join_plan(self, name: str) -> JoinPlan:
         """A join plan's inputs and strands on this experiment's device, as

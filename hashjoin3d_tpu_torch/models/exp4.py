@@ -27,12 +27,19 @@ reference's repetition protocol (>= 300 ms, >= 8 reps, synchronised) and
 writes one CSV row with the reference's header; the c_* columns are
 bit-equal to the reference binaries'.
 
+``backend`` (default ``"device"``) picks where Ndu and Chj run:
+``"host"`` on the native C++ engine (``hostengine.host_two_join_probe``;
+the same counters), ``"auto"`` there when |R| + |S| + |T| + the result
+fall under :attr:`Experiment4.HOST_CROSSOVER_ROWS`.  Nnu stays on the
+device (the engine has no nested top), as in the JAX harness.
+
 Every run names its device; asking for CUDA on a host without it raises.
 """
 
 from __future__ import annotations
 
 import sys
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -168,11 +175,25 @@ class Cardinalities(NamedTuple):
 class Experiment4:
     """One parameter combination of experiment 4, on ``device``."""
 
+    #: ``backend="auto"``'s crossover: a plan whose |R| + |S| + |T| + result
+    #: rows fall below it runs on the host engine.  ``chip_smoke.py`` phase
+    #: 10d on an NVIDIA H100 80GB HBM3 at 700 W (Ndu and Chj at -a 4 -A 4
+    #: -b 2 -B 2, ``t_total``): the engine's slower plan took 6.00 ms
+    #: against the device's 12.83 ms at R16 (229,376 rows), and 26.58
+    #: against 19.70 ms at R18 (917,504), the largest size measured; three
+    #: runs agree.
+    HOST_CROSSOVER_ROWS = 917_504
+
     def __init__(self, log2_card_r: int, alpha: int, mult_alpha: int,
                  beta: int, mult_beta: int, measure_file=None,
                  plans=("all",), min_runtime_s: float = 0.3,
                  min_repeat: int = 8, trace: bool = True,
-                 assert_route: int | None = 0, *, device):
+                 assert_route: int | None = 0, *, device,
+                 backend: str = "device"):
+        if backend not in ("device", "host", "auto"):
+            raise ValueError(f"backend must be 'device', 'host' or 'auto', "
+                             f"got {backend!r}")
+        self.backend = backend
         self.log2_card_r = log2_card_r
         self.alpha, self.beta = alpha, beta
         self.mult_alpha, self.mult_beta = mult_alpha, mult_beta
@@ -187,6 +208,8 @@ class Experiment4:
         self.card = Cardinalities.of(log2_card_r, alpha, mult_alpha, beta,
                                      mult_beta)
         self.rk = self.sa = self.ta = None
+        #: the host FK columns (u32 numpy) the host engine's plans read
+        self.sa_np = self.ta_np = None
         #: plan -> (S table, T table, probe strand output) of the last run
         self.results = {}
 
@@ -233,6 +256,7 @@ class Experiment4:
         self.timers.start("init")
         sa, ta = exp4_data(self.log2_card_r, self.alpha, self.mult_alpha,
                            self.beta, self.mult_beta, shuffle)
+        self.sa_np, self.ta_np = sa, ta
         self.rk = torch.arange(self.card_r, dtype=I32, device=self.device)
         self.sa = from_numpy_u32(sa, self.device)
         self.ta = from_numpy_u32(ta, self.device)
@@ -329,9 +353,76 @@ class Experiment4:
                                      max(self.calc_join_card1(), 1), card2)
         raise ValueError(f"unknown plan {name!r}")
 
+    def _backend_for_plan(self, name: str) -> str:
+        """Where a plan runs: Nnu on the device, the rest on ``backend``,
+        ``"auto"`` by the configuration's row volume."""
+        if name == "Nnu" or self.backend == "device":
+            return "device"
+        if self.backend == "host":
+            return "host"
+        vol = (self.card_r + self.card_s + self.card_t
+               + self.calc_join_card2())
+        return "host" if vol < self.HOST_CROSSOVER_ROWS else "device"
+
+    def _run_plan_host(self, name: str) -> dict:
+        """Ndu or Chj on the native host engine: the S build, the T build
+        and the probe under the reference's protocol, one CSV row of the
+        device rows' shape (``models/exp4.py:302-360`` of the JAX
+        package)."""
+        from ..hostengine import HostTable, host_two_join_probe
+
+        self.timers.start(f"run{name}")
+        kind = "nested" if name == "Ndu" else "chaining"
+        num_dv_fk = self.num_fk_common + self.num_fk_exclusive
+        rk = np.arange(self.card_r, dtype=np.uint32)
+        out_cap = max(self.calc_join_card2(), 1)
+        durs = dict(bs=0.0, bt=0.0, probe=0.0)
+
+        def once():
+            t0 = time.perf_counter()
+            tbl_s = HostTable(self.sa_np, num_dv_fk, kind=kind)
+            t1 = time.perf_counter()
+            tbl_t = HostTable(self.ta_np, num_dv_fk, kind=kind)
+            t2 = time.perf_counter()
+            out = host_two_join_probe(tbl_s, tbl_t, rk, out_cap)
+            t3 = time.perf_counter()
+            tbl_s.close()
+            tbl_t.close()
+            durs["bs"] += t1 - t0
+            durs["bt"] += t2 - t1
+            durs["probe"] += t3 - t2
+            return out
+
+        once()  # warm the allocator and the page cache, untimed
+        durs.update(bs=0.0, bt=0.0, probe=0.0)
+        _, reps, out = repeat_mintime(self.min_runtime_s, once,
+                                      torch.device("cpu"), self.min_repeat)
+        if self.trace:
+            print(f"Plan {name} [host]: reps {reps}, probe "
+                  f"{durs['probe'] / reps * 1e3:.3f} ms, c_top "
+                  f"{out['c_top']}")
+        self.results[name] = (None, None, out)
+        self._write_params()
+        self.csv.write_fields(
+            name, kind, reps,
+            int(sum(durs.values()) / reps * 1e9),
+            int(durs["bs"] / reps * 1e9), int(durs["bt"] / reps * 1e9),
+            int(durs["probe"] / reps * 1e9),
+            self.card_r, self.card_s, self.card_t,
+            self.card_s, self.card_t,
+            out["c_probe_RS"], out["c_probe_RS_cmp"],
+            out["c_probe_RT"], out["c_probe_RT_cmp"],
+            out.get("c_unnest_1", "NA"), out.get("c_unnest_2", "NA"),
+            out["c_top"],
+        ).newline()
+        self.timers.stop(f"run{name}")
+        return out
+
     def run_plan(self, name: str) -> dict:
         """Warm up, time the S build, the T build and the probe strand,
         write the plan's CSV row (``main_experiment4.cc:832-1043``)."""
+        if self._backend_for_plan(name) == "host":
+            return self._run_plan_host(name)
         self.timers.start(f"run{name}")
         ws, wt = self.build(name, self.sa), self.build(name, self.ta)
         self.probe(name, ws, wt, self.rk)  # warm-up, untimed

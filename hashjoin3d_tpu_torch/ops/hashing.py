@@ -3,7 +3,9 @@
 Port of ``hashjoin3d_tpu/ops/hashing.py`` (``murmur32``, ``murmur64``,
 boncz, Fibonacci, Knuth-multiplicative and identity in their u32 and u64
 flavours, ``hash_key``, ``hash_key_np``, ``bucket_of`` and the two
-registries; reference ``util/hasht.hh:17-113``, ``ht_chaining.hh:139-140``).
+registries; the parametric ``fibhash*`` (into ``[0, n)``) and
+``multiplicative*`` functors, ``larson_np`` and the software CRC32-C
+family; reference ``util/hasht.hh:17-262``, ``ht_chaining.hh:139-140``).
 
 A u32 column rides as the int32 tensor with the same bits and a u64 column
 as the int64 tensor with the same bits (``ops/layout.py``).  The 32-bit
@@ -194,6 +196,153 @@ def identity32_np(x) -> np.ndarray:
 
 def identity64_np(x) -> np.ndarray:
     return np.asarray(x, np.uint64)
+
+
+
+# -- parametric functors (util/hasht.hh:19-98) --------------------------------
+
+def fibhash32(x: torch.Tensor, n) -> torch.Tensor:
+    """32-bit Fibonacci hash of an int32 carrier into ``[0, n)``, in double
+    precision like the reference (``util/hasht.hh:31-39``); u32 carrier
+    out."""
+    z = _FIB32 * u32_to_i64(x).to(torch.float64)
+    return i64_to_u32(torch.floor(n * (z - torch.floor(z))).to(I64))
+
+
+def fibhash64(x: torch.Tensor, n) -> torch.Tensor:
+    """64-bit Fibonacci hash of an int64 carrier into ``[0, n)``
+    (``util/hasht.hh:40-47``); u64 carrier out."""
+    z = _FIB64 * u64_to_f64(x)
+    return f64_to_u64(torch.floor(n * (z - torch.floor(z))))
+
+
+def fibhash32_np(x, n) -> np.ndarray:
+    """Numpy mirror of :func:`fibhash32` on u32 values."""
+    z = _FIB32 * np.asarray(x, np.uint32).astype(np.float64)
+    return np.floor(n * (z - np.floor(z))).astype(np.uint32)
+
+
+def fibhash16_np(x, n) -> np.ndarray:
+    """16-bit Fibonacci hash into ``[0, n)`` (``util/hasht.hh:22-30``)."""
+    z = (40503.0 / float(1 << 16)) * np.asarray(x, np.uint16).astype(
+        np.float64)
+    return np.floor(n * (z - np.floor(z))).astype(np.uint16)
+
+
+def fibhash64_np(x, n) -> np.ndarray:
+    """Numpy mirror of :func:`fibhash64` on u64 values (``n`` below 2^64;
+    the full width is the registry's :func:`fib64_np`)."""
+    z = _FIB64 * np.asarray(x, np.uint64).astype(np.float64)
+    return np.floor(n * (z - np.floor(z))).astype(np.uint64)
+
+
+def larson_np(s: bytes, salt: int = 0) -> int:
+    """Larson's string hash (``util/hasht.hh:75-86``)."""
+    h = np.uint32(salt)
+    with np.errstate(over="ignore"):
+        for ch in s:
+            h = h * np.uint32(101) + np.uint32(ch)
+    return int(h)
+
+
+def multiplicative32(x: torch.Tensor, a: int, b: int) -> torch.Tensor:
+    """``a * x + b`` mod 2^32 over an int32 carrier
+    (``util/hasht.hh:89-93``)."""
+    y = _mul_u32(u32_to_i64(x), a & U32_MASK) + (b & U32_MASK)
+    return i64_to_u32(y)
+
+
+def multiplicative32_np(x, a: int, b: int) -> np.ndarray:
+    x = np.asarray(x, np.uint32)
+    with np.errstate(over="ignore"):
+        return np.uint32(a) * x + np.uint32(b)
+
+
+def multiplicative64(x: torch.Tensor, a: int, b: int) -> torch.Tensor:
+    """``a * x + b`` mod 2^64 over an int64 carrier
+    (``util/hasht.hh:94-98``): int64 arithmetic wraps as u64 does."""
+    return x * _i64(a % (1 << 64)) + _i64(b % (1 << 64))
+
+
+def multiplicative64_np(x, a: int, b: int) -> np.ndarray:
+    x = np.asarray(x, np.uint64)
+    with np.errstate(over="ignore"):
+        return np.uint64(a) * x + np.uint64(b)
+
+
+# -- CRC32-C (Castagnoli), software table implementation -----------------------
+# The reference's HashCrc32 family wraps SSE4.2 _mm_crc32_u32/_u64
+# (util/hasht.hh:115-262); these are the host mirrors.
+
+_CRC32C_POLY = 0x82F63B78
+
+
+def _crc32c_table_build() -> np.ndarray:
+    t = np.zeros(256, np.uint32)
+    for i in range(256):
+        c = i
+        for _ in range(8):
+            c = (c >> 1) ^ (_CRC32C_POLY if c & 1 else 0)
+        t[i] = c
+    return t
+
+
+_CRC32C_TABLE = _crc32c_table_build()
+
+
+def crc32c_u32_np(x, seed=0xFFFFFFFF) -> np.ndarray:
+    """CRC32-C of each u32 value (4 bytes, little-endian), as
+    ``_mm_crc32_u32(seed, x)`` (no final xor)."""
+    t = _CRC32C_TABLE
+    x = np.asarray(x, np.uint32)
+    crc = np.full(x.shape, np.uint32(seed & 0xFFFFFFFF), np.uint32)
+    for shift in (0, 8, 16, 24):
+        byte = (x >> np.uint32(shift)) & np.uint32(0xFF)
+        crc = (crc >> np.uint32(8)) ^ t[(crc ^ byte) & np.uint32(0xFF)]
+    return crc
+
+
+def crc32c_u64_np(x, seed=0xFFFFFFFF) -> np.ndarray:
+    """CRC32-C of each u64 value (8 bytes), as ``_mm_crc32_u64``: the low
+    32 bits of ``seed`` take part, the 32-bit CRC comes back zero-extended
+    (``util/hasht.hh:126-131``)."""
+    t = _CRC32C_TABLE
+    x = np.asarray(x, np.uint64)
+    crc = np.full(x.shape, np.uint32(seed & 0xFFFFFFFF), np.uint32)
+    for shift in range(0, 64, 8):
+        byte = ((x >> np.uint64(shift)) & np.uint64(0xFF)).astype(np.uint32)
+        crc = (crc >> np.uint32(8)) ^ t[(crc ^ byte) & np.uint32(0xFF)]
+    return crc.astype(np.uint64)
+
+
+#: the reference functors' seeds (util/hasht.hh:195-262)
+CRC_SEED_INITIAL = 0x6CA55437AE08FE14
+CRC_SEED_1 = 0x832CA348C6F5DAE9
+CRC_SEED_2 = 0x53C5A37A580308E3
+
+
+def hash_crc32_np(x, seed=CRC_SEED_INITIAL) -> np.ndarray:
+    """``HashCrc32<u32>::operator()`` (util/hasht.hh:202-225)."""
+    return crc32c_u32_np(x, seed)
+
+
+def hash_crc64_np(x) -> np.ndarray:
+    """``HashCrc64::hash`` (util/hasht.hh:227-244): two u64 CRCs in one
+    word."""
+    return (crc32c_u64_np(x, CRC_SEED_1)
+            ^ (crc32c_u64_np(x, CRC_SEED_2) << np.uint64(32)))
+
+
+def hash_crc32x2_np(x, mod=None) -> np.ndarray:
+    """``HashCrc32x2<u32>::operator()`` (util/hasht.hh:246-262): the
+    first-seed CRC, or with ``mod`` ``((crc1 << 32) | crc2) % mod`` as
+    u32."""
+    c1 = crc32c_u32_np(x, CRC_SEED_1)
+    if mod is None:
+        return c1
+    c2 = crc32c_u32_np(x, CRC_SEED_2)
+    h = (c1.astype(np.uint64) << np.uint64(32)) | c2.astype(np.uint64)
+    return (h % np.uint64(mod)).astype(np.uint32)
 
 
 #: name -> (u32 flavour, u64 flavour), each carrier in, same-width carrier

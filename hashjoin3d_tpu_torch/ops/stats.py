@@ -2,7 +2,8 @@
 
 Port of ``hashjoin3d_tpu/ops/stats.py`` (``HtStatistics``,
 ``chaining_statistics``, ``nested_statistics``, ``HtBucketStatistics``,
-``bucket_statistics_chaining``, ``bucket_statistics_nested``; reference
+``bucket_statistics_chaining``, ``bucket_statistics_nested`` and the host
+engine's twins ``chaining_statistics_np`` / ``nested_statistics_np``; reference
 ``ht_statistics.{hh,cc}``, ``ht_chaining.hh:260-292``,
 ``ht_nested.hh:450-482``).  Computed after the measurement from the
 table's bucket histogram, as the reference computes them after its loop.
@@ -22,7 +23,7 @@ import torch
 
 from ..utils.aggregate import Aggregate
 from .chaining import ChainingTable
-from .hashing import murmur32
+from .hashing import murmur32, murmur32_np
 from .layout import u32_to_i64
 from .nested import NestedTable
 
@@ -115,3 +116,22 @@ def nested_statistics(table: NestedTable) -> HtStatistics:
     bml = table.bucket_main_len.cpu().numpy()
     return _from_chain_lens(bml, table.keys.shape[0],
                             int(table.groups.n_keys))
+
+
+def chaining_statistics_np(build_keys, num_buckets: int) -> HtStatistics:
+    """:func:`chaining_statistics` from the raw build keys, for the host
+    engine's plans, where no device table exists (u32 keys, murmur, as
+    the JAX package's twin)."""
+    bk = np.asarray(build_keys, np.uint32)
+    h = murmur32_np(bk)
+    blen = np.bincount(h % np.uint32(num_buckets), minlength=num_buckets)
+    return _from_chain_lens(blen, bk.size, np.unique(h).size)
+
+
+def nested_statistics_np(build_keys, num_buckets: int) -> HtStatistics:
+    """:func:`nested_statistics` from the raw build keys (host engine)."""
+    bk = np.asarray(build_keys, np.uint32)
+    uk = np.unique(bk)
+    bml = np.bincount(murmur32_np(uk) % np.uint32(num_buckets),
+                      minlength=num_buckets)
+    return _from_chain_lens(bml, bk.size, uk.size)

@@ -1,1 +1,2 @@
-"""Data generation, CSV writer and repetition protocol of the port."""
+"""Data generation, CSV writer, repetition protocol, checkpoints, tracing
+and the small helpers of the port."""

@@ -9,8 +9,8 @@ tolerance is zero): counters (``num_matches``, ``num_cmps``,
   dense-direct plans), dense-domain u32 keys with duplicates (key_direct),
   sparse u32 keys, signed i32 keys with negatives, u64 keys, i64 keys with
   negatives and composite keys (the merged strands);
-* ``backend="host"`` raises, ``"auto"`` runs the device path,
-  ``device="cuda"`` raises on a host without CUDA; the roofline's strand
+* ``backend="host"`` (the native engine) and ``"auto"`` give the same
+  result, ``device="cuda"`` raises on a host without CUDA; the roofline's strand
   rows rehearsed at a small size.
 
 Every kind but the dense-domain one maps one permutation bijectively, so
@@ -77,10 +77,9 @@ def test_join_matches_jax(kind, how, unique):
 
 def test_backends_and_devices():
     bk, pk = columns("u32_dense")
-    with pytest.raises(NotImplementedError, match="host"):
-        thj.join(bk, pk, backend="host", device="cpu")
-    same_result(thj.join(bk, pk, backend="auto", device="cpu"),
-                jhj.join(bk, pk, backend="device"))
+    want = jhj.join(bk, pk, backend="device")
+    same_result(thj.join(bk, pk, backend="host", device="cpu"), want)
+    same_result(thj.join(bk, pk, backend="auto", device="cpu"), want)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             thj.join(bk, pk)
