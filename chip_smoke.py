@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU: exp-1's eleven device
 plans, exp-4's three, ``join``, the one-call API, the algebra, out-of-core
-streaming and the host engine.
+streaming, the host engine and the distributed joins.
 
 Run from the repository root on a machine with one CUDA GPU:
 
@@ -157,9 +157,37 @@ then exp-4 (``main_experiment4 -R 24 -a 4 -A 4 -b 2 -B 2``: |R| 2^24,
    size measured) that set the ``HOST_CROSSOVER_ROWS`` of ``api.py``,
    ``models/exp1.py`` and ``models/exp4.py``.
 
-Phases 9 and 10 alone: a driver in a gitignored directory that imports
-``chip_smoke``, calls ``kernels.lib()`` and then ``phase9(dev, card)`` /
-``phase10(dev, card)``.
+11. ``hashjoin3d_tpu_torch.parallel``, the distributed joins: 11a. on the
+   1-rank NCCL group ``make_mesh`` starts by itself, every entry point at
+   the headline sizes, each call's launch counts from 0 (``dist_launches``
+   in the kernels line) and its wall ms (median of 3):
+   ``dist_nested_join`` (Nrs-shaped: build S.a, probe R.k) and
+   ``dist_chaining_join`` (Crs-shaped, and Csr-shaped with ``unique``:
+   build R.k, probe S.a) on the default, ``key_domain`` + ``n_keys`` and
+   merged (u64 ``k | 0xAB << 40``) routes, whose num_matches and results
+   equal ``e1_t0c.csv``, num_cmps and pairs the single-chip strand's on
+   the same keys; ``dist_nested_join_chunked`` (4 chunks) and
+   ``dist_ring_nested_join`` (both routes), prefetch on and off, and
+   ``dist_nested_join_2d`` on a 1 x 1 mesh, equal to the one-shot call;
+   ``dist_broadcast_join`` (both tables) and ``dist_hybrid_nested_join``
+   (``detect_skew``'s ``top_keys``) on the ``--skew -t 0`` columns,
+   equal to ``e1_zipf.csv``; ``dist_filter_join_aggregate`` equal to
+   numpy; ``dist_deferred_two_join`` at exp-4's R20 equal to
+   ``e4_20.csv``'s Ndu row.  K3 must launch in every call, K2 in every
+   ``key_domain`` and merged one.  11b. ``tools/dist_overhead.py`` at
+   its defaults (2^22 rows a side): the 1-rank routes' ms against the
+   single-chip fast path's, and their ratios.  11c. If this machine's
+   gloo takes CUDA tensors for ``all_to_all_single``,
+   ``all_gather_into_tensor`` and int64 ``all_reduce``: 4 gloo ranks
+   sharing the card run the flat joins, chaining, the ring, the 2 x 2
+   hierarchy and the hybrid join at R18/S22; matches, results, overflow
+   and pairs equal the 1-rank NCCL run of the same columns, num_cmps the
+   single-chip engine's on each shard's arrival-order table.  Otherwise
+   11c prints what gloo refused and is left out.
+
+Phases 9, 10 and 11 alone: a script in a gitignored directory that
+imports ``chip_smoke``, calls ``kernels.lib()`` and then ``phase9(dev,
+card)`` / ``phase10(dev, card)`` / ``phase11(dev, card)``.
 
 Prints one JSON line of per-kernel results, then, last,
 ``{"ok": true, "device": {...}}``.  ``launches`` there is the main path's
@@ -168,7 +196,7 @@ runs under "Nrs t=4" and the like, phase 6's under "Ndu R24" and the
 like, the sorted-route call under "Crs sorted route"; ``join_launches``
 each phase 7 call's (its first call, from 0), ``algebra_launches`` each
 phase 8 plan's (where the kernel launched), ``stream_launches`` each
-phase 9 stream's;
+phase 9 stream's, ``dist_launches`` each phase 11a call's;
 ``miss_probe_launches`` is phase 3's, ``probe_tool_launches`` phase 5's
 probe runner's (its check and timed launches) and ``tool_launches`` phase
 5's roofline and csrprof path's.
@@ -2268,6 +2296,627 @@ def phase10(dev, card) -> dict:
     return cross
 
 
+#: phase 11's 1-rank calls: (shape, entry point, build column, probe
+#: column, buckets key, csv plan, total counter, extra options); the
+#: columns are exp-1's R20/S24 t=0 R.k ("R") and S.a ("S")
+DIST_SHAPES = {
+    "Nrs": ("dist_nested_join", "S", "R", "ndv", "Nrs", "num_unnested",
+            "c_unnest", {}),
+    "Crs": ("dist_chaining_join", "S", "R", "ndv", "Crs", "num_results",
+            "c_htProbe", {"unique": False}),
+    "Csr": ("dist_chaining_join", "R", "S", "card_r", "Csr", "num_results",
+            "c_htProbe", {"unique": True}),
+}
+DIST_ROUTES = ("default", "key_domain", "merged")
+#: phase 11c: the ranks sharing the card, and the columns' size (R18/S22)
+DIST_RANKS = 4
+DIST_C_LOG2_R, DIST_C_LOG2_S = 18, 22
+
+
+def dist_pairs_key(out: dict) -> torch.Tensor:
+    """A distributed step's valid (probe_row, build_row) pairs as one
+    sorted int64 column (``pairs_multiset_key``'s packing)."""
+    v = out["out_valid"]
+    return torch.sort(out["probe_row"][v].to(torch.int64) * (1 << 32)
+                      + out["build_row"][v].to(torch.int64)).values
+
+
+def timed_dist(label, fn, launches):
+    """One distributed step with the launch counts from 0
+    (``launches[label]``), then the median wall ms of three more."""
+    from hashjoin3d_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    launches[label] = dict(kernels.LAUNCHES)
+    return out, wall_ms(fn)
+
+
+def dist_line(label, out, ms, launches, card) -> str:
+    counters = {k: int(v) for k, v in out.items()
+                if isinstance(v, torch.Tensor) and v.dim() == 0}
+    return (f"phase 11a {label} on {card}: {ms:.3f} ms (median of 3), "
+            f"{json.dumps(counters)}, launches "
+            f"{json.dumps(launched(launches[label]))}")
+
+
+def single_chip_refs(cols, ndv, card_r) -> dict:
+    """The single-chip strands of each shape on u32 and u64 keys:
+    ``{(shape, wide): (counters, pairs key)}``."""
+    from hashjoin3d_tpu_torch.ops.chaining import build_chaining_host
+    from hashjoin3d_tpu_torch.ops.nested import build_nested_host
+    from hashjoin3d_tpu_torch.ops import strands_windowed as tw
+
+    dom = 1 << LOG2_R
+    refs = {}
+    for wide in (False, True):
+        R, S = cols[("R", wide)], cols[("S", wide)]
+        if wide:
+            nrs = tw.merged_nested_strand_sorted(
+                build_nested_host(S, ndv, n_keys=ndv), R, 1 << LOG2_S)
+            crs = tw.merged_chaining_strand_sorted(
+                build_chaining_host(S, ndv, n_keys=ndv,
+                                    early_exit_index=False), R, 1 << LOG2_S)
+            csr = tw.merged_chaining_strand_sorted(
+                build_chaining_host(R, card_r, n_keys=card_r), S,
+                1 << LOG2_S, unique=True)
+        else:
+            nrs = tw.keydirect_nested_strand_sorted(
+                build_nested_host(S, ndv, n_keys=ndv, key_domain=dom), R,
+                1 << LOG2_S)
+            crs = tw.keydirect_chaining_strand_sorted(
+                build_chaining_host(S, ndv, n_keys=ndv, key_domain=dom,
+                                    early_exit_index=False), R, 1 << LOG2_S)
+            csr = tw.direct_probe_strand_sorted(
+                build_chaining_host(R, card_r, dense_direct=True,
+                                    n_keys=card_r), S, unique=True)
+        for shape, out in (("Nrs", nrs), ("Crs", crs), ("Csr", csr)):
+            refs[(shape, wide)] = (
+                {k: int(out[k]) for k in ("c_htProbe", "c_htProbeCmp",
+                                          "total")},
+                pairs_multiset_key(out))
+    for shape in DIST_SHAPES:
+        require(torch.equal(refs[(shape, False)][1], refs[(shape, True)][1]),
+                f"phase 11a: the single-chip {shape} strands' pairs differ "
+                "between u32 and u64 keys")
+    return refs
+
+
+def phase11a_joins(dev, card, mesh, launches) -> dict:
+    """dist_nested_join / dist_chaining_join on the 1-rank mesh: the
+    Nrs-, Crs- and Csr-shaped calls on the default, key_domain + n_keys
+    and merged (u64) routes; their counters equal ``e1_t0c.csv`` and the
+    single-chip strand's ``num_cmps``, their pairs the single-chip
+    strand's.  Returns the one-shot Nrs calls' outputs the later calls
+    are held to."""
+    from hashjoin3d_tpu_torch import parallel
+    from hashjoin3d_tpu_torch.ops.layout import key_column
+    from hashjoin3d_tpu_torch.utils.gen import exp1_data
+
+    rk_np, sa_np, ndv = exp1_data(LOG2_R, LOG2_S, False, 0)
+    tag = np.uint64(0xAB) << np.uint64(40)
+    cols = {}
+    for name, a in (("R", rk_np), ("S", sa_np)):
+        cols[(name, False)] = key_column(a, dev)
+        cols[(name, True)] = key_column(a.astype(np.uint64) | tag, dev)
+    card_r = rk_np.size
+    e1 = csv_counters(REFERENCE_CSV, 9)
+    refs = single_chip_refs(cols, ndv, card_r)
+    for (shape, wide), (c, _) in refs.items():
+        if not wide:
+            want = e1[shape]
+            require(c["c_htProbe"] == int(want["c_htProbe"])
+                    and c["c_htProbeCmp"] == int(want["c_htProbeCmp"]),
+                    f"phase 11a: the single-chip {shape} strand differs "
+                    f"from e1_t0c.csv: {c}")
+    nbs = dict(ndv=ndv, card_r=card_r)
+    keep = {}
+    for shape, (entry, b, p, nbk, plan, total_key, csv_total,
+                opts) in DIST_SHAPES.items():
+        for route in DIST_ROUTES:
+            wide = route == "merged"
+            bk, pk = cols[(b, wide)], cols[(p, wide)]
+            kw = dict(opts)
+            if route == "key_domain":
+                kw.update(key_domain=1 << LOG2_R, n_keys=nbs[nbk])
+            step = getattr(parallel, entry)(
+                mesh, nbs[nbk], bk.shape[0], pk.shape[0], 1 << LOG2_S, **kw)
+            label = f"{shape} {route}"
+            out, ms = timed_dist(label, lambda: step(bk, pk), launches)
+            print(dist_line(label, out, ms, launches, card))
+            want, ref_key = refs[(shape, wide)]
+            csv_row = e1[plan]
+            got = {k: int(out[k]) for k in ("num_matches", "num_cmps",
+                                            total_key, "overflow")}
+            require(got["overflow"] == 0, f"phase 11a {label}: overflow")
+            require(got["num_matches"] == int(csv_row["c_htProbe"])
+                    and got[total_key] == int(csv_row[csv_total]),
+                    f"phase 11a {label}: {got} against e1_t0c.csv's {plan}")
+            require(got["num_cmps"] == want["c_htProbeCmp"],
+                    f"phase 11a {label}: num_cmps {got['num_cmps']} != the "
+                    f"single-chip strand's {want['c_htProbeCmp']}")
+            require(torch.equal(dist_pairs_key(out), ref_key),
+                    f"phase 11a {label}: pairs differ from the single-chip "
+                    "strand's")
+            if shape == "Nrs" and route != "merged":
+                keep[route] = (got, dist_pairs_key(out))
+            del out
+    return dict(keep=keep, cols=cols, ndv=ndv)
+
+
+def same_dist(label, out, want, total_key="num_unnested"):
+    got = {k: int(out[k]) for k in ("num_matches", "num_cmps", total_key,
+                                    "overflow")}
+    require(got == want[0], f"phase 11a {label}: {got} != {want[0]}")
+    require(torch.equal(dist_pairs_key(out), want[1]),
+            f"phase 11a {label}: pairs differ")
+
+
+def phase11a_schedules(dev, card, mesh, launches, base) -> None:
+    """The chunked (4 chunks) and ring (both routes) schedules, prefetch
+    on and off, and the 1 x 1 hierarchy, against the one-shot Nrs calls."""
+    from hashjoin3d_tpu_torch import parallel
+
+    R, S = base["cols"][("R", False)], base["cols"][("S", False)]
+    ndv, n_s, n_r = base["ndv"], 1 << LOG2_S, 1 << LOG2_R
+    for prefetch in (True, False):
+        step = parallel.dist_nested_join_chunked(
+            mesh, ndv, n_s, n_r // 4, n_s, n_chunks=4,
+            step_out_capacity=n_s // 2, prefetch=prefetch)
+        label = f"Nrs chunked prefetch={prefetch}"
+        out, ms = timed_dist(label, lambda: step(S, R), launches)
+        print(dist_line(label, out, ms, launches, card))
+        same_dist(label, out, base["keep"]["default"])
+        for route in ("default", "key_domain"):
+            kw = ({} if route == "default"
+                  else dict(key_domain=n_r, n_keys=ndv))
+            step = parallel.dist_ring_nested_join(
+                mesh, ndv, n_s, n_s, step_out_capacity=n_s,
+                prefetch=prefetch, **kw)
+            label = f"Nrs ring {route} prefetch={prefetch}"
+            out, ms = timed_dist(label, lambda: step(S, R), launches)
+            print(dist_line(label, out, ms, launches, card))
+            same_dist(label, out, base["keep"][route])
+    mesh2 = parallel.make_mesh_2d(1, 1, device=dev)
+    step = parallel.dist_nested_join_2d(mesh2, ndv, n_s, n_r, n_s)
+    label = "Nrs 2d 1x1"
+    out, ms = timed_dist(label, lambda: step(S, R), launches)
+    print(dist_line(label, out, ms, launches, card))
+    same_dist(label, out, base["keep"]["default"])
+
+
+def phase11a_skew(dev, card, mesh, launches) -> None:
+    """The broadcast joins (both tables) and the hybrid join replicating
+    ``detect_skew``'s ``top_keys``, on exp-1's ``--skew -t 0`` columns:
+    ``e1_zipf.csv``'s Nrs (and, chaining, Crs) counts; the three joins'
+    pairs equal."""
+    from hashjoin3d_tpu_torch import parallel
+    from hashjoin3d_tpu_torch.ops.layout import key_column
+    from hashjoin3d_tpu_torch.utils.gen import exp1_data
+
+    rk_np, sa_np, ndv = exp1_data(LOG2_R, LOG2_S, True, 0)
+    R, S = key_column(rk_np, dev), key_column(sa_np, dev)
+    zipf = csv_counters(MISS_RUNS[1][2], 9)
+    n_s = 1 << LOG2_S
+    keys = {}
+    for nested, plan, total_key in ((True, "Nrs", "num_unnested"),
+                                    (False, "Crs", "num_results")):
+        step = parallel.dist_broadcast_join(mesh, ndv, n_s, nested=nested)
+        label = f"{plan} broadcast zipf"
+        out, ms = timed_dist(label, lambda: step(S, R), launches)
+        print(dist_line(label, out, ms, launches, card))
+        want = zipf[plan]
+        total = int(want["c_unnest" if nested else "c_htProbe"])
+        require((int(out["num_matches"]), int(out["num_cmps"]),
+                 int(out[total_key])) == (int(want["c_htProbe"]),
+                                          int(want["c_htProbeCmp"]), total),
+                f"phase 11a {label}: counters differ from e1_zipf.csv")
+        keys[plan] = dist_pairs_key(out)
+    require(torch.equal(keys["Nrs"], keys["Crs"]),
+            "phase 11a: the two broadcast joins' pairs differ")
+    rep = parallel.detect_skew(sa_np, 1)
+    top = rep["top_keys"]
+    hot_rows = int(np.isin(sa_np, top).sum())
+    step = parallel.dist_hybrid_nested_join(mesh, top, ndv, n_s,
+                                            1 << LOG2_R, hot_rows, n_s)
+    label = "Nrs hybrid zipf"
+    out, ms = timed_dist(label, lambda: step(S, R), launches)
+    print(dist_line(label, out, ms, launches, card)
+          + f", {len(top)} top keys on {hot_rows} build rows")
+    want = zipf["Nrs"]
+    require((int(out["num_matches"]), int(out["num_unnested"]),
+             int(out["overflow"])) == (int(want["c_htProbe"]),
+                                       int(want["c_unnest"]), 0),
+            f"phase 11a {label}: counters differ from e1_zipf.csv")
+    require(torch.equal(dist_pairs_key(out), keys["Nrs"]),
+            f"phase 11a {label}: pairs differ from the broadcast join's")
+
+
+def phase11a_pipeline(dev, card, mesh, launches) -> None:
+    """dist_filter_join_aggregate (build R.k with values, probe S.a under
+    ``payload < 60``) against numpy, and dist_deferred_two_join at exp-4's
+    R20 against ``e4_20.csv``'s Ndu row."""
+    from hashjoin3d_tpu_torch import parallel
+    from hashjoin3d_tpu_torch.models.exp4 import Experiment4
+    from hashjoin3d_tpu_torch.ops.layout import key_column
+    from hashjoin3d_tpu_torch.utils.gen import exp1_data, exp4_data
+
+    rk_np, sa_np, _ = exp1_data(LOG2_R, LOG2_S, False, 0)
+    rng = np.random.default_rng(11)
+    bv_np = rng.integers(0, 50, rk_np.size, dtype=np.int32)
+    pp_np = rng.integers(0, 100, sa_np.size, dtype=np.int32)
+    args = (key_column(rk_np, dev), torch.from_numpy(bv_np).to(dev),
+            key_column(sa_np, dev), torch.from_numpy(pp_np).to(dev))
+    step = parallel.dist_filter_join_aggregate(
+        mesh, rk_np.size, rk_np.size, sa_np.size, sa_np.size,
+        predicate=lambda p: p < 60)
+    label = "filter-join-aggregate"
+    out, ms = timed_dist(label, lambda: step(*args), launches)
+    print(dist_line(label, out, ms, launches, card))
+    keep = pp_np < 60
+    inv = np.empty(rk_np.size, np.int64)
+    inv[rk_np] = np.arange(rk_np.size)
+    count = np.bincount(sa_np[keep], minlength=rk_np.size)
+    val = bv_np[inv].astype(np.int64)
+    live = np.nonzero(count)[0]
+    want = dict(num_filtered=int(keep.sum()), num_joined=int(keep.sum()),
+                sum_v=int((count * val).sum()), n_groups=live.size,
+                overflow=0)
+    got = {k: int(out[k]) for k in want}
+    require(got == want, f"phase 11a {label}: {got} != numpy's {want}")
+    gc = out["group_count"].cpu().numpy()
+    m = gc > 0
+    gk = out["group_keys"].cpu().numpy()[m].astype(np.int64)
+    order = np.argsort(gk)
+    require(np.array_equal(gk[order], live)
+            and np.array_equal(gc[m][order], count[live])
+            and np.array_equal(out["group_sum"].cpu().numpy()[m][order],
+                               count[live] * val[live]),
+            f"phase 11a {label}: per-key aggregates differ from numpy's")
+
+    _, log2_r, e4_csv, _ = EXP4_RUNS[1]
+    exp = Experiment4(log2_r, **EXP4_PARAMS, plans=("Ndu",), device=dev)
+    sa4, ta4 = exp4_data(log2_r, *EXP4_PARAMS.values())
+    r4 = torch.arange(exp.card_r, dtype=torch.int32, device=dev)
+    s4, t4 = key_column(sa4, dev), key_column(ta4, dev)
+    card2 = exp.calc_join_card2()
+    step = parallel.dist_deferred_two_join(
+        mesh, exp.num_fk_common + exp.num_fk_exclusive, sa4.size,
+        exp.card_r, card2, card2)
+    label = f"Ndu deferred two-join R{log2_r}"
+    out, ms = timed_dist(label, lambda: step(r4, s4, t4), launches)
+    print(dist_line(label, out, ms, launches, card))
+    ndu = csv_counters(e4_csv, 10)["Ndu"]
+    want = {k: int(ndu[k]) for k in ("c_probe_RS", "c_probe_RS_cmp",
+                                     "c_probe_RT", "c_probe_RT_cmp",
+                                     "c_top")}
+    want["c_unnest_1"] = int(ndu["c_unnest_S"])
+    got = {k: int(out[k]) for k in want}
+    require(got == want and int(out["overflow"]) == 0,
+            f"phase 11a {label}: {got} != e4_20.csv's Ndu {want}")
+
+
+def phase11b_overhead(dev, card) -> dict:
+    """tools/dist_overhead.py at its defaults: the 1-rank distributed
+    routes against the single-chip fast path."""
+    from hashjoin3d_tpu_torch.tools import dist_overhead
+
+    r = dist_overhead.measure(device=dev)
+    print(f"phase 11b dist_overhead on {card}: rows/side "
+          f"{r['rows_per_side']}, results {r['results']}, ms "
+          + json.dumps({k: round(v, 6) for k, v in r["ms"].items()})
+          + ", ratio to the single-chip fast path "
+          + json.dumps({k: round(v, 4) for k, v in r["ratio"].items()}))
+    return r
+
+
+def _gloo_caps(world: int, dev) -> dict:
+    """Whether this gloo group takes ``dev``'s tensors for the
+    collectives the joins use: True, or the error."""
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    caps = {}
+
+    def check(name, fn):
+        try:
+            ok = fn()
+            caps[name] = True if ok else "wrong values"
+        except Exception as e:  # recorded: phase 11c is left out on any
+            caps[name] = f"{type(e).__name__}: {e}".splitlines()[0]
+
+    def a2a():
+        x = torch.arange(2 * world, dtype=torch.int32, device=dev) + \
+            100 * rank
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x)
+        want = torch.tensor([100 * s + 2 * rank + i for s in range(world)
+                             for i in range(2)], dtype=torch.int32)
+        return torch.equal(out.cpu(), want)
+
+    def a2a_ring():
+        x = torch.full((3,), rank, dtype=torch.int64, device=dev)
+        out = torch.empty_like(x)
+        send, recv = [0] * world, [0] * world
+        send[(rank + 1) % world] = recv[(rank - 1) % world] = 3
+        w = dist.all_to_all_single(out, x, recv, send, async_op=True)
+        w.wait()
+        return bool((out == (rank - 1) % world).all())
+
+    def gather():
+        out = torch.empty(world, dtype=torch.int32, device=dev)
+        dist.all_gather_into_tensor(out, torch.tensor([rank],
+                                                      dtype=torch.int32,
+                                                      device=dev))
+        return out.tolist() == list(range(world))
+
+    def reduce():
+        x = torch.tensor([rank, 1 << 40], dtype=torch.int64, device=dev)
+        dist.all_reduce(x)
+        return x.tolist() == [world * (world - 1) // 2, world << 40]
+
+    for name, fn in (("all_to_all_single", a2a),
+                     ("all_to_all_single uneven async", a2a_ring),
+                     ("all_gather_into_tensor", gather),
+                     ("all_reduce int64", reduce)):
+        check(name, fn)
+    return caps
+
+
+def _calls_11c(ndv, ndv_z, top, hot_cap, r, s):
+    """phase 11c's calls at R``r``/S``s``: (label, entry, options,
+    columns, mesh kind)."""
+    n_s, n_r = (1 << s) // DIST_RANKS, (1 << r) // DIST_RANKS
+    out = 1 << s
+    return (
+        ("nested default", "dist_nested_join",
+         dict(num_buckets_per_shard=ndv, build_capacity=n_s,
+              probe_capacity=n_r, out_capacity=out), "SR", "flat"),
+        ("nested key_domain", "dist_nested_join",
+         dict(num_buckets_per_shard=ndv, build_capacity=n_s,
+              probe_capacity=n_r, out_capacity=out, key_domain=1 << r,
+              n_keys=ndv), "SR", "flat"),
+        ("chaining", "dist_chaining_join",
+         dict(num_buckets_per_shard=ndv, build_capacity=n_s,
+              probe_capacity=n_r, out_capacity=out), "SR", "flat"),
+        ("ring", "dist_ring_nested_join",
+         dict(num_buckets_per_shard=ndv, build_capacity=n_s,
+              out_capacity=out, step_out_capacity=out), "SR", "flat"),
+        ("2d", "dist_nested_join_2d",
+         dict(num_buckets_per_shard=ndv, build_capacity=n_s,
+              probe_capacity=n_r, out_capacity=out), "SR", "2d"),
+        ("hybrid zipf", "dist_hybrid_nested_join",
+         dict(hot_keys=top, num_buckets_per_shard=ndv_z,
+              build_capacity=n_s, probe_capacity=n_r,
+              hot_build_capacity=hot_cap, out_capacity=out), "ZQ", "flat"),
+    )
+
+
+def _rank_11c(rank, world, store, cols, meta, device, outq):
+    """One of phase 11c's ranks: gloo over the shared card (``device``);
+    the collectives' check, then every call on this rank's blocks."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    dev = torch.device(device)
+    try:
+        if dev.type == "cuda":
+            torch.cuda.set_device(0)
+        dist.init_process_group(
+            "gloo", init_method=f"file://{store}", rank=rank,
+            world_size=world, timeout=datetime.timedelta(seconds=300))
+        caps = _gloo_caps(world, dev)
+        outq.put((rank, "caps", caps))
+        if not all(v is True for v in caps.values()):
+            return
+        from hashjoin3d_tpu_torch import parallel
+
+        meshes = {"flat": parallel.make_mesh(device=dev),
+                  "2d": parallel.make_mesh_2d(2, world // 2, device=dev)}
+        res = {}
+        for label, entry, kw, names, kind in _calls_11c(*meta):
+            axis = "x" if kind == "flat" else ("host", "chip")
+            mesh = meshes[kind]
+            local = [parallel.shard_axis(mesh, cols[n], axis) for n in names]
+            out = getattr(parallel, entry)(mesh, **kw)(*local)
+            res[label] = (
+                {k: int(v) for k, v in out.items() if v.dim() == 0},
+                dist_pairs_key(out).cpu().numpy())
+        outq.put((rank, "results", res))
+    except Exception:
+        outq.put((rank, "error", traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _sim_cmps(dev, entry, bk, pk, nb, hot=None) -> int:
+    """``num_cmps`` of a 4-shard run, from the single-chip ops: each
+    shard's table built on its keys in arrival order (the global order
+    filtered by owner), probed by its own keys (the ring: by every key);
+    the hybrid's hot table on the hot rows in global order."""
+    from hashjoin3d_tpu_torch.ops.chaining import (build_chaining,
+                                                   probe_chaining)
+    from hashjoin3d_tpu_torch.ops.hashing import hash_key_np
+    from hashjoin3d_tpu_torch.ops.layout import key_column
+    from hashjoin3d_tpu_torch.ops.nested import build_nested, probe_nested
+
+    def shard(a):
+        return (hash_key_np(hash_key_np(a)) % np.uint32(DIST_RANKS)).astype(
+            np.int64)
+
+    cmps = 0
+    cold_b = np.ones(bk.size, bool)
+    cold_p = np.ones(pk.size, bool)
+    if hot is not None:
+        cold_b, cold_p = ~np.isin(bk, hot), ~np.isin(pk, hot)
+        t = build_nested(key_column(bk[~cold_b], dev), max(len(hot), 1))
+        cmps += int(probe_nested(t, key_column(pk[~cold_p], dev)).num_cmps)
+    sb, sp = shard(bk), shard(pk)
+    for s in range(DIST_RANKS):
+        b = key_column(bk[cold_b & (sb == s)], dev)
+        p = key_column(pk if entry == "dist_ring_nested_join"
+                       else pk[cold_p & (sp == s)], dev)
+        if entry == "dist_chaining_join":
+            t = build_chaining(b, nb, early_exit_index=False)
+            cmps += int(probe_chaining(t, p).num_cmps)
+        else:
+            cmps += int(probe_nested(build_nested(b, nb), p).num_cmps)
+    return cmps
+
+
+def phase11c_ranks(dev, card) -> dict:
+    """Four gloo ranks sharing the card, if gloo takes CUDA tensors: the
+    flat joins (default and key_domain), chaining, the ring, the 2 x 2
+    hierarchy and the hybrid join at R18/S22, each equal to the 1-rank
+    NCCL run of the same columns (matches, results, overflow, pairs as
+    multisets) and ``num_cmps`` to the single-chip engine on each shard's
+    arrival-order table.  Returns ``{"ran": bool, "caps": ...}``."""
+    import queue
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from hashjoin3d_tpu_torch import parallel
+    from hashjoin3d_tpu_torch.ops.layout import key_column
+    from hashjoin3d_tpu_torch.utils.gen import exp1_data
+
+    log2_r, log2_s = DIST_C_LOG2_R, DIST_C_LOG2_S
+    rk, sa, ndv = exp1_data(log2_r, log2_s, False, 0)
+    rkz, saz, ndv_z = exp1_data(log2_r, log2_s, True, 0)
+    top = parallel.detect_skew(saz, DIST_RANKS)["top_keys"].tolist()
+    blocks = np.split(np.isin(saz, top), DIST_RANKS)
+    hot_cap = int(max(b.sum() for b in blocks))
+    cols = dict(S=sa, R=rk, Z=saz, Q=rkz)
+    meta = (ndv, ndv_z, top, hot_cap, log2_r, log2_s)
+
+    # the 1-rank run of the same columns (whole columns, one shard)
+    mesh1 = parallel.make_mesh(device=dev)
+    one = {}
+    for label, entry, kw, names, kind in _calls_11c(*meta):
+        kw = dict(kw)
+        for k in ("build_capacity", "probe_capacity"):
+            if k in kw:
+                kw[k] *= DIST_RANKS
+        if kind == "2d":
+            entry, kind = "dist_nested_join", "flat"
+        if entry == "dist_hybrid_nested_join":
+            kw["hot_build_capacity"] = int(np.isin(saz, top).sum())
+        out = getattr(parallel, entry)(mesh1, **kw)(
+            *(key_column(cols[n], dev) for n in names))
+        one[label] = ({k: int(v) for k, v in out.items() if v.dim() == 0},
+                      dist_pairs_key(out).cpu().numpy())
+
+    ctx = mp.get_context("spawn")
+    outq = ctx.Queue()
+    store = tempfile.mktemp(prefix="hj3_gloo_")
+    procs = [ctx.Process(target=_rank_11c,
+                         args=(rank, DIST_RANKS, store, cols, meta,
+                               dev.type, outq))
+             for rank in range(DIST_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        pending = DIST_RANKS
+        caps = {}
+        while pending:
+            rank, kind, value = outq.get(timeout=600)
+            if kind == "caps":
+                caps[rank] = value
+                if not all(v is True for v in value.values()):
+                    pending -= 1
+            elif kind == "results":
+                got[rank] = value
+                pending -= 1
+            else:
+                raise SmokeFailure(f"phase 11c rank {rank}:\n{value}")
+    except queue.Empty:
+        raise SmokeFailure("phase 11c: a rank gave no answer in 600 s")
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+    bad = {r: {k: v for k, v in c.items() if v is not True}
+           for r, c in caps.items() if not all(v is True
+                                               for v in c.values())}
+    if bad:
+        print(f"phase 11c left out: gloo on this machine does not take "
+              f"{dev.type} tensors for every collective the joins use: "
+              f"{json.dumps(bad)}")
+        return dict(ran=False, caps=caps)
+    for label, entry, _, names, kind in _calls_11c(*meta):
+        counters = got[0][label][0]
+        require(all(got[r][label][0] == counters for r in got),
+                f"phase 11c {label}: counters differ between ranks")
+        total = "num_results" if "num_results" in counters else \
+            "num_unnested"
+        want = one[label][0]
+        for k in ("num_matches", total, "overflow"):
+            require(counters[k] == want[k],
+                    f"phase 11c {label}: {k} {counters[k]} != the 1-rank "
+                    f"NCCL run's {want[k]}")
+        bk = cols[names[0]]
+        pk = cols[names[1]]
+        nb = ndv_z if names == "ZQ" else ndv
+        sim = _sim_cmps(dev, "dist_nested_join" if kind == "2d" else entry,
+                        bk, pk, nb, top if names == "ZQ" else None)
+        require(counters["num_cmps"] == sim,
+                f"phase 11c {label}: num_cmps {counters['num_cmps']} != "
+                f"the shards' single-chip tables' {sim}")
+        keys = np.sort(np.concatenate([got[r][label][1] for r in got]))
+        require(np.array_equal(keys, one[label][1]),
+                f"phase 11c {label}: pairs differ from the 1-rank run's")
+        print(f"phase 11c {label} on {DIST_RANKS} gloo ranks sharing "
+              f"{card}: {json.dumps(counters)} (1-rank run "
+              f"{json.dumps(want)}; num_cmps = the shards' tables')")
+    print(f"phase 11c: {time.perf_counter() - t0:.1f} s for the ranks")
+    return dict(ran=True, caps=caps)
+
+
+def phase11(dev, card) -> dict:
+    """Phase 11: parallel/ on a 1-rank NCCL group (11a), the distributed
+    overhead (11b) and 4 gloo ranks sharing the card (11c); returns each
+    11a call's launch counts, each from 0."""
+    import torch.distributed as dist
+
+    from hashjoin3d_tpu_torch import parallel
+
+    t11 = time.perf_counter()
+    mesh = parallel.make_mesh(device=dev)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    require(dist.get_backend() == backend and dist.get_world_size() == 1,
+            f"phase 11: make_mesh did not start a 1-rank {backend} group")
+    launches = {}
+    base = phase11a_joins(dev, card, mesh, launches)
+    phase11a_schedules(dev, card, mesh, launches, base)
+    del base
+    torch.cuda.empty_cache()
+    phase11a_skew(dev, card, mesh, launches)
+    phase11a_pipeline(dev, card, mesh, launches)
+    for label, counts in launches.items():
+        require(counts["multi_scan"] > 0,
+                f"multi_scan not launched in phase 11a's {label}")
+        if "key_domain" in label or "merged" in label:
+            require(counts["windowed_lookup"] > 0,
+                    f"windowed_lookup not launched in phase 11a's {label}")
+    print(f"phase 11a: {time.perf_counter() - t11:.1f} s")
+    torch.cuda.empty_cache()
+    phase11b_overhead(dev, card)
+    t11c = time.perf_counter()
+    r = phase11c_ranks(dev, card)
+    print(f"phase 11c: {time.perf_counter() - t11c:.1f} s, ran {r['ran']}")
+    dist.destroy_process_group()
+    print(f"phase 11: {time.perf_counter() - t11:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2460,6 +3109,12 @@ def main() -> int:
     phase10(dev, card)
     print(f"smoke so far {time.perf_counter() - t0:.1f} s")
 
+    # phase 11: parallel/, the distributed joins, on a 1-rank NCCL group
+    dist_launches = phase11(dev, card)
+    for label, counts in dist_launches.items():
+        print(f"launches phase 11 {label}: " + json.dumps(launched(counts)))
+    print(f"smoke so far {time.perf_counter() - t0:.1f} s")
+
     entries = [
         dict(name=name, route="cuda", source=src, replaces=rep,
              launches=after2[key],
@@ -2471,6 +3126,7 @@ def main() -> int:
              algebra_launches={p: c[key] for p, c in algebra_launches.items()
                                if c[key]},
              stream_launches={p: c[key] for p, c in stream_launches.items()},
+             dist_launches={p: c[key] for p, c in dist_launches.items()},
              **results[name])
         for name, (src, rep, key) in KERNELS.items()]
     for pid, (_, line, key) in PROBES.items():
@@ -2487,6 +3143,7 @@ def main() -> int:
             algebra_launches={p: c[key] for p, c in algebra_launches.items()
                               if c[key]},
             stream_launches={p: c[key] for p, c in stream_launches.items()},
+            dist_launches={p: c[key] for p, c in dist_launches.items()},
             **probe_results[pid]))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

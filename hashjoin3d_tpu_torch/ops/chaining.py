@@ -4,12 +4,12 @@ Port of ``hashjoin3d_tpu/ops/chaining.py`` (``ChainingTable``,
 ``can_use_dense_direct``, ``build_chaining``, ``build_chaining_host``,
 ``_build_chaining_dense`` with its ``full_chain_index``,
 ``_build_chaining_fused``, ``_build_chaining_phase2``,
-``_assemble_chaining``, ``ChainProbeResult``, ``probe_chaining`` and
-``materialize_chaining_join``).  Semantics of the reference ``HtChaining1``
-(``ht_chaining.hh``): a row's bucket is ``hash(key) % num_buckets``, the
-hash matched to the key width (``murmur32`` / ``murmur64`` by default);
-each bucket's chain is [first-inserted row, then the rest in reverse
-insertion order].
+``_assemble_chaining``, ``shrink_chaining``, ``ChainProbeResult``,
+``probe_chaining`` and ``materialize_chaining_join``).  Semantics of the
+reference ``HtChaining1`` (``ht_chaining.hh``): a row's bucket is
+``hash(key) % num_buckets``, the hash matched to the key width
+(``murmur32`` / ``murmur64`` by default); each bucket's chain is
+[first-inserted row, then the rest in reverse insertion order].
 
 When the build keys are a permutation of [0, n) (exp-1's R.k) the probe
 needs no directory: ``direct[key]`` packs ``row | (chain_pos + 1) <<
@@ -32,18 +32,19 @@ many distinct keys as rows, the histogram comes from the directory
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 
 from .hashing import bucket_of, hash_key, hash_key_np
-from .layout import (I32, I64, GroupIndex, check_carrier,
-                     compact_group_index, emit_pos, empty_group_index, expand,
-                     group_capacity, i64_to_u32, inverse_permute,
-                     key_direct_index, key_direct_lookup, key_group_index,
-                     lookup_auto, run_boundaries, same_key_width,
-                     sort_with_rows, sorted_histogram)
+from .layout import (I32, I64, UKEY_PAD, GroupIndex, check_carrier,
+                     compact_group_index, drop_pad_groups, emit_pos,
+                     empty_group_index, expand, group_capacity, i64_to_u32,
+                     inverse_permute, key_direct_index, key_direct_lookup,
+                     key_group_index, lookup_auto, run_boundaries,
+                     same_key_width, shrink_group_arrays, sort_with_rows,
+                     sorted_histogram)
 
 
 @dataclass(frozen=True)
@@ -265,19 +266,17 @@ def _build_chaining_fused(keys: torch.Tensor, cap: int, num_buckets: int,
                           dense_direct: bool, key_domain: int | None = None,
                           early_exit_index: bool = True,
                           hashfun: str = "murmur", drop_pad_key: bool = False,
-                          rows=None) -> ChainingTable:
+                          rows: torch.Tensor | None = None) -> ChainingTable:
     """The compacted build with a known capacity: phase-1 sort, then
     :func:`_build_chaining_phase2`, with no count read between them.
-    ``drop_pad_key`` and ``rows`` (the distributed builds) are not
-    ported yet."""
-    if drop_pad_key or rows is not None:
-        raise NotImplementedError(
-            "_build_chaining_fused: drop_pad_key / rows (the distributed "
-            "builds) come with ROADMAP slice 6")
+    ``rows`` (a distributed shard's global row ids, one a key) ride the
+    phase-1 sort and become the emitted row ids; ``drop_pad_key`` kills
+    the all-ones key's rows (see :func:`_build_chaining_phase2`)."""
     skey, srow, _ = sort_with_rows(keys)
+    rows_s = None if rows is None else rows.to(I32)[srow.long()]
     return _build_chaining_phase2(keys, skey, srow, cap, num_buckets,
                                   dense_direct, key_domain, early_exit_index,
-                                  hashfun)
+                                  hashfun, drop_pad_key, rows_s)
 
 
 def _build_chaining_phase2(keys: torch.Tensor, skey: torch.Tensor,
@@ -286,7 +285,8 @@ def _build_chaining_phase2(keys: torch.Tensor, skey: torch.Tensor,
                            early_exit_index: bool = True,
                            hashfun: str = "murmur",
                            drop_pad_key: bool = False,
-                           row_values=None) -> ChainingTable:
+                           row_values: torch.Tensor | None = None
+                           ) -> ChainingTable:
     """Directory, bucket histogram and chain-position index from the
     phase-1 sort.
 
@@ -297,16 +297,20 @@ def _build_chaining_phase2(keys: torch.Tensor, skey: torch.Tensor,
     is sorted; the early-exit index then takes each key's first node in
     chain order: the bucket's directory node (position 0) if the key owns
     it, else its last-inserted row (LIFO head insertion).
-    ``drop_pad_key`` and ``row_values`` (the distributed builds) are not
-    ported yet.
+
+    ``drop_pad_key``: rows carrying the all-ones key are dead (a padded
+    exchange receive): their group is zeroed
+    (:func:`~.layout.drop_pad_groups`) and they enter no bucket.
+    ``row_values`` (key-sorted) replaces the emitted ids of
+    ``group_rows`` and ``group_chain_first`` (a shard's global rows);
+    chain order still follows the local arrival positions.
     """
-    if drop_pad_key or row_values is not None:
-        raise NotImplementedError(
-            "_build_chaining_phase2: drop_pad_key / row_values (the "
-            "distributed builds) come with ROADMAP slice 6")
     n = keys.shape[0]
     dev = keys.device
-    groups = compact_group_index(keys, skey, srow, cap)
+    groups = compact_group_index(keys, skey, srow, cap,
+                                 row_values=row_values)
+    if drop_pad_key:
+        groups = drop_pad_groups(groups)
     empty = torch.zeros(0, dtype=I32, device=dev)
 
     if not early_exit_index and 2 * cap <= n:
@@ -334,6 +338,9 @@ def _build_chaining_phase2(keys: torch.Tensor, skey: torch.Tensor,
 
     row = torch.arange(n, dtype=I32, device=dev)
     b = bucket_of(hash_key(keys, hashfun), num_buckets)
+    if drop_pad_key:
+        # dead rows park past the last bucket, where the histogram drops them
+        b = torch.where(keys == UKEY_PAD, num_buckets, b)
     b_sorted, srow_b = torch.sort(b, stable=True)
     is_first_b, _, run_start_b, run_len_b = run_boundaries(b_sorted, n)
     bucket_start, bucket_len = sorted_histogram(b_sorted, num_buckets,
@@ -354,8 +361,15 @@ def _build_chaining_phase2(keys: torch.Tensor, skey: torch.Tensor,
     head = pos_first == 0
     live = groups.group_len > 0
     group_min_pos = torch.where(live, torch.where(head, 0, pos_max), n)
+    if row_values is None:
+        first_emit, max_emit = groups.first_row, max_row
+    else:
+        # the same chosen rows in the emitted (global) coordinates
+        first_emit = row_values[torch.clamp(groups.group_start,
+                                            max=last).long()]
+        max_emit = row_values[gs.long()]
     group_chain_first = torch.where(
-        live, torch.where(head, groups.first_row, max_row), -1)
+        live, torch.where(head, first_emit, max_emit), -1)
     return _assemble_chaining(groups, bucket_start, bucket_len, pos_by_row,
                               group_min_pos.to(I32),
                               group_chain_first.to(I32), keys, num_buckets,
@@ -382,6 +396,20 @@ def _assemble_chaining(groups, bucket_start, bucket_len, pos_by_row,
                          group_min_pos=group_min_pos,
                          group_chain_first=group_chain_first,
                          key_direct=key_direct)
+
+
+def shrink_chaining(table: ChainingTable, cap: int) -> ChainingTable:
+    """Slice the directory (the group-indexed arrays) to ``cap`` entries,
+    once the distinct count is known: probes then search O(n_keys)
+    entries instead of O(n_rows) (:func:`~.layout.shrink_group_arrays`)."""
+    g = table.groups
+    ukey, gs, gl, fr = shrink_group_arrays(
+        (g.ukey, g.group_start, g.group_len, g.first_row), cap)
+    return replace(table,
+                   groups=replace(g, ukey=ukey, group_start=gs,
+                                  group_len=gl, first_row=fr),
+                   group_min_pos=table.group_min_pos[:cap],
+                   group_chain_first=table.group_chain_first[:cap])
 
 
 @dataclass(frozen=True)

@@ -28,7 +28,7 @@ all to one slot, so no two stores meet at one address.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -251,11 +251,15 @@ def group_capacity(n_keys: int, n: int) -> int:
 
 def compact_group_index(keys: torch.Tensor, skey: torch.Tensor,
                         srow: torch.Tensor, cap: int, n_valid=None,
-                        with_gid_by_row: bool = False) -> GroupIndex:
+                        with_gid_by_row: bool = False,
+                        row_values: torch.Tensor | None = None) -> GroupIndex:
     """A :class:`GroupIndex` with ``cap``-sized directory arrays, from the
     phase-1 sort (``skey``, ``srow``).  ``n_valid`` (default: every row)
     counts the live leading sorted rows; the rest join no group, and
-    ``with_gid_by_row`` gives them group -1.
+    ``with_gid_by_row`` gives them group -1.  ``row_values`` (key-sorted,
+    one a row) replaces the emitted ``group_rows``: a distributed shard
+    passes its rows' global ids, so the strands emit global coordinates;
+    ``first_row`` stays the local arrival row (chain order).
 
     The run heads' sorted positions scatter into the directory (group ids
     ascend with the sorted keys), then the key, run length and first row
@@ -313,9 +317,34 @@ def compact_group_index(keys: torch.Tensor, skey: torch.Tensor,
                                                            -1)
         gid_by_row = inverse_permute(srow, live_gid)
     return GroupIndex(ukey=ukey, group_start=group_start,
-                      group_len=group_len, group_rows=srow,
+                      group_len=group_len,
+                      group_rows=srow if row_values is None
+                      else row_values.to(I32),
                       first_row=first_row, gid_by_row=gid_by_row,
                       n_keys=n_keys.to(I32))
+
+
+def drop_pad_groups(groups: GroupIndex) -> GroupIndex:
+    """Kill the group whose key is the all-ones pad value: its
+    ``group_len`` goes to 0 (it enters no bucket, matches no probe,
+    expands to nothing) and ``n_keys`` stops counting it.  A padded
+    exchange receive parks its dead slots on that key
+    (``parallel.shuffle.partition_exchange``), so the unmasked compacted
+    build over it drops them here.  Directory padding already carries the
+    pad key with ``group_len`` 0."""
+    dead = groups.ukey == UKEY_PAD
+    live_sentinel = dead & (groups.group_len > 0)
+    return replace(groups,
+                   group_len=torch.where(dead, 0, groups.group_len),
+                   n_keys=(groups.n_keys
+                           - live_sentinel.sum(dtype=I32)).to(I32))
+
+
+def shrink_group_arrays(arrays: tuple, cap: int) -> tuple:
+    """Slice directory-indexed arrays to ``cap`` entries.  Live groups
+    occupy a prefix (group ids ascend with the sorted keys), so once the
+    distinct count is known the slices are exact."""
+    return tuple(a[:cap] for a in arrays)
 
 
 def _stable_order(key: torch.Tensor, perm: torch.Tensor | None):

@@ -3,7 +3,7 @@
 Port of ``hashjoin3d_tpu/ops/nested.py`` (``NestedTable``,
 ``can_use_dense_direct``, ``build_nested``, ``build_nested_host``,
 ``_build_nested_dense``, ``_build_nested_fused``, ``_build_nested_phase2``,
-``NestedBatch``, ``probe_nested``, ``unnest`` and
+``shrink_nested``, ``NestedBatch``, ``probe_nested``, ``unnest`` and
 ``deferred_two_join_strand``).  Semantics of the
 reference ``HtNested1`` (``ht_nested.hh:71-251``): one MainNode per
 distinct build key, its duplicate rows in a SubNode list.  A probe walks
@@ -28,7 +28,7 @@ with ``expand``.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 
@@ -36,11 +36,11 @@ from .chaining import _check_probe, _clamped, _direct_probe, _nbytes
 from .chaining import can_use_dense_direct as _chaining_dense_ok
 from .hashing import bucket_of, hash_key
 from .layout import (I32, I64, GroupIndex, check_carrier,
-                     compact_group_index, emit_pos, empty_group_index, expand,
-                     group_capacity, i64_to_u32, inverse_permute,
-                     key_direct_index, key_direct_lookup, key_group_index,
-                     lookup_auto, run_boundaries, sort_with_rows,
-                     sorted_histogram)
+                     compact_group_index, drop_pad_groups, emit_pos,
+                     empty_group_index, expand, group_capacity, i64_to_u32,
+                     inverse_permute, key_direct_index, key_direct_lookup,
+                     key_group_index, lookup_auto, run_boundaries,
+                     shrink_group_arrays, sort_with_rows, sorted_histogram)
 
 
 @dataclass(frozen=True)
@@ -195,22 +195,37 @@ def _build_nested_dense(keys: torch.Tensor, num_buckets: int,
 
 def _build_nested_fused(keys: torch.Tensor, cap: int, num_buckets: int,
                         dense_direct: bool, key_domain: int | None = None,
-                        hashfun: str = "murmur") -> NestedTable:
+                        hashfun: str = "murmur", drop_pad_key: bool = False,
+                        rows: torch.Tensor | None = None) -> NestedTable:
     """The compacted build with a known capacity: phase-1 sort, then
-    :func:`_build_nested_phase2`, with no count read between them."""
+    :func:`_build_nested_phase2`, with no count read between them.
+    ``rows`` (a distributed shard's global row ids) ride the phase-1 sort
+    and become ``group_rows``; ``drop_pad_key`` kills the all-ones key's
+    rows."""
     skey, srow, _ = sort_with_rows(keys)
+    rows_s = None if rows is None else rows.to(I32)[srow.long()]
     return _build_nested_phase2(keys, skey, srow, cap, num_buckets,
-                                dense_direct, key_domain, hashfun)
+                                dense_direct, key_domain, hashfun,
+                                drop_pad_key, rows_s)
 
 
 def _build_nested_phase2(keys: torch.Tensor, skey: torch.Tensor,
                          srow: torch.Tensor, cap: int, num_buckets: int,
                          dense_direct: bool, key_domain: int | None = None,
-                         hashfun: str = "murmur") -> NestedTable:
+                         hashfun: str = "murmur", drop_pad_key: bool = False,
+                         row_values: torch.Tensor | None = None
+                         ) -> NestedTable:
     """Directory (``cap`` entries), main chains (:func:`_main_chains`) and
-    indexes from the phase-1 sort."""
+    indexes from the phase-1 sort.  ``drop_pad_key``: rows on the
+    all-ones key are dead (a padded exchange receive), their group
+    zeroed (:func:`~.layout.drop_pad_groups`), so they enter no main
+    chain and match nothing.  ``row_values`` (key-sorted) replaces the
+    emitted ``group_rows``."""
     n = keys.shape[0]
-    groups = compact_group_index(keys, skey, srow, cap)
+    groups = compact_group_index(keys, skey, srow, cap,
+                                 row_values=row_values)
+    if drop_pad_key:
+        groups = drop_pad_groups(groups)
     main_pos_by_group, bucket_main_len = _main_chains(groups, num_buckets,
                                                       hashfun)
 
@@ -229,6 +244,18 @@ def _build_nested_phase2(keys: torch.Tensor, skey: torch.Tensor,
                        num_buckets=num_buckets, direct=direct,
                        direct_shift=direct_shift, key_direct=key_direct,
                        hashfun=hashfun)
+
+
+def shrink_nested(table: NestedTable, cap: int) -> NestedTable:
+    """Slice the main-node directory to ``cap`` entries (see
+    :func:`~.chaining.shrink_chaining`)."""
+    g = table.groups
+    ukey, gs, gl, fr = shrink_group_arrays(
+        (g.ukey, g.group_start, g.group_len, g.first_row), cap)
+    return replace(table,
+                   groups=replace(g, ukey=ukey, group_start=gs,
+                                  group_len=gl, first_row=fr),
+                   main_pos_by_group=table.main_pos_by_group[:cap])
 
 
 @dataclass(frozen=True)

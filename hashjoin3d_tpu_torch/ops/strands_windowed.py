@@ -328,28 +328,39 @@ def _check_device(pk: torch.Tensor, table_col: torch.Tensor) -> None:
                          f"{table_col.device}")
 
 
-def _slice6(strand: str, *what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{strand}: {' / '.join(what)} (the distributed strands) come with "
-        "ROADMAP slice 6")
-
-
-def _probe_order(table, pk, probes_iota, probes_permutation, mask):
+def _probe_order(table, pk, probes_iota, probes_permutation, mask,
+                 presorted=False, srow_values=None, lookup_w=None,
+                 segment=None):
     """The probe side of the key_direct strands: ``(skey, srow, g, live,
-    Wk, seg)``.  ``probes_iota`` (keys exactly [0, P): exp-4's R.k) sorts
-    nothing and emits the probe rows as they are (``srow`` None);
-    ``probes_permutation`` (a permutation of [0, P): exp-1's R.k) needs one
-    inverse permutation; both read the key_direct image as the group
-    stream (``g``).  ``mask`` sorts globally with liveness riding
-    (:func:`_sort_live`); anything else takes :func:`_sort_probes`."""
+    Wk, seg)``.  ``presorted``: the caller sorted ``pk`` already,
+    globally or in blocks (an exchange receive, a circulating ring
+    chunk), with its dead rows (``mask`` False) on the all-ones key;
+    nothing is sorted, ``srow_values`` (default: the positions) are the
+    emitted probe ids, and ``lookup_w`` / ``segment`` are the window and
+    sort segment the caller's sort needs.  ``probes_iota`` (keys exactly
+    [0, P): exp-4's R.k) sorts nothing and emits the probe rows as they
+    are (``srow`` None); ``probes_permutation`` (a permutation of [0, P):
+    exp-1's R.k) needs one inverse permutation; both read the key_direct
+    image as the group stream (``g``).  ``mask`` sorts globally with
+    liveness riding (:func:`_sort_live`); anything else takes
+    :func:`_sort_probes`."""
     P = pk.shape[0]
     kd = table.key_direct
+    if srow_values is not None and not presorted:
+        raise ValueError("srow_values needs presorted=True")
+    if (presorted or mask is not None) and (probes_iota
+                                            or probes_permutation):
+        raise ValueError("presorted / mask exclude probes_iota / "
+                         "probes_permutation")
+    W = lookup_w or DEFAULT_W
+    if presorted:
+        skey = pk if mask is None else torch.where(mask, pk, -1)
+        srow = (torch.arange(P, dtype=I32, device=pk.device)
+                if srow_values is None else srow_values.to(I32))
+        return skey, srow, None, mask, W, segment
     if mask is not None:
-        if probes_iota or probes_permutation:
-            raise ValueError("mask excludes probes_iota / "
-                             "probes_permutation")
         skey, live, srow = _sort_live(pk, mask)
-        return skey, srow, None, live, DEFAULT_W, None
+        return skey, srow, None, live, W, segment
     if probes_iota or probes_permutation:
         rowv = torch.arange(P, dtype=I32, device=pk.device)
         # sorted(permutation of [0, P)) is the identity; srow its inverse
@@ -365,7 +376,9 @@ def keydirect_nested_strand_sorted(table, pk: torch.Tensor, out_size: int,
                                    probes_iota: bool = False,
                                    probes_permutation: bool = False,
                                    mask=None, presorted: bool = False,
-                                   srow_values=None, segment=None) -> dict:
+                                   srow_values=None,
+                                   lookup_w: int | None = None,
+                                   segment: int | None = None) -> dict:
     """Windowed Nrs / NrsNU / NrsSel probe strand over a ``key_direct``
     nested table.
 
@@ -380,16 +393,18 @@ def keydirect_nested_strand_sorted(table, pk: torch.Tensor, out_size: int,
     ``nested_hit``, ``nested_probe_row``) go to the top, ``c_top`` =
     matches and ``c_expand_total`` is the hits' group-length sum, the
     exact unnested size ``api.join`` sizes its buffer from.
-    ``presorted`` / ``srow_values`` / ``segment`` (the distributed
-    strands) are not ported yet.
+    ``presorted`` (an exchange receive or a ring chunk, sorted globally
+    or in blocks, dead rows on the all-ones key under ``mask``) skips the
+    sort: ``srow_values`` are then the emitted probe ids (a shard's
+    global rows), ``lookup_w`` the window its block spread needs and
+    ``segment`` the caller's sort segment, which widens the emission's
+    row window as a local segmented sort would (:func:`_probe_order`).
     """
-    if presorted or srow_values is not None or segment is not None:
-        raise _slice6("keydirect_nested_strand_sorted", "presorted",
-                      "srow_values", "segment")
     _check_device(pk, table.key_direct)
     P = pk.shape[0]
     skey, srow, g0, live, Wk, seg = _probe_order(
-        table, pk, probes_iota, probes_permutation, mask)
+        table, pk, probes_iota, probes_permutation, mask, presorted,
+        srow_values, lookup_w, segment)
     g, hit, glen, pos1, miss_cmps = _keydirect_probe(table, skey, g=g0,
                                                      live=live, W=Wk)
     m = hit.to(I64).sum()
@@ -453,17 +468,15 @@ def keydirect_chaining_strand_sorted(table, pk: torch.Tensor, out_size: int,
     at the key's first node in chain order (``group_min_pos``), a miss
     walks its chain, and each hit emits ``group_chain_first``; the table
     needs the early-exit index.  Emission rides ``expand`` (K3) and the
-    windowed lookups, as in the nested strand.  ``presorted`` /
-    ``srow_values`` / ``lookup_w`` (the distributed strands) are not
-    ported yet.
+    windowed lookups, as in the nested strand.  ``presorted``,
+    ``srow_values`` and ``lookup_w``: a (block-)sorted stream with its
+    dead rows on the all-ones key, as in the nested strand.
     """
-    if presorted or srow_values is not None or lookup_w is not None:
-        raise _slice6("keydirect_chaining_strand_sorted", "presorted",
-                      "srow_values", "lookup_w")
     _check_device(pk, table.key_direct)
     P = pk.shape[0]
     skey, srow, g, live, Wk, seg = _probe_order(
-        table, pk, False, probes_permutation, mask)
+        table, pk, False, probes_permutation, mask, presorted, srow_values,
+        lookup_w)
     if g is None:
         g = _key_groups(table, skey, Wk)
     hit = g >= 0

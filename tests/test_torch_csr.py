@@ -119,9 +119,10 @@ def test_exp1_csr_row_matches_reference(golden, params):
 
 
 def test_plans_not_yet_ported_name_their_slice():
-    """Every exp-1 plan of the JAX harness runs; what is still pending (the
-    distributed strands' presorted streams and row ids, the distributed
-    builds' dead keys) names its ROADMAP slice, 6."""
+    """Every exp-1 plan of the JAX harness runs, and so do the hooks that
+    the distributed strands and builds use (presorted streams with their
+    row ids and windows, the builds' dead all-ones keys and global rows):
+    no call names a pending slice any more."""
     exp = Experiment1(6, 8, False, 0, plans=("Crs", "CsrSel", "CrsSel",
                                              "NrsSel"),
                       measure_file=io.StringIO(), min_runtime_s=0.0,
@@ -129,16 +130,27 @@ def test_plans_not_yet_ported_name_their_slice():
     exp.init()
     exp.run()
     assert sorted(exp.results) == ["Crs", "CrsSel", "CsrSel", "NrsSel"]
-    rows = torch.zeros(4, dtype=torch.int32)
-    for strand, window in ((tw.keydirect_nested_strand_sorted, "segment"),
-                           (tw.keydirect_chaining_strand_sorted, "lookup_w")):
-        for kw in (dict(presorted=True), dict(srow_values=rows),
+    nrs = exp.join_plan("Nrs").build(exp.sa)
+    crs = exp.join_plan("Crs").build(exp.sa)
+    pk = torch.sort(exp.rk).values  # R.k presorted: the iota
+    rows = torch.arange(pk.shape[0], dtype=torch.int32) + 1000
+    for strand, table, window in (
+            (tw.keydirect_nested_strand_sorted, nrs, "segment"),
+            (tw.keydirect_chaining_strand_sorted, crs, "lookup_w")):
+        want = strand(table, exp.rk, 1 << 8)
+        for kw in (dict(presorted=True),
+                   dict(presorted=True, srow_values=rows),
                    {window: 1024}):
-            with pytest.raises(NotImplementedError, match="slice 6"):
-                strand(None, None, 8, **kw)
+            got = strand(table, pk, 1 << 8, **kw)
+            assert int(got["c_htProbe"]) == int(want["c_htProbe"])
+            assert int(got["c_htProbeCmp"]) == int(want["c_htProbeCmp"])
+        assert int(got["total"]) == int(want["total"])
     keys = from_numpy_u32(np.arange(16, dtype=np.uint32) % 4, "cpu")
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        _build_chaining_fused(keys, 4, 4, False, drop_pad_key=True)
+    keys[12:] = -1  # a dead tail on the all-ones key
+    table = _build_chaining_fused(keys, 8, 4, False, drop_pad_key=True,
+                                  rows=torch.arange(16, dtype=torch.int32))
+    assert int(table.groups.n_keys) == 4
+    assert int(table.bucket_len.sum()) == 12
 
 
 def test_csrsel_strand_names_slice_3():

@@ -34,6 +34,13 @@ prints the card and its power limit (``nvidia-smi``) first.
   commit), so one machine compares two trees: run parent, change, change,
   parent, each in its own process.
 
+``dist``: where the time of the 1-rank distributed Nrs call goes (the
+exchange of each side alone, the single-chip Nrs strands, and
+``dist_nested_join`` on its default, ``key_domain`` + ``n_keys`` and
+merged u64 routes, at R20/S24), each as ``profile`` prints a strand::
+
+    python3 tools/torch_csr_perf.py dist [--reps 5] [--root TREE]
+
 ``profile``: where the time of the build and the probe strand goes::
 
     python3 tools/torch_csr_perf.py profile [--reps 10] [--root TREE]
@@ -637,6 +644,56 @@ def join_stages(dev, reps: int) -> None:
                                         **kw), 3)
 
 
+def dist_profile(dev, reps: int) -> None:
+    """Where the 1-rank distributed Nrs call's time goes: the exchange of
+    each side alone, the single-chip Nrs strands (compacted build +
+    key_direct probe), and ``dist_nested_join`` on its three routes, each
+    under ``profile_strand``."""
+    import torch.distributed as dist
+
+    from hashjoin3d_tpu_torch import parallel
+    from hashjoin3d_tpu_torch.ops.layout import key_column
+    from hashjoin3d_tpu_torch.ops.nested import build_nested_host
+    from hashjoin3d_tpu_torch.ops.strands_windowed import (
+        keydirect_nested_strand_sorted)
+    from hashjoin3d_tpu_torch.parallel.mesh import axis_info
+    from hashjoin3d_tpu_torch.utils.gen import exp1_data
+
+    rk, sa, ndv = exp1_data(LOG2_R, LOG2_S, False, 0)
+    R, S = key_column(rk, dev), key_column(sa, dev)
+    tag = np.uint64(0xAB << 40)
+    R64 = key_column(rk.astype(np.uint64) | tag, dev)
+    S64 = key_column(sa.astype(np.uint64) | tag, dev)
+    mesh = parallel.make_mesh(device=dev)
+    group, _, _ = axis_info(mesh, "x")
+    rows = torch.arange(S.shape[0], dtype=torch.int32, device=dev)
+    dom, n_s, n_r = 1 << LOG2_R, S.shape[0], R.shape[0]
+
+    def step(**kw):
+        return parallel.dist_nested_join(mesh, ndv, n_s, n_r, n_s, **kw)
+
+    calls = {
+        "exchange S.a (build side)": lambda: parallel.partition_exchange(
+            group, S, {"row": rows}, 1, n_s),
+        "exchange R.k sorted within dest (probe side)":
+            lambda: parallel.partition_exchange(
+                group, R, {"row": rows[:n_r]}, 1, n_r,
+                sort_within_dest=True),
+        "single-chip Nrs build + probe": lambda: (
+            keydirect_nested_strand_sorted(build_nested_host(
+                S, ndv, n_keys=ndv, key_domain=dom), R, n_s)),
+    }
+    for label, kw, cols in (("key_domain + n_keys",
+                             dict(key_domain=dom, n_keys=ndv), (S, R)),
+                            ("default", {}, (S, R)),
+                            ("merged u64", {}, (S64, R64))):
+        fn = step(**kw)
+        calls[f"dist_nested_join {label}"] = (lambda f=fn, c=cols: f(*c))
+    for name, fn in calls.items():
+        profile_strand(name, fn, reps)
+    dist.destroy_process_group()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="mode", required=True)
@@ -651,6 +708,9 @@ def main() -> int:
     jo = sub.add_parser("join")
     jo.add_argument("--reps", type=int, default=5)
     jo.add_argument("--root", type=Path, default=here)
+    di = sub.add_parser("dist")
+    di.add_argument("--reps", type=int, default=5)
+    di.add_argument("--root", type=Path, default=here)
     la = sub.add_parser("launch")
     la.add_argument("--root", type=Path, default=here)
     la.add_argument("--probes", nargs="?", const=",".join(LAUNCH_PROBES),
@@ -673,6 +733,8 @@ def main() -> int:
         print(json.dumps(times(args.side, dev)))
     elif args.mode == "join":
         join_stages(dev, args.reps)
+    elif args.mode == "dist":
+        dist_profile(dev, args.reps)
     elif args.mode == "launch":
         res = ({} if args.probes
                else {**launch_costs(dev), **kernel_device_costs(dev)})
