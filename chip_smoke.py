@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU: exp-1's eleven device
 plans, exp-4's three, ``join``, the one-call API, the algebra, out-of-core
-streaming, the host engine and the distributed joins.
+streaming, the host engine, the distributed joins and the randomized
+differential fuzzers.
 
 Run from the repository root on a machine with one CUDA GPU:
 
@@ -185,9 +186,29 @@ then exp-4 (``main_experiment4 -R 24 -a 4 -A 4 -b 2 -B 2``: |R| 2^24,
    single-chip engine's on each shard's arrival-order table.  Otherwise
    11c prints what gloo refused and is left out.
 
-Phases 9, 10 and 11 alone: a script in a gitignored directory that
-imports ``chip_smoke``, calls ``kernels.lib()`` and then ``phase9(dev,
-card)`` / ``phase10(dev, card)`` / ``phase11(dev, card)``.
+12. the randomized differential fuzzers (``hashjoin3d_tpu_torch/tools/``),
+   every trial on the card against its ground truth, seed
+   :data:`FUZZ_SEED` (printed): 12a. ``fuzz_api``, ``fuzz_stream`` and
+   ``fuzz_order`` at the JAX fuzzers' defaults on the small tier (60, 40
+   and 40 trials, the JAX fuzzers' own cases, against the oracle), then,
+   the launch counts set to 0, four trials each of the large tier (up to
+   2^20 build and 2^24 probe rows against the native host engine, or the
+   plain versions on the CPU where the engine's chain walk would be too
+   long), whose
+   draws must take K1 and K4 past 8192-key segments and K3 past one
+   4096-element tile, and in which K1-K4 must each launch
+   (``fuzz_launches`` in the kernels line); 12b. ``fuzz_dist`` on 4 gloo
+   ranks sharing the card, meshes of 1, 2 and 4 ranks (30 small and 4
+   large trials, against numpy); 12c. ``zipf_capacity``: the zipf(1.0)
+   exchange volumes at |S| = 2^24 over 2^20 keys on 8 shards, counted by
+   ``shard_of_key`` on the card, equal to the host mirror with and
+   without the top-16 keys, then the live flat join (it must overflow)
+   and hybrid join (no overflow, |S| matches) on 4 gloo ranks at R18/S22.
+
+Phases 9-12 alone: a script in a gitignored directory that imports
+``chip_smoke``, calls ``kernels.lib()`` and then ``phase9(dev, card)`` /
+``phase10(dev, card)`` / ``phase11(dev, card)`` / ``phase12(dev,
+card)``.
 
 Prints one JSON line of per-kernel results, then, last,
 ``{"ok": true, "device": {...}}``.  ``launches`` there is the main path's
@@ -196,7 +217,8 @@ runs under "Nrs t=4" and the like, phase 6's under "Ndu R24" and the
 like, the sorted-route call under "Crs sorted route"; ``join_launches``
 each phase 7 call's (its first call, from 0), ``algebra_launches`` each
 phase 8 plan's (where the kernel launched), ``stream_launches`` each
-phase 9 stream's, ``dist_launches`` each phase 11a call's;
+phase 9 stream's, ``dist_launches`` each phase 11a call's,
+``fuzz_launches`` phase 12a's large tier's (the three fuzzers summed);
 ``miss_probe_launches`` is phase 3's, ``probe_tool_launches`` phase 5's
 probe runner's (its check and timed launches) and ``tool_launches`` phase
 5's roofline and csrprof path's.
@@ -2693,44 +2715,31 @@ def _calls_11c(ndv, ndv_z, top, hot_cap, r, s):
     )
 
 
-def _rank_11c(rank, world, store, cols, meta, device, outq):
-    """One of phase 11c's ranks: gloo over the shared card (``device``);
-    the collectives' check, then every call on this rank's blocks."""
-    import datetime
-    import traceback
-
+def _rank_11c(dev, put, cols, meta):
+    """One of phase 11c's ranks (a ``fuzzing.spawn_ranks`` body, gloo over
+    the shared card): the collectives' check, then every call on this
+    rank's blocks."""
     import torch.distributed as dist
 
-    dev = torch.device(device)
-    try:
-        if dev.type == "cuda":
-            torch.cuda.set_device(0)
-        dist.init_process_group(
-            "gloo", init_method=f"file://{store}", rank=rank,
-            world_size=world, timeout=datetime.timedelta(seconds=300))
-        caps = _gloo_caps(world, dev)
-        outq.put((rank, "caps", caps))
-        if not all(v is True for v in caps.values()):
-            return
-        from hashjoin3d_tpu_torch import parallel
+    caps = _gloo_caps(dist.get_world_size(), dev)
+    put("caps", caps)
+    if not all(v is True for v in caps.values()):
+        return
+    from hashjoin3d_tpu_torch import parallel
 
-        meshes = {"flat": parallel.make_mesh(device=dev),
-                  "2d": parallel.make_mesh_2d(2, world // 2, device=dev)}
-        res = {}
-        for label, entry, kw, names, kind in _calls_11c(*meta):
-            axis = "x" if kind == "flat" else ("host", "chip")
-            mesh = meshes[kind]
-            local = [parallel.shard_axis(mesh, cols[n], axis) for n in names]
-            out = getattr(parallel, entry)(mesh, **kw)(*local)
-            res[label] = (
-                {k: int(v) for k, v in out.items() if v.dim() == 0},
-                dist_pairs_key(out).cpu().numpy())
-        outq.put((rank, "results", res))
-    except Exception:
-        outq.put((rank, "error", traceback.format_exc()))
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+    meshes = {"flat": parallel.make_mesh(device=dev),
+              "2d": parallel.make_mesh_2d(2, dist.get_world_size() // 2,
+                                          device=dev)}
+    res = {}
+    for label, entry, kw, names, kind in _calls_11c(*meta):
+        axis = "x" if kind == "flat" else ("host", "chip")
+        mesh = meshes[kind]
+        local = [parallel.shard_axis(mesh, cols[n], axis) for n in names]
+        out = getattr(parallel, entry)(mesh, **kw)(*local)
+        res[label] = (
+            {k: int(v) for k, v in out.items() if v.dim() == 0},
+            dist_pairs_key(out).cpu().numpy())
+    put("results", res)
 
 
 def _sim_cmps(dev, entry, bk, pk, nb, hot=None) -> int:
@@ -2775,13 +2784,9 @@ def phase11c_ranks(dev, card) -> dict:
     NCCL run of the same columns (matches, results, overflow, pairs as
     multisets) and ``num_cmps`` to the single-chip engine on each shard's
     arrival-order table.  Returns ``{"ran": bool, "caps": ...}``."""
-    import queue
-    import tempfile
-
-    import torch.multiprocessing as mp
-
     from hashjoin3d_tpu_torch import parallel
     from hashjoin3d_tpu_torch.ops.layout import key_column
+    from hashjoin3d_tpu_torch.tools.fuzzing import spawn_ranks
     from hashjoin3d_tpu_torch.utils.gen import exp1_data
 
     log2_r, log2_s = DIST_C_LOG2_R, DIST_C_LOG2_S
@@ -2810,39 +2815,15 @@ def phase11c_ranks(dev, card) -> dict:
         one[label] = ({k: int(v) for k, v in out.items() if v.dim() == 0},
                       dist_pairs_key(out).cpu().numpy())
 
-    ctx = mp.get_context("spawn")
-    outq = ctx.Queue()
-    store = tempfile.mktemp(prefix="hj3_gloo_")
-    procs = [ctx.Process(target=_rank_11c,
-                         args=(rank, DIST_RANKS, store, cols, meta,
-                               dev.type, outq))
-             for rank in range(DIST_RANKS)]
+    got, caps = {}, {}
+
+    def on_message(msg):
+        rank, kind, value = msg
+        (caps if kind == "caps" else got)[rank] = value
+
     t0 = time.perf_counter()
-    for p in procs:
-        p.start()
-    got = {}
-    try:
-        pending = DIST_RANKS
-        caps = {}
-        while pending:
-            rank, kind, value = outq.get(timeout=600)
-            if kind == "caps":
-                caps[rank] = value
-                if not all(v is True for v in value.values()):
-                    pending -= 1
-            elif kind == "results":
-                got[rank] = value
-                pending -= 1
-            else:
-                raise SmokeFailure(f"phase 11c rank {rank}:\n{value}")
-    except queue.Empty:
-        raise SmokeFailure("phase 11c: a rank gave no answer in 600 s")
-    finally:
-        for p in procs:
-            p.join(timeout=60)
-            if p.is_alive():
-                p.terminate()
-                p.join(timeout=10)
+    spawn_ranks(_rank_11c, DIST_RANKS, dev, cols, meta,
+                on_message=on_message)
     bad = {r: {k: v for k, v in c.items() if v is not True}
            for r, c in caps.items() if not all(v is True
                                                for v in c.values())}
@@ -2914,6 +2895,100 @@ def phase11(dev, card) -> dict:
     print(f"phase 11c: {time.perf_counter() - t11c:.1f} s, ran {r['ran']}")
     dist.destroy_process_group()
     print(f"phase 11: {time.perf_counter() - t11:.1f} s")
+    return launches
+
+
+#: phase 12's seed for every fuzzer and tier
+FUZZ_SEED = 20261017
+#: phase 12a's small-tier trials (the JAX fuzzers' defaults) and large ones
+FUZZ_SMALL = {"fuzz_api": 60, "fuzz_stream": 40, "fuzz_order": 40}
+FUZZ_LARGE = 4
+#: the kernels phase 12a's large tier must launch
+FUZZ_KERNELS = ("bitonic_sort_packed_segmented", "windowed_lookup",
+                "multi_scan", "bitonic_sort_segmented")
+
+
+def phase12a_fuzz(dev, card) -> dict:
+    """The single-card fuzzers: the small tiers, then the large tiers from
+    launch counts of 0; returns the large tiers' launches."""
+    from hashjoin3d_tpu_torch import kernels
+    from hashjoin3d_tpu_torch.tools import fuzz_api, fuzz_order, fuzz_stream
+
+    mods = dict(fuzz_api=fuzz_api, fuzz_stream=fuzz_stream,
+                fuzz_order=fuzz_order)
+    for name, trials in FUZZ_SMALL.items():
+        out = mods[name].run(dev, trials, FUZZ_SEED, "small",
+                             lambda line: None)
+        r = out["small"]
+        print(f"phase 12a {name} small tier: {r['trials']} trials (seed "
+              f"{FUZZ_SEED}) equal the oracle in {r['seconds']:.1f} s, "
+              f"{r['trials'] / r['seconds']:.2f} trials/s on {card}")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    for name, mod in mods.items():
+        out = mod.run(dev, FUZZ_LARGE, FUZZ_SEED, "large",
+                      lambda line: print("phase 12a " + line, flush=True))
+        r = out["large"]
+        print(f"phase 12a {name} large tier: {r['trials']} trials equal "
+              f"their ground truth (the host engine; truth=plain: the "
+              f"plain versions on the CPU) in {r['seconds']:.1f} s on "
+              f"{card}; reach " + json.dumps(r["reach"]))
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    for key in FUZZ_KERNELS:
+        require(launches[key] > 0,
+                f"{key} not launched in phase 12a's large tier")
+    print("launches phase 12a large tier: " + json.dumps(launched(launches)))
+    return launches
+
+
+def phase12b_dist(dev, card) -> None:
+    """fuzz_dist on 4 gloo ranks sharing the card: the small tier at the
+    JAX default (30 trials), then 4 large trials; meshes of 1, 2 and 4
+    ranks must all occur."""
+    from hashjoin3d_tpu_torch.tools import fuzz_dist
+
+    lines = []
+    out = fuzz_dist.run(dev, None, FUZZ_SEED, "both", lines.append)
+    sizes = {int(x.split(" nd=")[1].split()[0]) for x in lines
+             if x.startswith("ok ")}
+    require(sizes == {1, 2, 4}, f"phase 12b: mesh sizes {sorted(sizes)}, "
+            "not 1, 2 and 4")
+    for t, r in out.items():
+        print(f"phase 12b fuzz_dist {t} tier on {fuzz_dist.RANKS} gloo "
+              f"ranks sharing {card}: {r['trials']} trials (seed {FUZZ_SEED}) "
+              f"equal numpy in {r['seconds']:.1f} s; meshes of "
+              f"{sorted(sizes)} ranks")
+
+
+def phase12c_zipf(dev, card) -> None:
+    """zipf_capacity at its defaults: the volumes at 2^24 on 8 shards by
+    shard_of_key on the card, the live joins on 4 gloo ranks at R18/S22."""
+    from hashjoin3d_tpu_torch.tools import zipf_capacity
+
+    t0 = time.perf_counter()
+    out = zipf_capacity.run(dev, lambda line: print("phase 12c " + line,
+                                                    flush=True))
+    print(f"phase 12c zipf_capacity on {card}: volumes equal the host "
+          f"mirror, live " + json.dumps(out["live"])
+          + f"; {time.perf_counter() - t0:.1f} s")
+
+
+def phase12(dev, card) -> dict:
+    """Phase 12: the fuzzers on the card; returns 12a's large-tier
+    launches."""
+    t12 = time.perf_counter()
+    print(f"phase 12 fuzzers, seed {FUZZ_SEED}")
+    launches = phase12a_fuzz(dev, card)
+    print(f"phase 12a: {time.perf_counter() - t12:.1f} s")
+    t = time.perf_counter()
+    phase12b_dist(dev, card)
+    print(f"phase 12b: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase12c_zipf(dev, card)
+    print(f"phase 12c: {time.perf_counter() - t:.1f} s")
+    print(f"phase 12: {time.perf_counter() - t12:.1f} s")
     return launches
 
 
@@ -3115,6 +3190,11 @@ def main() -> int:
         print(f"launches phase 11 {label}: " + json.dumps(launched(counts)))
     print(f"smoke so far {time.perf_counter() - t0:.1f} s")
 
+    # phase 12: the randomized differential fuzzers on the card
+    torch.cuda.empty_cache()
+    fuzz_launches = phase12(dev, card)
+    print(f"smoke so far {time.perf_counter() - t0:.1f} s")
+
     entries = [
         dict(name=name, route="cuda", source=src, replaces=rep,
              launches=after2[key],
@@ -3127,6 +3207,7 @@ def main() -> int:
                                if c[key]},
              stream_launches={p: c[key] for p, c in stream_launches.items()},
              dist_launches={p: c[key] for p, c in dist_launches.items()},
+             fuzz_launches=fuzz_launches[key],
              **results[name])
         for name, (src, rep, key) in KERNELS.items()]
     for pid, (_, line, key) in PROBES.items():
@@ -3144,6 +3225,7 @@ def main() -> int:
                               if c[key]},
             stream_launches={p: c[key] for p, c in stream_launches.items()},
             dist_launches={p: c[key] for p, c in dist_launches.items()},
+            fuzz_launches=fuzz_launches[key],
             **probe_results[pid]))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

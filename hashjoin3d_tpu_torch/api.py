@@ -227,11 +227,12 @@ def _result(out: dict, num_matches, num_cmps, num_results,
                       max(r["route_nbad"] for r in routes))
 
 
-def _device_join(bk, pk, bt, pt, how, num_buckets, unique, n_keys,
-                 key_domain, hashfun) -> JoinResult:
-    """The inner join's device path over the host columns ``bk``, ``pk``
-    and their carriers ``bt``, ``pt``: dense-direct, key_direct or merged
-    (``api.py:223-320`` of the JAX package)."""
+def device_route(bk, pk, num_buckets, key_domain, hashfun) -> tuple:
+    """``(narrow, dense, key_domain)``: how :func:`_device_join` routes
+    the host columns ``bk``, ``pk``.  ``narrow``: both are 32-bit
+    unsigned; ``key_domain``: the given one or, on narrow columns, the
+    build's largest key + 1 where that is at most 4 keys a row;
+    ``dense``: the dense-direct chaining table takes the build."""
     # key_direct inference wants 32-bit UNSIGNED keys on both sides: signed
     # columns carry negatives as huge u32 values, and a u64 key would not
     # fit the u32 index
@@ -242,6 +243,16 @@ def _device_join(bk, pk, bt, pt, how, num_buckets, unique, n_keys,
         if dom <= 4 * bk.size:  # a sparser index wastes memory for few hits
             key_domain = dom
     dense = narrow and can_use_dense_direct(bk, num_buckets, hashfun)
+    return narrow, dense, key_domain
+
+
+def _device_join(bk, pk, bt, pt, how, num_buckets, unique, n_keys,
+                 key_domain, hashfun) -> JoinResult:
+    """The inner join's device path over the host columns ``bk``, ``pk``
+    and their carriers ``bt``, ``pt``: dense-direct, key_direct or merged
+    (``api.py:223-320`` of the JAX package)."""
+    narrow, dense, key_domain = device_route(bk, pk, num_buckets,
+                                             key_domain, hashfun)
 
     if how == "chaining" and dense:
         table = build_chaining_host(bt, num_buckets, dense_direct=True,

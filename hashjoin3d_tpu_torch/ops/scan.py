@@ -1,10 +1,11 @@
 """Fused inclusive scans over parallel int32 columns (kernel K3).
 
-Port of ``hashjoin3d_tpu/ops/scan.py`` ``multi_scan`` / ``engine_multi_scan``:
-N inclusive scans, forward or reverse, in one pass over equal-length int32
-columns.  Ops: ``"sum"`` (wraps in int32), ``"max"``, ``"min"`` (one column
-each) and ``"maxpair"`` (two columns, key then payload, combined by
-lexicographic maximum).
+Port of ``hashjoin3d_tpu/ops/scan.py`` ``multi_scan`` / ``engine_multi_scan``
+and its one-call helpers (``cumsum_i32``, ``cummax_i32``, ``cummin_i32``,
+``cummax_pair``): N inclusive scans, forward or reverse, in one pass over
+equal-length int32 columns.  Ops: ``"sum"`` (wraps in int32), ``"max"``,
+``"min"`` (one column each) and ``"maxpair"`` (two columns, key then
+payload, combined by lexicographic maximum).
 
 On CUDA tensors this launches ``csrc/scan.cu``: one kernel a call, a
 single-pass chained scan over tiles of :func:`tile` elements.  Its
@@ -147,3 +148,25 @@ def multi_scan_plain(arrays, ops, reverse: bool = False):
             outs.append(fwd(i64_to_u32((m & 0xFFFFFFFF) - (1 << 31))))
         slot += _ARITY[op]
     return tuple(outs)
+
+
+def cumsum_i32(x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    """Inclusive int32 prefix sum of one column, wrapping (one K3 launch on
+    CUDA)."""
+    return multi_scan((x,), ("sum",), reverse=reverse)[0]
+
+
+def cummax_i32(x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    return multi_scan((x,), ("max",), reverse=reverse)[0]
+
+
+def cummin_i32(x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    return multi_scan((x,), ("min",), reverse=reverse)[0]
+
+
+def cummax_pair(k: torch.Tensor, v: torch.Tensor, reverse: bool = False):
+    """Lexicographic-max scan of (key, payload) int32 columns, the int32
+    twin of a running max over ``(k << 32) | biased v`` (segmented
+    copy / propagate); returns ``(keys, payloads)``."""
+    return multi_scan((k, v), ("maxpair",), reverse=reverse)
+

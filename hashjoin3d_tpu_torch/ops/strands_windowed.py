@@ -31,7 +31,7 @@ from typing import NamedTuple
 
 import torch
 
-from .bitonic import bitonic_sort_packed_segmented
+from .bitonic import MAX_SEGMENT_BITONIC, bitonic_sort_packed_segmented
 from .hashing import bucket_of, hash_key
 from .layout import (I32, I64, SIGN, expand, inverse_permute,
                      is_sorted_ascending, same_key_width, shr, uorder)
@@ -151,11 +151,24 @@ def _sort_global(pk: torch.Tensor):
     return s ^ SIGN, idx.to(I32)
 
 
+def packed_key_bits(chunk: int, domain: int) -> int | None:
+    """The key width K1 sorts a probe stream in ``chunk`` segments over a
+    key ``domain`` with, or None where K1 cannot take the stream: keys too
+    wide for its row field, or a segment outside its range (the policy's
+    second cap gives segments of up to 2^20 keys; only 2^18 fit K1)."""
+    key_bits = max(int(domain - 1).bit_length(), 1)
+    if 32 - key_bits >= 9 and 512 <= chunk <= MAX_SEGMENT_BITONIC:
+        return key_bits
+    return None
+
+
 def _sort_probes(pk: torch.Tensor, domain: int | None = None) -> SortedProbes:
     """The strand's one sort.  With a known key ``domain`` it is segmented
     (``ops/sort.py:probe_sort_chunk``); small domains take the packed K1
-    route when every key is below ``2^key_bits``, wider streams the 2-op K4
-    route.  An already ascending stream is not sorted at all."""
+    route when every key is below ``2^key_bits`` and the segment fits K1
+    (:func:`packed_key_bits`), wider streams the 2-op K4 route (past 2^18
+    keys a segment, the library's).  An already ascending stream is not
+    sorted at all."""
     P = pk.shape[0]
     rowv = torch.arange(P, dtype=I32, device=pk.device)
     chunk = probe_sort_chunk(P, domain)
@@ -170,9 +183,8 @@ def _sort_probes(pk: torch.Tensor, domain: int | None = None) -> SortedProbes:
 
     if is_sorted_ascending(pk):
         return SortedProbes(pk, rowv, W, chunk)
-    key_bits = max(int(domain - 1).bit_length(), 1)
-    if 32 - key_bits >= 9 and chunk >= 512 and bool(((pk >> key_bits) == 0)
-                                                    .all()):
+    key_bits = packed_key_bits(chunk, domain)
+    if key_bits is not None and bool(((pk >> key_bits) == 0).all()):
         sk, lid = bitonic_sort_packed_segmented(pk, chunk, key_bits)
         seg_base = torch.arange(P // chunk, dtype=I32, device=pk.device)
         sr = (lid.view(-1, chunk) + (seg_base * chunk)[:, None]).view(P)

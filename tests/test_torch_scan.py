@@ -224,3 +224,30 @@ def test_k3_scan_plan_and_workspace():
     assert scan_plan((1 << 24) + 77, tile, 256) == (4097, 4100)
     assert scan_plan(1 << 20, tile, 4100) == (256, 4100)
     assert workspace_words(4) == 68 and workspace_words(256) == 4 + 16 * 256
+
+
+@pytest.mark.parametrize("helper", ["cumsum_i32", "cummax_i32", "cummin_i32",
+                                    "cummax_pair"])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_scan_helpers_match_jax(helper, reverse):
+    """The one-call helpers of ``ops/scan.py`` equal the JAX package's
+    (``hashjoin3d_tpu/ops/scan.py:365-381``, the Pallas kernel in interpret
+    mode over 256-element blocks) at a ragged 3 x 256 + 77 elements."""
+    from hashjoin3d_tpu.ops import scan as jax_scan
+
+    from hashjoin3d_tpu_torch.ops import scan
+
+    rng = np.random.default_rng(11 + reverse)
+    n = 3 * 256 + 77
+    cols = [rng.integers(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
+            for _ in range(2 if helper == "cummax_pair" else 1)]
+    cols[0][::7] = cols[0][3]  # ties, for the pair's payload order
+    want = getattr(jax_scan, helper)(*(jnp.asarray(c) for c in cols),
+                                     reverse=reverse, C=256, interpret=True)
+    got = getattr(scan, helper)(*(torch.from_numpy(c) for c in cols),
+                                reverse=reverse)
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, tuple) else (got,)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), np.asarray(w))

@@ -221,3 +221,46 @@ def exchange(keys, capacity: int, sort_within_dest: bool) -> dict:
     return dict(keys=k.numpy(), row=pay["row"].numpy(), valid=valid.numpy(),
                 overflow=int(ovf))
 
+
+def fuzz_dist_trials(trials: int, seed: int, tier: str, cut=None) -> list:
+    """``tools/fuzz_dist.py``'s trials on the pool's group (the CPU): rank
+    0's reports, the other ranks' empty lists."""
+    from hashjoin3d_tpu_torch.tools import fuzz_dist
+
+    lines = []
+    fuzz_dist.trials_on_group(torch.device("cpu"), trials, seed, tier, cut,
+                              lines.append)
+    return lines
+
+
+def fuzz_dist_schedules(seed: int, trials) -> list:
+    """This rank's results of small trials ``trials`` of ``fuzz_dist`` (its
+    flat join and second schedule), drawn from ``seed``."""
+    import torch.distributed as dist
+
+    from hashjoin3d_tpu_torch.tools import fuzz_dist
+
+    rng = np.random.default_rng(seed)
+    cases = [fuzz_dist.small_case(rng, t, dist.get_world_size())
+             for t in range(max(trials) + 1)]
+    meshes = fuzz_dist.mesh_cache(torch.device("cpu"))
+    return [fuzz_dist.schedules(cases[t], meshes, torch.device("cpu"))
+            for t in trials]
+
+
+def zipf_live(rk, sa, top, cap: int) -> dict:
+    """``tools/zipf_capacity.py``'s live flat and hybrid joins on the
+    pool's group (the CPU)."""
+    from hashjoin3d_tpu_torch.tools import zipf_capacity
+
+    return zipf_capacity.live_joins(torch.device("cpu"), rk, sa, top, cap)
+
+
+def raising_body(dev, put, bad_rank: int) -> None:
+    """A ``fuzzing.spawn_ranks`` body: rank ``bad_rank`` raises, the
+    others report their rank."""
+    import torch.distributed as dist
+
+    if dist.get_rank() == bad_rank:
+        raise ValueError(f"planted on rank {bad_rank}")
+    put("rank", dist.get_rank())
