@@ -1,0 +1,11 @@
+"""Stream ms a query of the program's ``hj.build.runs`` spans: the builds'
+run structure (run boundaries, histograms, K3's group index). Timed
+between the CUDA events at the spans' ends on the profiled host
+(``program_trace.span_ms``), so a host-bound phase reads the host's
+time."""
+
+from ..program_trace import span_ms
+
+
+def read(run):
+    return span_ms(run, ("hj.build.runs",))

@@ -37,8 +37,9 @@ Layout mirrors ``hashjoin3d_tpu``:
   utils/    data generation (the reference-exact native generator, its
             pure-Python twin ``mt19937.py`` and ``gen_rand_int_vec``), CSV
             writer, repetition protocol, ``checkpoint`` (``save_table`` /
-            ``load_table``), ``tracing`` (``trace``, ``DeviceTimer``,
-            ``checked``) and ``misc``
+            ``load_table``), ``tracing`` (``trace``, ``checked``, the
+            phase spans ``span`` with ``records`` / ``clear``, and
+            ``host_read``, counted by site in the open span) and ``misc``
   native/   the C++ sources the port builds: ``hj3gen.cpp`` (the
             generator) and ``hj3engine.cpp`` (the host engine)
   convert.py  JAX-table -> port-table conversion (differential tests)

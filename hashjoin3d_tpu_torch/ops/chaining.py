@@ -37,6 +37,7 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
+from ..utils.tracing import host_read, span
 from .hashing import bucket_of, hash_key, hash_key_np
 from .layout import (I32, I64, UKEY_PAD, GroupIndex, check_carrier,
                      compact_group_index, drop_pad_groups, emit_pos,
@@ -123,33 +124,41 @@ def _build_chaining_dense(keys: torch.Tensor, num_buckets: int,
     scans (K3), histogram, chain positions, and the packed ``direct``
     image; ``full_chain_index`` adds ``chain_by_key`` (key == row for
     permutation keys)."""
-    n = keys.shape[0]
-    row = torch.arange(n, dtype=I32, device=keys.device)
-    b = bucket_of(hash_key(keys, hashfun), num_buckets)
-    b_sorted, srow = torch.sort(b, stable=True)
-    srow = srow.to(I32)
-    is_first_b, _, run_start_b, run_len_b = run_boundaries(b_sorted, n)
-    bucket_start, bucket_len = sorted_histogram(
-        b_sorted, num_buckets, is_first_b, run_len_b)
-    rank = row - run_start_b
-    # insertion rank 0 -> chain pos 0 (directory node); rank p > 0 -> len - p
-    pos_sorted = torch.where(rank == 0, 0, run_len_b - rank)
-    pos_by_row = inverse_permute(srow, pos_sorted)
-
-    direct_shift = (n - 1).bit_length()
-    packed = row.to(I64) | ((pos_by_row.to(I64) + 1) << direct_shift)
-    direct = inverse_permute(keys, i64_to_u32(packed))
-    chain_by_key = None
-    if full_chain_index:
-        chain_by_key = bucket_len[
-            bucket_of(hash_key(row, hashfun), num_buckets).long()]
-    empty = torch.zeros(0, dtype=I32, device=keys.device)
-    return ChainingTable(bucket_start=bucket_start, bucket_len=bucket_len,
-                         pos_by_row=pos_by_row, keys=keys, direct=direct,
-                         direct_shift=direct_shift, num_buckets=num_buckets,
-                         hashfun=hashfun, chain_by_key=chain_by_key,
-                         groups=empty_group_index(n, keys.device),
-                         group_min_pos=empty, group_chain_first=empty)
+    with span("hj.build"):
+        n = keys.shape[0]
+        with span("hj.build.hash"):
+            row = torch.arange(n, dtype=I32, device=keys.device)
+            b = bucket_of(hash_key(keys, hashfun), num_buckets)
+        with span("hj.build.sort"):
+            b_sorted, srow = torch.sort(b, stable=True)
+            srow = srow.to(I32)
+        with span("hj.build.runs"):
+            is_first_b, _, run_start_b, run_len_b = run_boundaries(b_sorted,
+                                                                   n)
+            bucket_start, bucket_len = sorted_histogram(
+                b_sorted, num_buckets, is_first_b, run_len_b)
+        chain_by_key = None
+        if full_chain_index:
+            with span("hj.build.hash"):
+                chain_by_key = bucket_len[
+                    bucket_of(hash_key(row, hashfun), num_buckets).long()]
+        with span("hj.build.assemble"):
+            rank = row - run_start_b
+            # insertion rank 0 -> chain pos 0 (directory node); rank p > 0
+            # -> len - p
+            pos_sorted = torch.where(rank == 0, 0, run_len_b - rank)
+            pos_by_row = inverse_permute(srow, pos_sorted)
+            direct_shift = (n - 1).bit_length()
+            packed = row.to(I64) | ((pos_by_row.to(I64) + 1) << direct_shift)
+            direct = inverse_permute(keys, i64_to_u32(packed))
+            empty = torch.zeros(0, dtype=I32, device=keys.device)
+            return ChainingTable(
+                bucket_start=bucket_start, bucket_len=bucket_len,
+                pos_by_row=pos_by_row, keys=keys, direct=direct,
+                direct_shift=direct_shift, num_buckets=num_buckets,
+                hashfun=hashfun, chain_by_key=chain_by_key,
+                groups=empty_group_index(n, keys.device),
+                group_min_pos=empty, group_chain_first=empty)
 
 
 def build_chaining(keys: torch.Tensor, num_buckets: int,
@@ -255,11 +264,14 @@ def build_chaining_host(keys: torch.Tensor, num_buckets: int,
         return _build_chaining_fused(keys, group_capacity(n_keys, n),
                                      num_buckets, dense_direct, key_domain,
                                      early_exit_index, hashfun)
-    skey, srow, nk = sort_with_rows(keys)
-    cap = group_capacity(int(nk), n)  # the one host read
-    return _build_chaining_phase2(keys, skey, srow, cap, num_buckets,
-                                  dense_direct, key_domain, early_exit_index,
-                                  hashfun)
+    with span("hj.build"):
+        with span("hj.build.sort"):
+            skey, srow, nk = sort_with_rows(keys)
+            # the one host read
+            cap = group_capacity(host_read(nk, "build.n_keys"), n)
+        return _build_chaining_phase2(keys, skey, srow, cap, num_buckets,
+                                      dense_direct, key_domain,
+                                      early_exit_index, hashfun)
 
 
 def _build_chaining_fused(keys: torch.Tensor, cap: int, num_buckets: int,
@@ -272,11 +284,14 @@ def _build_chaining_fused(keys: torch.Tensor, cap: int, num_buckets: int,
     ``rows`` (a distributed shard's global row ids, one a key) ride the
     phase-1 sort and become the emitted row ids; ``drop_pad_key`` kills
     the all-ones key's rows (see :func:`_build_chaining_phase2`)."""
-    skey, srow, _ = sort_with_rows(keys)
-    rows_s = None if rows is None else rows.to(I32)[srow.long()]
-    return _build_chaining_phase2(keys, skey, srow, cap, num_buckets,
-                                  dense_direct, key_domain, early_exit_index,
-                                  hashfun, drop_pad_key, rows_s)
+    with span("hj.build"):
+        with span("hj.build.sort"):
+            skey, srow, _ = sort_with_rows(keys)
+            rows_s = None if rows is None else rows.to(I32)[srow.long()]
+        return _build_chaining_phase2(keys, skey, srow, cap, num_buckets,
+                                      dense_direct, key_domain,
+                                      early_exit_index, hashfun,
+                                      drop_pad_key, rows_s)
 
 
 def _build_chaining_phase2(keys: torch.Tensor, skey: torch.Tensor,
@@ -305,97 +320,129 @@ def _build_chaining_phase2(keys: torch.Tensor, skey: torch.Tensor,
     ``group_rows`` and ``group_chain_first`` (a shard's global rows);
     chain order still follows the local arrival positions.
     """
-    n = keys.shape[0]
-    dev = keys.device
-    groups = compact_group_index(keys, skey, srow, cap,
-                                 row_values=row_values)
-    if drop_pad_key:
-        groups = drop_pad_groups(groups)
-    empty = torch.zeros(0, dtype=I32, device=dev)
+    with span("hj.build"):
+        n = keys.shape[0]
+        dev = keys.device
+        with span("hj.build.runs"):
+            groups = compact_group_index(keys, skey, srow, cap,
+                                         row_values=row_values)
+            empty = torch.zeros(0, dtype=I32, device=dev)
+        if drop_pad_key:
+            with span("hj.build.assemble"):
+                groups = drop_pad_groups(groups)
 
-    if not early_exit_index and 2 * cap <= n:
-        validg = groups.group_len > 0
-        b_g = torch.where(validg, bucket_of(hash_key(groups.ukey, hashfun),
+        if not early_exit_index and 2 * cap <= n:
+            with span("hj.build.hash"):
+                validg = groups.group_len > 0
+                b_g = torch.where(validg,
+                                  bucket_of(hash_key(groups.ukey, hashfun),
                                             num_buckets), num_buckets)
-        bs, order = torch.sort(b_g, stable=True)
-        ls = groups.group_len[order]
-        is_f, _, r_start, r_len = run_boundaries(bs, validg.sum(dtype=I32))
-        csum = torch.cumsum(ls, 0, dtype=I64)
-        seg_end = csum[torch.clamp(r_start + r_len - 1, 0, cap - 1).long()]
-        seg_before = torch.where(
-            r_start > 0, csum[torch.clamp(r_start - 1, min=0).long()], 0)
-        # each run's sum at its bucket; every other entry to a slot of its
-        # own past the histogram
-        slot = torch.arange(cap, dtype=I32, device=dev)
-        tgt = torch.where(is_f, bs, num_buckets + slot)
-        bucket_len = torch.zeros(num_buckets + cap, dtype=I32, device=dev)
-        bucket_len[tgt.long()] = (seg_end - seg_before).to(I32)
-        bucket_len = bucket_len[:num_buckets]
-        bucket_start = torch.cumsum(bucket_len, 0, dtype=I32) - bucket_len
-        return _assemble_chaining(groups, bucket_start, bucket_len, empty,
-                                  empty, empty, keys, num_buckets,
-                                  dense_direct, key_domain, hashfun)
+            with span("hj.build.sort"):
+                bs, order = torch.sort(b_g, stable=True)
+            with span("hj.build.runs"):
+                bucket_start, bucket_len = _bucket_sums(
+                    groups.group_len[order], bs, validg, cap, num_buckets)
+            return _assemble_chaining(groups, bucket_start, bucket_len,
+                                      empty, empty, empty, keys,
+                                      num_buckets, dense_direct, key_domain,
+                                      hashfun)
 
-    row = torch.arange(n, dtype=I32, device=dev)
-    b = bucket_of(hash_key(keys, hashfun), num_buckets)
-    if drop_pad_key:
-        # dead rows park past the last bucket, where the histogram drops them
-        b = torch.where(keys == UKEY_PAD, num_buckets, b)
-    b_sorted, srow_b = torch.sort(b, stable=True)
-    is_first_b, _, run_start_b, run_len_b = run_boundaries(b_sorted, n)
-    bucket_start, bucket_len = sorted_histogram(b_sorted, num_buckets,
-                                                is_first_b, run_len_b)
-    if not early_exit_index or n == 0:
-        return _assemble_chaining(groups, bucket_start, bucket_len, empty,
-                                  empty, empty, keys, num_buckets,
-                                  dense_direct, key_domain, hashfun)
-    rank = row - run_start_b
-    pos_sorted = torch.where(rank == 0, 0, run_len_b - rank)
-    pos_by_row = inverse_permute(srow_b.to(I32), pos_sorted)
-    last = n - 1
-    gs = torch.clamp(groups.group_start
-                     + torch.clamp(groups.group_len - 1, min=0), max=last)
-    max_row = srow[gs.long()]  # rows ascend within a key run
-    pos_first = pos_by_row[torch.clamp(groups.first_row, max=last).long()]
-    pos_max = pos_by_row[torch.clamp(max_row, max=last).long()]
-    head = pos_first == 0
-    live = groups.group_len > 0
-    group_min_pos = torch.where(live, torch.where(head, 0, pos_max), n)
-    if row_values is None:
-        first_emit, max_emit = groups.first_row, max_row
-    else:
-        # the same chosen rows in the emitted (global) coordinates
-        first_emit = row_values[torch.clamp(groups.group_start,
-                                            max=last).long()]
-        max_emit = row_values[gs.long()]
-    group_chain_first = torch.where(
-        live, torch.where(head, first_emit, max_emit), -1)
-    return _assemble_chaining(groups, bucket_start, bucket_len, pos_by_row,
-                              group_min_pos.to(I32),
-                              group_chain_first.to(I32), keys, num_buckets,
-                              dense_direct, key_domain, hashfun)
+        with span("hj.build.hash"):
+            row = torch.arange(n, dtype=I32, device=dev)
+            b = bucket_of(hash_key(keys, hashfun), num_buckets)
+            if drop_pad_key:
+                # dead rows park past the last bucket, where the histogram
+                # drops them
+                b = torch.where(keys == UKEY_PAD, num_buckets, b)
+        with span("hj.build.sort"):
+            b_sorted, srow_b = torch.sort(b, stable=True)
+        with span("hj.build.runs"):
+            is_first_b, _, run_start_b, run_len_b = run_boundaries(b_sorted,
+                                                                   n)
+            bucket_start, bucket_len = sorted_histogram(
+                b_sorted, num_buckets, is_first_b, run_len_b)
+        if not early_exit_index or n == 0:
+            return _assemble_chaining(groups, bucket_start, bucket_len,
+                                      empty, empty, empty, keys,
+                                      num_buckets, dense_direct, key_domain,
+                                      hashfun)
+        with span("hj.build.assemble"):
+            rank = row - run_start_b
+            pos_sorted = torch.where(rank == 0, 0, run_len_b - rank)
+            pos_by_row = inverse_permute(srow_b.to(I32), pos_sorted)
+            last = n - 1
+            gs = torch.clamp(groups.group_start
+                             + torch.clamp(groups.group_len - 1, min=0),
+                             max=last)
+            max_row = srow[gs.long()]  # rows ascend within a key run
+            pos_first = pos_by_row[torch.clamp(groups.first_row,
+                                               max=last).long()]
+            pos_max = pos_by_row[torch.clamp(max_row, max=last).long()]
+            head = pos_first == 0
+            live = groups.group_len > 0
+            group_min_pos = torch.where(live, torch.where(head, 0, pos_max),
+                                        n)
+            if row_values is None:
+                first_emit, max_emit = groups.first_row, max_row
+            else:
+                # the same chosen rows in the emitted (global) coordinates
+                first_emit = row_values[torch.clamp(groups.group_start,
+                                                    max=last).long()]
+                max_emit = row_values[gs.long()]
+            group_chain_first = torch.where(
+                live, torch.where(head, first_emit, max_emit), -1)
+            return _assemble_chaining(groups, bucket_start, bucket_len,
+                                      pos_by_row, group_min_pos.to(I32),
+                                      group_chain_first.to(I32), keys,
+                                      num_buckets, dense_direct, key_domain,
+                                      hashfun)
+
+
+def _bucket_sums(ls, bs, validg, cap: int, num_buckets: int):
+    """``(bucket_start, bucket_len)`` of the rows from the group lengths
+    ``ls`` in the order of their sorted buckets ``bs``: each bucket run's
+    segment sum (K3 runs, an int64 cumsum)."""
+    dev = bs.device
+    is_f, _, r_start, r_len = run_boundaries(bs, validg.sum(dtype=I32))
+    csum = torch.cumsum(ls, 0, dtype=I64)
+    seg_end = csum[torch.clamp(r_start + r_len - 1, 0, cap - 1).long()]
+    seg_before = torch.where(
+        r_start > 0, csum[torch.clamp(r_start - 1, min=0).long()], 0)
+    # each run's sum at its bucket; every other entry to a slot of its
+    # own past the histogram
+    slot = torch.arange(cap, dtype=I32, device=dev)
+    tgt = torch.where(is_f, bs, num_buckets + slot)
+    bucket_len = torch.zeros(num_buckets + cap, dtype=I32, device=dev)
+    bucket_len[tgt.long()] = (seg_end - seg_before).to(I32)
+    bucket_len = bucket_len[:num_buckets]
+    bucket_start = torch.cumsum(bucket_len, 0, dtype=I32) - bucket_len
+    return bucket_start, bucket_len
 
 
 def _assemble_chaining(groups, bucket_start, bucket_len, pos_by_row,
                        group_min_pos, group_chain_first, keys, num_buckets,
                        dense_direct, key_domain, hashfun="murmur"):
-    n = keys.shape[0]
-    direct = None
-    direct_shift = 0
-    if dense_direct:
-        # permutation keys: cap == n, ukey[g] == g, singleton groups
-        direct_shift = (n - 1).bit_length()
-        direct = i64_to_u32(groups.first_row.to(I64)
-                            | ((group_min_pos.to(I64) + 1) << direct_shift))
-    key_direct = (key_direct_index(groups, key_domain)
-                  if key_domain is not None and not dense_direct else None)
-    return ChainingTable(bucket_start=bucket_start, bucket_len=bucket_len,
-                         pos_by_row=pos_by_row, keys=keys, direct=direct,
-                         direct_shift=direct_shift, num_buckets=num_buckets,
-                         hashfun=hashfun, groups=groups,
-                         group_min_pos=group_min_pos,
-                         group_chain_first=group_chain_first,
-                         key_direct=key_direct)
+    with span("hj.build.assemble"):
+        n = keys.shape[0]
+        direct = None
+        direct_shift = 0
+        if dense_direct:
+            # permutation keys: cap == n, ukey[g] == g, singleton groups
+            direct_shift = (n - 1).bit_length()
+            direct = i64_to_u32(groups.first_row.to(I64)
+                                | ((group_min_pos.to(I64) + 1)
+                                   << direct_shift))
+        key_direct = (key_direct_index(groups, key_domain)
+                      if key_domain is not None and not dense_direct
+                      else None)
+        return ChainingTable(bucket_start=bucket_start,
+                             bucket_len=bucket_len, pos_by_row=pos_by_row,
+                             keys=keys, direct=direct,
+                             direct_shift=direct_shift,
+                             num_buckets=num_buckets, hashfun=hashfun,
+                             groups=groups, group_min_pos=group_min_pos,
+                             group_chain_first=group_chain_first,
+                             key_direct=key_direct)
 
 
 def shrink_chaining(table: ChainingTable, cap: int) -> ChainingTable:
@@ -471,7 +518,7 @@ def probe_chaining(table: ChainingTable, probe_keys: torch.Tensor,
         if unique:
             live_miss = ~in_range if mask is None else mask & ~in_range
             cmps = torch.where(hit, pos1, 0).to(I64).sum()
-            if bool(live_miss.any()):
+            if host_read(live_miss.any(), "miss.any"):
                 cmps = cmps + torch.where(live_miss, blen_of(pk),
                                           0).to(I64).sum()
         else:
@@ -579,7 +626,8 @@ def materialize_chaining_join(table: ChainingTable, probe: ChainProbeResult,
     if P == 0:
         return (*positional(), total)
     if not sync_free:
-        pick = positional if int(probe.match_count.max()) <= 1 else expanded
+        at_most_one = host_read(probe.match_count.max(), "expand.max") <= 1
+        pick = positional if at_most_one else expanded
         return (*pick(), total)
     at_most_one = probe.match_count.max() <= 1
     out = tuple(torch.where(at_most_one, a, b)

@@ -33,6 +33,8 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
+from ..utils.tracing import host_read
+
 I32 = torch.int32
 I64 = torch.int64
 #: int32 sign bit: ``x ^ SIGN`` maps u32 order onto int32 order
@@ -217,7 +219,7 @@ def is_sorted_ascending(keys: torch.Tensor, unsigned: bool = True) -> bool:
     if keys.shape[0] < 2:
         return True
     k = uorder(keys) if unsigned else keys
-    return bool((k[1:] >= k[:-1]).all())
+    return host_read((k[1:] >= k[:-1]).all(), "sort.presorted")
 
 
 def sort_rows_maybe_skip(keys: torch.Tensor):

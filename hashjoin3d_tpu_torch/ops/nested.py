@@ -32,6 +32,7 @@ from dataclasses import dataclass, replace
 
 import torch
 
+from ..utils.tracing import host_read, span
 from .chaining import _check_probe, _clamped, _direct_probe, _nbytes
 from .chaining import can_use_dense_direct as _chaining_dense_ok
 from .hashing import bucket_of, hash_key
@@ -93,20 +94,24 @@ def _main_chains(groups: GroupIndex, num_buckets: int, hashfun):
     ``ht_nested.hh:299-308``) and a group's main-chain position is its rank
     in its bucket's run."""
     cap = groups.ukey.shape[0]
-    validg = groups.group_len > 0
-    b_main = torch.where(validg,
-                         bucket_of(hash_key(groups.ukey, hashfun),
-                                   num_buckets), num_buckets)
-    # first_row <= n < 2^31 and b_main <= num_buckets < 2^31: both fit
-    packed = (b_main.to(I64) << 32) | groups.first_row.to(I64)
-    pk_s, gid_s = torch.sort(packed, stable=True)
-    bm_s = (pk_s >> 32).to(I32)
-    is_first_m, _, run_start, run_len_m = run_boundaries(
-        bm_s, validg.sum(dtype=I32))
-    _, bucket_main_len = sorted_histogram(bm_s, num_buckets, is_first_m,
-                                          run_len_m)
-    pos_s = torch.arange(cap, dtype=I32, device=bm_s.device) - run_start
-    return inverse_permute(gid_s.to(I32), pos_s), bucket_main_len
+    with span("hj.build.hash"):
+        validg = groups.group_len > 0
+        b_main = torch.where(validg,
+                             bucket_of(hash_key(groups.ukey, hashfun),
+                                       num_buckets), num_buckets)
+    with span("hj.build.sort"):
+        # first_row <= n < 2^31 and b_main <= num_buckets < 2^31: both fit
+        packed = (b_main.to(I64) << 32) | groups.first_row.to(I64)
+        pk_s, gid_s = torch.sort(packed, stable=True)
+        bm_s = (pk_s >> 32).to(I32)
+    with span("hj.build.runs"):
+        is_first_m, _, run_start, run_len_m = run_boundaries(
+            bm_s, validg.sum(dtype=I32))
+        _, bucket_main_len = sorted_histogram(bm_s, num_buckets, is_first_m,
+                                              run_len_m)
+    with span("hj.build.assemble"):
+        pos_s = torch.arange(cap, dtype=I32, device=bm_s.device) - run_start
+        return inverse_permute(gid_s.to(I32), pos_s), bucket_main_len
 
 
 def build_nested(keys: torch.Tensor, num_buckets: int,
@@ -120,26 +125,33 @@ def build_nested(keys: torch.Tensor, num_buckets: int,
     ``algebra.hh:386-389``).  ``dense_direct`` (permutation keys) adds the
     packed ``direct`` image, ``key_domain`` the key -> group map."""
     check_carrier(keys)
-    n = keys.shape[0]
-    groups = key_group_index(keys, valid)
-    main_pos_by_group, bucket_main_len = _main_chains(groups, num_buckets,
-                                                      hashfun)
-    direct = None
-    direct_shift = 0
-    if dense_direct:
-        # permutation keys: ukey[i] == i, one row a group, key == group id
-        direct_shift = (n - 1).bit_length()
-        row = torch.arange(n, dtype=I64, device=keys.device)
-        pos1 = main_pos_by_group[keys.long()].to(I64) + 1
-        direct = inverse_permute(keys, i64_to_u32(row
-                                                  | (pos1 << direct_shift)))
-    key_direct = (key_direct_index(groups, key_domain)
-                  if key_domain is not None and not dense_direct else None)
-    return NestedTable(groups=groups, main_pos_by_group=main_pos_by_group,
-                       bucket_main_len=bucket_main_len, keys=keys,
-                       num_buckets=num_buckets, direct=direct,
-                       direct_shift=direct_shift, key_direct=key_direct,
-                       hashfun=hashfun)
+    with span("hj.build"):
+        n = keys.shape[0]
+        with span("hj.build.runs"):
+            groups = key_group_index(keys, valid)
+        main_pos_by_group, bucket_main_len = _main_chains(groups,
+                                                          num_buckets,
+                                                          hashfun)
+        with span("hj.build.assemble"):
+            direct = None
+            direct_shift = 0
+            if dense_direct:
+                # permutation keys: ukey[i] == i, one row a group, key ==
+                # group id
+                direct_shift = (n - 1).bit_length()
+                row = torch.arange(n, dtype=I64, device=keys.device)
+                pos1 = main_pos_by_group[keys.long()].to(I64) + 1
+                direct = inverse_permute(
+                    keys, i64_to_u32(row | (pos1 << direct_shift)))
+            key_direct = (key_direct_index(groups, key_domain)
+                          if key_domain is not None and not dense_direct
+                          else None)
+            return NestedTable(groups=groups,
+                               main_pos_by_group=main_pos_by_group,
+                               bucket_main_len=bucket_main_len, keys=keys,
+                               num_buckets=num_buckets, direct=direct,
+                               direct_shift=direct_shift,
+                               key_direct=key_direct, hashfun=hashfun)
 
 
 def build_nested_host(keys: torch.Tensor, num_buckets: int,
@@ -164,33 +176,43 @@ def build_nested_host(keys: torch.Tensor, num_buckets: int,
         cap = group_capacity(n_keys, keys.shape[0])
         return _build_nested_fused(keys, cap, num_buckets, dense_direct,
                                    key_domain, hashfun)
-    skey, srow, nk = sort_with_rows(keys)
-    cap = group_capacity(int(nk), keys.shape[0])  # the one host read
-    return _build_nested_phase2(keys, skey, srow, cap, num_buckets,
-                                dense_direct, key_domain, hashfun)
+    with span("hj.build"):
+        with span("hj.build.sort"):
+            skey, srow, nk = sort_with_rows(keys)
+            # the one host read
+            cap = group_capacity(host_read(nk, "build.n_keys"),
+                                 keys.shape[0])
+        return _build_nested_phase2(keys, skey, srow, cap, num_buckets,
+                                    dense_direct, key_domain, hashfun)
 
 
 def _build_nested_dense(keys: torch.Tensor, num_buckets: int,
                         hashfun: str = "murmur") -> NestedTable:
     """Dense-direct 3D build: every row is its own MainNode, and its
     main-chain position is its ARRIVAL rank in its bucket (tail append)."""
-    n = keys.shape[0]
-    row = torch.arange(n, dtype=I32, device=keys.device)
-    b = bucket_of(hash_key(keys, hashfun), num_buckets)
-    b_sorted, srow = torch.sort(b, stable=True)
-    is_first_b, _, run_start_b, run_len_b = run_boundaries(b_sorted, n)
-    _, bucket_main_len = sorted_histogram(b_sorted, num_buckets, is_first_b,
-                                          run_len_b)
-    pos_by_row = inverse_permute(srow.to(I32), row - run_start_b)
-    direct_shift = (n - 1).bit_length()
-    packed = row.to(I64) | ((pos_by_row.to(I64) + 1) << direct_shift)
-    direct = inverse_permute(keys, i64_to_u32(packed))
-    empty = torch.zeros(0, dtype=I32, device=keys.device)
-    return NestedTable(groups=empty_group_index(n, keys.device),
-                       main_pos_by_group=empty,
-                       bucket_main_len=bucket_main_len, keys=keys,
-                       num_buckets=num_buckets, direct=direct,
-                       direct_shift=direct_shift, hashfun=hashfun)
+    with span("hj.build"):
+        n = keys.shape[0]
+        with span("hj.build.hash"):
+            row = torch.arange(n, dtype=I32, device=keys.device)
+            b = bucket_of(hash_key(keys, hashfun), num_buckets)
+        with span("hj.build.sort"):
+            b_sorted, srow = torch.sort(b, stable=True)
+        with span("hj.build.runs"):
+            is_first_b, _, run_start_b, run_len_b = run_boundaries(b_sorted,
+                                                                   n)
+            _, bucket_main_len = sorted_histogram(b_sorted, num_buckets,
+                                                  is_first_b, run_len_b)
+        with span("hj.build.assemble"):
+            pos_by_row = inverse_permute(srow.to(I32), row - run_start_b)
+            direct_shift = (n - 1).bit_length()
+            packed = row.to(I64) | ((pos_by_row.to(I64) + 1) << direct_shift)
+            direct = inverse_permute(keys, i64_to_u32(packed))
+            empty = torch.zeros(0, dtype=I32, device=keys.device)
+            return NestedTable(groups=empty_group_index(n, keys.device),
+                               main_pos_by_group=empty,
+                               bucket_main_len=bucket_main_len, keys=keys,
+                               num_buckets=num_buckets, direct=direct,
+                               direct_shift=direct_shift, hashfun=hashfun)
 
 
 def _build_nested_fused(keys: torch.Tensor, cap: int, num_buckets: int,
@@ -202,11 +224,13 @@ def _build_nested_fused(keys: torch.Tensor, cap: int, num_buckets: int,
     ``rows`` (a distributed shard's global row ids) ride the phase-1 sort
     and become ``group_rows``; ``drop_pad_key`` kills the all-ones key's
     rows."""
-    skey, srow, _ = sort_with_rows(keys)
-    rows_s = None if rows is None else rows.to(I32)[srow.long()]
-    return _build_nested_phase2(keys, skey, srow, cap, num_buckets,
-                                dense_direct, key_domain, hashfun,
-                                drop_pad_key, rows_s)
+    with span("hj.build"):
+        with span("hj.build.sort"):
+            skey, srow, _ = sort_with_rows(keys)
+            rows_s = None if rows is None else rows.to(I32)[srow.long()]
+        return _build_nested_phase2(keys, skey, srow, cap, num_buckets,
+                                    dense_direct, key_domain, hashfun,
+                                    drop_pad_key, rows_s)
 
 
 def _build_nested_phase2(keys: torch.Tensor, skey: torch.Tensor,
@@ -221,29 +245,35 @@ def _build_nested_phase2(keys: torch.Tensor, skey: torch.Tensor,
     zeroed (:func:`~.layout.drop_pad_groups`), so they enter no main
     chain and match nothing.  ``row_values`` (key-sorted) replaces the
     emitted ``group_rows``."""
-    n = keys.shape[0]
-    groups = compact_group_index(keys, skey, srow, cap,
-                                 row_values=row_values)
-    if drop_pad_key:
-        groups = drop_pad_groups(groups)
-    main_pos_by_group, bucket_main_len = _main_chains(groups, num_buckets,
-                                                      hashfun)
-
-    direct = None
-    direct_shift = 0
-    if dense_direct:
-        # permutation keys: cap == n, ukey[g] == g, singleton groups
-        direct_shift = (n - 1).bit_length()
-        direct = i64_to_u32(groups.first_row.to(I64)
-                            | ((main_pos_by_group.to(I64) + 1)
-                               << direct_shift))
-    key_direct = (key_direct_index(groups, key_domain)
-                  if key_domain is not None and not dense_direct else None)
-    return NestedTable(groups=groups, main_pos_by_group=main_pos_by_group,
-                       bucket_main_len=bucket_main_len, keys=keys,
-                       num_buckets=num_buckets, direct=direct,
-                       direct_shift=direct_shift, key_direct=key_direct,
-                       hashfun=hashfun)
+    with span("hj.build"):
+        n = keys.shape[0]
+        with span("hj.build.runs"):
+            groups = compact_group_index(keys, skey, srow, cap,
+                                         row_values=row_values)
+        if drop_pad_key:
+            with span("hj.build.assemble"):
+                groups = drop_pad_groups(groups)
+        main_pos_by_group, bucket_main_len = _main_chains(groups,
+                                                          num_buckets,
+                                                          hashfun)
+        with span("hj.build.assemble"):
+            direct = None
+            direct_shift = 0
+            if dense_direct:
+                # permutation keys: cap == n, ukey[g] == g, singleton groups
+                direct_shift = (n - 1).bit_length()
+                direct = i64_to_u32(groups.first_row.to(I64)
+                                    | ((main_pos_by_group.to(I64) + 1)
+                                       << direct_shift))
+            key_direct = (key_direct_index(groups, key_domain)
+                          if key_domain is not None and not dense_direct
+                          else None)
+            return NestedTable(groups=groups,
+                               main_pos_by_group=main_pos_by_group,
+                               bucket_main_len=bucket_main_len, keys=keys,
+                               num_buckets=num_buckets, direct=direct,
+                               direct_shift=direct_shift,
+                               key_direct=key_direct, hashfun=hashfun)
 
 
 def shrink_nested(table: NestedTable, cap: int) -> NestedTable:
@@ -299,7 +329,7 @@ def probe_nested(table: NestedTable, probe_keys: torch.Tensor,
             table.direct, table.direct_shift, pk, mask)
         cmps = torch.where(hit, pos1, 0).to(I64).sum()
         live_miss = ~in_range if mask is None else mask & ~in_range
-        if bool(live_miss.any()):
+        if host_read(live_miss.any(), "miss.any"):
             cmps = cmps + torch.where(live_miss, main_len_of(pk),
                                       0).to(I64).sum()
         return NestedBatch(probe_row=rows,

@@ -37,6 +37,7 @@ from .layout import (I32, I64, SIGN, expand, inverse_permute,
                      is_sorted_ascending, same_key_width, shr, uorder)
 from .sort import (probe_sort_chunk, sort_segmented, sort_segmented_1op,
                    window_for_chunk)
+from ..utils.tracing import host_read, span
 from .windowed import DEFAULT_C, DEFAULT_W, windowed_lookup_covered
 
 ROUTE_WINDOWED, ROUTE_PATCHED, ROUTE_GATHER = 0, 1, 2
@@ -62,13 +63,15 @@ class _suppress_routes:
 
 def _with_route(fn):
     """Add ``route_worst`` / ``route_nbad`` (max over the strand's
-    safe_lookups) to a strand's output dict."""
+    safe_lookups) to a strand's output dict; the strand runs in the
+    ``hj.probe`` span."""
 
     @functools.wraps(fn)
     def wrapper(*args, **kwargs):
         _route_records.append([])
         try:
-            out = fn(*args, **kwargs)
+            with span("hj.probe"):
+                out = fn(*args, **kwargs)
         finally:
             rec = _route_records.pop()
         out = dict(out)
@@ -110,7 +113,7 @@ def safe_lookup(values: torch.Tensor, keys: torch.Tensor,
     nchunks = kp.shape[0] // C
     out, bad, nbad = windowed_lookup_covered(_pad_table(values, W), kp, T,
                                              C=C, W=W)
-    nbad = int(nbad)
+    nbad = host_read(nbad, "lookup.route")
     cap = min(max(max_patch, nchunks // 64), nchunks)
     route = (ROUTE_WINDOWED if nbad == 0 else
              ROUTE_PATCHED if nbad <= cap else ROUTE_GATHER)
@@ -169,29 +172,34 @@ def _sort_probes(pk: torch.Tensor, domain: int | None = None) -> SortedProbes:
     (:func:`packed_key_bits`), wider streams the 2-op K4 route (past 2^18
     keys a segment, the library's).  An already ascending stream is not
     sorted at all."""
-    P = pk.shape[0]
-    rowv = torch.arange(P, dtype=I32, device=pk.device)
-    chunk = probe_sort_chunk(P, domain)
-    W = window_for_chunk(chunk, domain) if domain else DEFAULT_W
-    if chunk is None:
-        if domain:
-            # global-sort sparse-stream margin (see _sort_bucket_ids)
-            W = max(W, stride_params(domain / max(P, 1), margin=2.0)[0])
-        if is_sorted_ascending(pk):
-            return SortedProbes(pk, rowv, W, None)
-        return SortedProbes(*_sort_global(pk), W, None)
+    with span("hj.probe.sort"):
+        P = pk.shape[0]
+        rowv = torch.arange(P, dtype=I32, device=pk.device)
+        chunk = probe_sort_chunk(P, domain)
+        W = window_for_chunk(chunk, domain) if domain else DEFAULT_W
+        if chunk is None:
+            if domain:
+                # global-sort sparse-stream margin (see _sort_bucket_ids)
+                W = max(W, stride_params(domain / max(P, 1),
+                                         margin=2.0)[0])
+            if is_sorted_ascending(pk):
+                return SortedProbes(pk, rowv, W, None)
+            return SortedProbes(*_sort_global(pk), W, None)
 
-    if is_sorted_ascending(pk):
-        return SortedProbes(pk, rowv, W, chunk)
-    key_bits = packed_key_bits(chunk, domain)
-    if key_bits is not None and bool(((pk >> key_bits) == 0).all()):
-        sk, lid = bitonic_sort_packed_segmented(pk, chunk, key_bits)
-        seg_base = torch.arange(P // chunk, dtype=I32, device=pk.device)
-        sr = (lid.view(-1, chunk) + (seg_base * chunk)[:, None]).view(P)
-        return SortedProbes(sk, sr, W, chunk)
-    # duplicate probes of one key are interchangeable (identical match
-    # sets), so the sort may drop its row-id tiebreak
-    return SortedProbes(*sort_segmented(pk, chunk, stable=False), W, chunk)
+        if is_sorted_ascending(pk):
+            return SortedProbes(pk, rowv, W, chunk)
+        key_bits = packed_key_bits(chunk, domain)
+        if key_bits is not None and host_read(
+                ((pk >> key_bits) == 0).all(), "sort.key_bits"):
+            sk, lid = bitonic_sort_packed_segmented(pk, chunk, key_bits)
+            seg_base = torch.arange(P // chunk, dtype=I32, device=pk.device)
+            sr = (lid.view(-1, chunk)
+                  + (seg_base * chunk)[:, None]).view(P)
+            return SortedProbes(sk, sr, W, chunk)
+        # duplicate probes of one key are interchangeable (identical match
+        # sets), so the sort may drop its row-id tiebreak
+        return SortedProbes(*sort_segmented(pk, chunk, stable=False), W,
+                            chunk)
 
 
 def _sort_live(pk: torch.Tensor, mask: torch.Tensor):
@@ -200,9 +208,10 @@ def _sort_live(pk: torch.Tensor, mask: torch.Tensor):
     int32 carrier, and their liveness rides the sort, so a live key
     0xFFFFFFFF still counts its miss walk.  Returns ``(sorted keys, live,
     original rows)``."""
-    pk_m = torch.where(mask, pk, -1)
-    s, idx = torch.sort(pk_m ^ SIGN, stable=True)
-    return s ^ SIGN, mask[idx], idx.to(I32)
+    with span("hj.probe.sort"):
+        pk_m = torch.where(mask, pk, -1)
+        s, idx = torch.sort(pk_m ^ SIGN, stable=True)
+        return s ^ SIGN, mask[idx], idx.to(I32)
 
 
 def _sort_bucket_ids(b: torch.Tensor, num_buckets: int):
@@ -221,13 +230,15 @@ def _miss_chain_cmps(table_bucket_len, num_buckets, skey, miss_mask,
                      hashfun="murmur") -> torch.Tensor:
     """Comparisons of the missing probes: each walks its whole bucket chain
     (``algebra.hh:640-658``).  Runs only when a probe misses."""
-    if not bool(miss_mask.any()):
-        return torch.zeros((), dtype=I64, device=skey.device)
-    b = bucket_of(hash_key(skey, hashfun), num_buckets)
-    b = torch.where(miss_mask, b, -1)
-    b_sorted, Wb = _sort_bucket_ids(b, num_buckets)
-    with _suppress_routes():
-        return safe_lookup(table_bucket_len, b_sorted, W=Wb).to(I64).sum()
+    with span("hj.probe.miss"):
+        if not host_read(miss_mask.any(), "miss.any"):
+            return torch.zeros((), dtype=I64, device=skey.device)
+        b = bucket_of(hash_key(skey, hashfun), num_buckets)
+        b = torch.where(miss_mask, b, -1)
+        b_sorted, Wb = _sort_bucket_ids(b, num_buckets)
+        with _suppress_routes():
+            return safe_lookup(table_bucket_len, b_sorted,
+                               W=Wb).to(I64).sum()
 
 
 @_with_route
@@ -260,32 +271,35 @@ def direct_probe_strand_sorted(table, pk: torch.Tensor, unique: bool = False,
         skey, live, srow = _sort_live(pk, mask)
         # the segment policy's window, though the masked sort is global
         Wk = window_for_chunk(probe_sort_chunk(pk.shape[0], n), n)
-    # the int32 carrier already reads keys >= 2^31 as negative = miss
-    d = safe_lookup(direct, skey, W=Wk)
-    hit = d != 0  # packed words carry a 1-based chain position: never 0
-    if live is not None:
-        hit &= live
-    shift = table.direct_shift
-    row = d & ((1 << shift) - 1)
+    with span("hj.probe.lookup"):
+        # the int32 carrier already reads keys >= 2^31 as negative = miss
+        d = safe_lookup(direct, skey, W=Wk)
+        hit = d != 0  # packed words carry a 1-based chain position
+        if live is not None:
+            hit &= live
+        shift = table.direct_shift
+        row = d & ((1 << shift) - 1)
+        miss = ~hit if live is None else live & ~hit
 
     blen = table.bucket_main_len if nested else table.bucket_len
-    miss = ~hit if live is None else live & ~hit
     miss_cmps = _miss_chain_cmps(blen, table.num_buckets, skey, miss,
                                  table.hashfun)
-    if unique or nested:
-        walked = shr(d, shift) if shift else d
-    else:
+    if not (unique or nested):
         # no early exit: every hit walks its key's whole chain
-        walked = safe_lookup(table.chain_by_key, skey, W=Wk)
-    cmps = torch.where(hit, walked, 0).to(I64).sum() + miss_cmps
-    m = hit.to(I64).sum()
-    out = dict(
-        probe_row=torch.where(hit, srow, -1),
-        build_row=torch.where(hit, row, -1),
-        total=m,
-        c_htProbe=m,
-        c_htProbeCmp=cmps,
-    )
+        with span("hj.probe.lookup"):
+            walked = safe_lookup(table.chain_by_key, skey, W=Wk)
+    with span("hj.probe.emit"):
+        if unique or nested:
+            walked = shr(d, shift) if shift else d
+        cmps = torch.where(hit, walked, 0).to(I64).sum() + miss_cmps
+        m = hit.to(I64).sum()
+        out = dict(
+            probe_row=torch.where(hit, srow, -1),
+            build_row=torch.where(hit, row, -1),
+            total=m,
+            c_htProbe=m,
+            c_htProbeCmp=cmps,
+        )
     if nested:
         out["c_unnest"] = m
     return out
@@ -310,12 +324,13 @@ def _keydirect_probe(table, skey: torch.Tensor, g: torch.Tensor | None = None,
     and iota probes: the key_direct image itself); ``live`` keeps dead
     rows out of the miss walk.  The g stream inherits the key stream's
     order, so one window width ``W`` serves both."""
-    if g is None:
-        g = _key_groups(table, skey, W)
-    hit = g >= 0
-    glen = safe_lookup(table.groups.group_len, g, W=W)
-    pos1 = safe_lookup(table.main_pos_by_group + 1, g, W=W)
-    miss = ~hit if live is None else live & ~hit
+    with span("hj.probe.lookup"):
+        if g is None:
+            g = _key_groups(table, skey, W)
+        hit = g >= 0
+        glen = safe_lookup(table.groups.group_len, g, W=W)
+        pos1 = safe_lookup(table.main_pos_by_group + 1, g, W=W)
+        miss = ~hit if live is None else live & ~hit
     miss_cmps = _miss_chain_cmps(table.bucket_main_len, table.num_buckets,
                                  skey, miss, table.hashfun)
     return g, hit, glen, pos1, miss_cmps
@@ -356,30 +371,31 @@ def _probe_order(table, pk, probes_iota, probes_permutation, mask,
     image as the group stream (``g``).  ``mask`` sorts globally with
     liveness riding (:func:`_sort_live`); anything else takes
     :func:`_sort_probes`."""
-    P = pk.shape[0]
-    kd = table.key_direct
-    if srow_values is not None and not presorted:
-        raise ValueError("srow_values needs presorted=True")
-    if (presorted or mask is not None) and (probes_iota
-                                            or probes_permutation):
-        raise ValueError("presorted / mask exclude probes_iota / "
-                         "probes_permutation")
-    W = lookup_w or DEFAULT_W
-    if presorted:
-        skey = pk if mask is None else torch.where(mask, pk, -1)
-        srow = (torch.arange(P, dtype=I32, device=pk.device)
-                if srow_values is None else srow_values.to(I32))
-        return skey, srow, None, mask, W, segment
-    if mask is not None:
-        skey, live, srow = _sort_live(pk, mask)
-        return skey, srow, None, live, W, segment
-    if probes_iota or probes_permutation:
-        rowv = torch.arange(P, dtype=I32, device=pk.device)
-        # sorted(permutation of [0, P)) is the identity; srow its inverse
-        srow = None if probes_iota else inverse_permute(pk, rowv)
-        return rowv, srow, _iota_groups(kd, P), None, DEFAULT_W, None
-    skey, srow, Wk, seg = _sort_probes(pk, domain=kd.shape[0])
-    return skey, srow, None, None, Wk, seg
+    with span("hj.probe.sort"):
+        P = pk.shape[0]
+        kd = table.key_direct
+        if srow_values is not None and not presorted:
+            raise ValueError("srow_values needs presorted=True")
+        if (presorted or mask is not None) and (probes_iota
+                                                or probes_permutation):
+            raise ValueError("presorted / mask exclude probes_iota / "
+                             "probes_permutation")
+        W = lookup_w or DEFAULT_W
+        if presorted:
+            skey = pk if mask is None else torch.where(mask, pk, -1)
+            srow = (torch.arange(P, dtype=I32, device=pk.device)
+                    if srow_values is None else srow_values.to(I32))
+            return skey, srow, None, mask, W, segment
+        if mask is not None:
+            skey, live, srow = _sort_live(pk, mask)
+            return skey, srow, None, live, W, segment
+        if probes_iota or probes_permutation:
+            rowv = torch.arange(P, dtype=I32, device=pk.device)
+            # sorted(permutation of [0, P)) is the identity; srow its inverse
+            srow = None if probes_iota else inverse_permute(pk, rowv)
+            return rowv, srow, _iota_groups(kd, P), None, DEFAULT_W, None
+        skey, srow, Wk, seg = _sort_probes(pk, domain=kd.shape[0])
+        return skey, srow, None, None, Wk, seg
 
 
 @_with_route
@@ -419,46 +435,53 @@ def keydirect_nested_strand_sorted(table, pk: torch.Tensor, out_size: int,
         srow_values, lookup_w, segment)
     g, hit, glen, pos1, miss_cmps = _keydirect_probe(table, skey, g=g0,
                                                      live=live, W=Wk)
-    m = hit.to(I64).sum()
-    cmps = pos1.to(I64).sum() + miss_cmps
+    with span("hj.probe.emit"):
+        m = hit.to(I64).sum()
+        cmps = pos1.to(I64).sum() + miss_cmps
+        if not do_unnest:
+            prow = skey if srow is None else srow  # iota: the rows
+            return dict(nested_g=torch.where(hit, g, -1), nested_hit=hit,
+                        nested_probe_row=prow, c_htProbe=m,
+                        c_htProbeCmp=cmps, c_top=m,
+                        c_expand_total=glen.to(I64).sum())
 
-    if not do_unnest:
-        prow = skey if srow is None else srow  # iota: the rows themselves
-        return dict(nested_g=torch.where(hit, g, -1), nested_hit=hit,
-                    nested_probe_row=prow, c_htProbe=m, c_htProbeCmp=cmps,
-                    c_top=m, c_expand_total=glen.to(I64).sum())
-
-    gstart_by_p = safe_lookup(table.groups.group_start, g, W=Wk)
-    p, within, valid, total = expand(glen, out_size)[:4]
-    # p-keyed lookups advance by ~P/out_size per output slot
-    Wp, Cp = stride_params(P / out_size)
-    gst = safe_lookup(gstart_by_p, p, W=Wp, C=Cp)
-    # ascending within-group emission keeps group_rows positions
-    # near-contiguous, so the windowed lookup covers even a million-row
-    # group; pairs are multiset-equal to the reference's [first, rest LIFO]
-    Wr, Cr = rows_window(P, seg, table.groups.group_rows.shape[0], out_size)
-    build_row = safe_lookup(table.groups.group_rows, gst + within, W=Wr,
-                            C=Cr)
-    probe_row = p if srow is None else safe_lookup(srow, p, W=Wp, C=Cp)
-    total = total.to(I64)
-    return dict(
-        probe_row=torch.where(valid, probe_row, -1),
-        build_row=torch.where(valid, build_row, -1),
-        total=total,
-        c_htProbe=m, c_htProbeCmp=cmps,
-        c_unnest=total,
-    )
+    with span("hj.probe.lookup"):
+        gstart_by_p = safe_lookup(table.groups.group_start, g, W=Wk)
+    with span("hj.probe.unnest"):
+        p, within, valid, total = expand(glen, out_size)[:4]
+        # p-keyed lookups advance by ~P/out_size per output slot
+        Wp, Cp = stride_params(P / out_size)
+        gst = safe_lookup(gstart_by_p, p, W=Wp, C=Cp)
+        # ascending within-group emission keeps group_rows positions
+        # near-contiguous, so the windowed lookup covers even a
+        # million-row group; pairs are multiset-equal to the reference's
+        # [first, rest LIFO]
+        Wr, Cr = rows_window(P, seg, table.groups.group_rows.shape[0],
+                             out_size)
+        build_row = safe_lookup(table.groups.group_rows, gst + within,
+                                W=Wr, C=Cr)
+        probe_row = p if srow is None else safe_lookup(srow, p, W=Wp, C=Cp)
+    with span("hj.probe.emit"):
+        total = total.to(I64)
+        return dict(
+            probe_row=torch.where(valid, probe_row, -1),
+            build_row=torch.where(valid, build_row, -1),
+            total=total,
+            c_htProbe=m, c_htProbeCmp=cmps,
+            c_unnest=total,
+        )
 
 
 def _full_chain_cmps(table, skey: torch.Tensor, live=None) -> torch.Tensor:
     """Comparisons of probes that walk their whole bucket chain (no early
     exit): the bucket-length sum over the live probes' sorted bucket-id
     stream (hash-ordered, so it gets its own sort)."""
-    b = bucket_of(hash_key(skey, table.hashfun), table.num_buckets)
-    if live is not None:
-        b = torch.where(live, b, -1)
-    b_sorted, Wb = _sort_bucket_ids(b, table.num_buckets)
-    return safe_lookup(table.bucket_len, b_sorted, W=Wb).to(I64).sum()
+    with span("hj.probe.miss"):
+        b = bucket_of(hash_key(skey, table.hashfun), table.num_buckets)
+        if live is not None:
+            b = torch.where(live, b, -1)
+        b_sorted, Wb = _sort_bucket_ids(b, table.num_buckets)
+        return safe_lookup(table.bucket_len, b_sorted, W=Wb).to(I64).sum()
 
 
 @_with_route
@@ -489,47 +512,51 @@ def keydirect_chaining_strand_sorted(table, pk: torch.Tensor, out_size: int,
     skey, srow, g, live, Wk, seg = _probe_order(
         table, pk, False, probes_permutation, mask, presorted, srow_values,
         lookup_w)
-    if g is None:
-        g = _key_groups(table, skey, Wk)
-    hit = g >= 0
-    glen = safe_lookup(table.groups.group_len, g, W=Wk)
-
+    if unique and table.group_min_pos.shape[0] == 0:
+        raise ValueError(
+            "table was built with early_exit_index=False; "
+            "IsBuildKeyUnique probes need the chain-position index")
+    with span("hj.probe.lookup"):
+        if g is None:
+            g = _key_groups(table, skey, Wk)
+        hit = g >= 0
+        glen = safe_lookup(table.groups.group_len, g, W=Wk)
+        if unique:
+            pos1 = safe_lookup(table.group_min_pos + 1, g, W=Wk)
+            # emission source: the first matching row in chain order
+            row_by_p = safe_lookup(table.group_chain_first + 1, g, W=Wk) - 1
+            miss = ~hit if live is None else live & ~hit
+        else:
+            gstart_by_p = safe_lookup(table.groups.group_start, g, W=Wk)
     if unique:
-        if table.group_min_pos.shape[0] == 0:
-            raise ValueError(
-                "table was built with early_exit_index=False; "
-                "IsBuildKeyUnique probes need the chain-position index")
-        counts = hit.to(I32)
-        m = hit.to(I64).sum()
-        pos1 = safe_lookup(table.group_min_pos + 1, g, W=Wk)
-        miss = ~hit if live is None else live & ~hit
-        cmps = pos1.to(I64).sum() + _miss_chain_cmps(
-            table.bucket_len, table.num_buckets, skey, miss, table.hashfun)
-        # emission source: the first matching row in chain order
-        row_by_p = safe_lookup(table.group_chain_first + 1, g, W=Wk) - 1
+        miss_cmps = _miss_chain_cmps(table.bucket_len, table.num_buckets,
+                                     skey, miss, table.hashfun)
     else:
-        counts = glen
-        m = glen.to(I64).sum()
-        cmps = _full_chain_cmps(table, skey, live)
+        miss_cmps = _full_chain_cmps(table, skey, live)
+    with span("hj.probe.emit"):
+        counts = hit.to(I32) if unique else glen
+        m = counts.to(I64).sum()
+        cmps = pos1.to(I64).sum() + miss_cmps if unique else miss_cmps
 
-    p, within, valid, total = expand(counts, out_size)[:4]
-    Wp, Cp = stride_params(P / out_size)
-    if unique:
-        build_row = safe_lookup(row_by_p, p, W=Wp, C=Cp)
-    else:
-        gstart_by_p = safe_lookup(table.groups.group_start, g, W=Wk)
-        gst = safe_lookup(gstart_by_p, p, W=Wp, C=Cp)
-        Wr, Cr = rows_window(P, seg, table.groups.group_rows.shape[0],
-                             out_size)
-        build_row = safe_lookup(table.groups.group_rows, gst + within,
-                                W=Wr, C=Cr)
-    probe_row = safe_lookup(srow, p, W=Wp, C=Cp)
-    return dict(
-        probe_row=torch.where(valid, probe_row, -1),
-        build_row=torch.where(valid, build_row, -1),
-        total=total.to(I64),
-        c_htProbe=m, c_htProbeCmp=cmps,
-    )
+    with span("hj.probe.unnest"):
+        p, within, valid, total = expand(counts, out_size)[:4]
+        Wp, Cp = stride_params(P / out_size)
+        if unique:
+            build_row = safe_lookup(row_by_p, p, W=Wp, C=Cp)
+        else:
+            gst = safe_lookup(gstart_by_p, p, W=Wp, C=Cp)
+            Wr, Cr = rows_window(P, seg, table.groups.group_rows.shape[0],
+                                 out_size)
+            build_row = safe_lookup(table.groups.group_rows, gst + within,
+                                    W=Wr, C=Cr)
+        probe_row = safe_lookup(srow, p, W=Wp, C=Cp)
+    with span("hj.probe.emit"):
+        return dict(
+            probe_row=torch.where(valid, probe_row, -1),
+            build_row=torch.where(valid, build_row, -1),
+            total=total.to(I64),
+            c_htProbe=m, c_htProbeCmp=cmps,
+        )
 
 
 def _merge_groups(ukey: torch.Tensor, pk: torch.Tensor):
@@ -577,34 +604,42 @@ def merged_nested_strand_sorted(table, pk: torch.Tensor, out_size: int,
     _check_device(pk, table.groups.ukey)
     ukey = table.groups.ukey
     M = ukey.shape[0] + pk.shape[0]
-    skey, g, is_probe, prow_by_pos = _merge_groups(ukey, pk)
-    glen = safe_lookup(table.groups.group_len, g)
-    hit = is_probe & (g >= 0) & (glen > 0)
-    pos1 = safe_lookup(table.main_pos_by_group + 1, g)
+    with span("hj.probe.sort"):
+        skey, g, is_probe, prow_by_pos = _merge_groups(ukey, pk)
+    with span("hj.probe.lookup"):
+        glen = safe_lookup(table.groups.group_len, g)
+        hit = is_probe & (g >= 0) & (glen > 0)
+        pos1 = safe_lookup(table.main_pos_by_group + 1, g)
+        miss = is_probe & ~hit
     miss_cmps = _miss_chain_cmps(table.bucket_main_len, table.num_buckets,
-                                 skey, is_probe & ~hit, table.hashfun)
-    m = hit.to(I64).sum()
-    # padding slots have no main position: gate by hit
-    cmps = torch.where(hit, pos1, 0).to(I64).sum() + miss_cmps
-    counts = torch.where(hit, glen, 0)
-    if not do_unnest:
-        return dict(c_htProbe=m, c_htProbeCmp=cmps,
-                    c_expand_total=counts.to(I64).sum())
+                                 skey, miss, table.hashfun)
+    with span("hj.probe.emit"):
+        m = hit.to(I64).sum()
+        # padding slots have no main position: gate by hit
+        cmps = torch.where(hit, pos1, 0).to(I64).sum() + miss_cmps
+        counts = torch.where(hit, glen, 0)
+        if not do_unnest:
+            return dict(c_htProbe=m, c_htProbeCmp=cmps,
+                        c_expand_total=counts.to(I64).sum())
 
-    gstart_by_pos = safe_lookup(table.groups.group_start, g)
-    p, within, valid, total = expand(counts, out_size)[:4]
-    Wp, Cp = stride_params(M / out_size)
-    gst = safe_lookup(gstart_by_pos, p, W=Wp, C=Cp)
-    build_row = safe_lookup(table.groups.group_rows, gst + within)
-    probe_row = safe_lookup(torch.clamp(prow_by_pos, min=0), p, W=Wp, C=Cp)
-    total = total.to(I64)
-    return dict(
-        probe_row=torch.where(valid, probe_row, -1),
-        build_row=torch.where(valid, build_row, -1),
-        total=total,
-        c_htProbe=m, c_htProbeCmp=cmps,
-        c_unnest=total,
-    )
+    with span("hj.probe.lookup"):
+        gstart_by_pos = safe_lookup(table.groups.group_start, g)
+    with span("hj.probe.unnest"):
+        p, within, valid, total = expand(counts, out_size)[:4]
+        Wp, Cp = stride_params(M / out_size)
+        gst = safe_lookup(gstart_by_pos, p, W=Wp, C=Cp)
+        build_row = safe_lookup(table.groups.group_rows, gst + within)
+        probe_row = safe_lookup(torch.clamp(prow_by_pos, min=0), p, W=Wp,
+                                C=Cp)
+    with span("hj.probe.emit"):
+        total = total.to(I64)
+        return dict(
+            probe_row=torch.where(valid, probe_row, -1),
+            build_row=torch.where(valid, build_row, -1),
+            total=total,
+            c_htProbe=m, c_htProbeCmp=cmps,
+            c_unnest=total,
+        )
 
 
 @_with_route
@@ -627,55 +662,68 @@ def merged_chaining_strand_sorted(table, pk: torch.Tensor, out_size: int,
     _check_device(pk, table.groups.ukey)
     ukey = table.groups.ukey
     M = ukey.shape[0] + pk.shape[0]
-    skey, g, is_probe, prow_by_pos = _merge_groups(ukey, pk)
-    glen = safe_lookup(table.groups.group_len, g)
-    hit = is_probe & (g >= 0) & (glen > 0)
+    if unique and table.group_min_pos.shape[0] == 0:
+        raise ValueError(
+            "table was built with early_exit_index=False; "
+            "IsBuildKeyUnique probes need the chain-position index")
+    with span("hj.probe.sort"):
+        skey, g, is_probe, prow_by_pos = _merge_groups(ukey, pk)
+    with span("hj.probe.lookup"):
+        glen = safe_lookup(table.groups.group_len, g)
+        hit = is_probe & (g >= 0) & (glen > 0)
+        if unique:
+            pos1 = safe_lookup(table.group_min_pos + 1, g)
+            row_by_pos = safe_lookup(table.group_chain_first + 1, g) - 1
+            miss = is_probe & ~hit
     if unique:
-        if table.group_min_pos.shape[0] == 0:
-            raise ValueError(
-                "table was built with early_exit_index=False; "
-                "IsBuildKeyUnique probes need the chain-position index")
-        counts = hit.to(I32)
-        m = hit.to(I64).sum()
-        pos1 = safe_lookup(table.group_min_pos + 1, g)
         miss_cmps = _miss_chain_cmps(table.bucket_len, table.num_buckets,
-                                     skey, is_probe & ~hit, table.hashfun)
-        cmps = torch.where(hit, pos1, 0).to(I64).sum() + miss_cmps
-        row_by_pos = safe_lookup(table.group_chain_first + 1, g) - 1
+                                     skey, miss, table.hashfun)
     else:
-        counts = torch.where(hit, glen, 0)
-        m = counts.to(I64).sum()
-        cmps = _full_chain_cmps(table, pk)
-    if not do_expand:
-        return dict(c_htProbe=m, c_htProbeCmp=cmps)
+        miss_cmps = _full_chain_cmps(table, pk)
+    with span("hj.probe.emit"):
+        if unique:
+            counts = hit.to(I32)
+            m = hit.to(I64).sum()
+            cmps = torch.where(hit, pos1, 0).to(I64).sum() + miss_cmps
+        else:
+            counts = torch.where(hit, glen, 0)
+            m = counts.to(I64).sum()
+            cmps = miss_cmps
+        if not do_expand:
+            return dict(c_htProbe=m, c_htProbeCmp=cmps)
 
-    p, within, valid, total = expand(counts, out_size)[:4]
-    Wp, Cp = stride_params(M / out_size)
-    if unique:
-        build_row = safe_lookup(row_by_pos, p, W=Wp, C=Cp)
-    else:
-        gstart_by_pos = safe_lookup(table.groups.group_start, g)
-        gst = safe_lookup(gstart_by_pos, p, W=Wp, C=Cp)
-        build_row = safe_lookup(table.groups.group_rows, gst + within)
-    probe_row = safe_lookup(torch.clamp(prow_by_pos, min=0), p, W=Wp, C=Cp)
-    return dict(
-        probe_row=torch.where(valid, probe_row, -1),
-        build_row=torch.where(valid, build_row, -1),
-        total=total.to(I64),
-        c_htProbe=m, c_htProbeCmp=cmps,
-    )
+    with span("hj.probe.unnest"):
+        p, within, valid, total = expand(counts, out_size)[:4]
+        Wp, Cp = stride_params(M / out_size)
+        if unique:
+            build_row = safe_lookup(row_by_pos, p, W=Wp, C=Cp)
+        else:
+            gstart_by_pos = safe_lookup(table.groups.group_start, g)
+            gst = safe_lookup(gstart_by_pos, p, W=Wp, C=Cp)
+            build_row = safe_lookup(table.groups.group_rows, gst + within)
+        probe_row = safe_lookup(torch.clamp(prow_by_pos, min=0), p, W=Wp,
+                                C=Cp)
+    with span("hj.probe.emit"):
+        return dict(
+            probe_row=torch.where(valid, probe_row, -1),
+            build_row=torch.where(valid, build_row, -1),
+            total=total.to(I64),
+            c_htProbe=m, c_htProbeCmp=cmps,
+        )
 
 
 def _second_probe(tbl_t, sk: torch.Tensor, hit_s: torch.Tensor):
     """exp-4's T probe of the iota keys, run only under the S hit mask
     (``algebra.hh:451-458``): ``(g_t, both, glen_t, pos1_t, miss_t)``;
     T misses count only where S hit."""
-    g_t = torch.where(hit_s, _key_groups(tbl_t, sk), -1)
-    both = g_t >= 0
-    glen_t = safe_lookup(tbl_t.groups.group_len, g_t)
-    pos1_t = safe_lookup(tbl_t.main_pos_by_group + 1, g_t)
+    with span("hj.probe.lookup"):
+        g_t = torch.where(hit_s, _key_groups(tbl_t, sk), -1)
+        both = g_t >= 0
+        glen_t = safe_lookup(tbl_t.groups.group_len, g_t)
+        pos1_t = safe_lookup(tbl_t.main_pos_by_group + 1, g_t)
+        miss = hit_s & ~both
     miss_t = _miss_chain_cmps(tbl_t.bucket_main_len, tbl_t.num_buckets, sk,
-                              hit_s & ~both, tbl_t.hashfun)
+                              miss, tbl_t.hashfun)
     return g_t, both, glen_t, pos1_t, miss_t
 
 
@@ -697,40 +745,45 @@ def ndu_strand_sorted(tbl_s, tbl_t, keys_iota: torch.Tensor, out1: int,
     sk = keys_iota
     P = sk.shape[0]
     g_s, hit_s, glen_s, pos1_s, miss_s = _keydirect_probe(tbl_s, sk)
-    c_rs = hit_s.to(I64).sum()
-    c_rs_cmp = pos1_s.to(I64).sum() + miss_s
+    with span("hj.probe.emit"):
+        c_rs = hit_s.to(I64).sum()
+        c_rs_cmp = pos1_s.to(I64).sum() + miss_s
     g_t, both, glen_t, pos1_t, miss_t = _second_probe(tbl_t, sk, hit_s)
-    c_rt = both.to(I64).sum()
-    c_rt_cmp = pos1_t.to(I64).sum() + miss_t
+    with span("hj.probe.emit"):
+        c_rt = both.to(I64).sum()
+        c_rt_cmp = pos1_t.to(I64).sum() + miss_t
 
-    # unnest #1 (T): one slot per T duplicate of the rows that hit both
     W1, C1 = stride_params(P / out1)       # p1 advances ~P/out1 a slot
     W2, C2 = stride_params(out1 / out2)    # p2 advances ~out1/out2 a slot
-    t_counts = torch.where(both, glen_t, 0)
-    gstart_t_by_p = safe_lookup(tbl_t.groups.group_start, g_t)
-    p1, w1, v1, n_un1 = expand(t_counts, out1)[:4]
-    gst_t = safe_lookup(gstart_t_by_p, p1, W=W1, C=C1)
-    t_row = safe_lookup(tbl_t.groups.group_rows, gst_t + w1)
+    with span("hj.probe.unnest"):
+        # unnest #1 (T): one slot per T duplicate of the rows that hit both
+        t_counts = torch.where(both, glen_t, 0)
+        gstart_t_by_p = safe_lookup(tbl_t.groups.group_start, g_t)
+        p1, w1, v1, n_un1 = expand(t_counts, out1)[:4]
+        gst_t = safe_lookup(gstart_t_by_p, p1, W=W1, C=C1)
+        t_row = safe_lookup(tbl_t.groups.group_rows, gst_t + w1)
 
-    # unnest #2 (S): each (r, t_row) by its S group
-    glen_s_m = torch.where(both, glen_s, 0)
-    s_counts = torch.where(v1, safe_lookup(glen_s_m, p1, W=W1, C=C1), 0)
-    gstart_s_by_p = safe_lookup(tbl_s.groups.group_start, g_s)
-    gst_s_by_p1 = safe_lookup(gstart_s_by_p, p1, W=W1, C=C1)
-    p2, w2, v2, n_un2 = expand(s_counts, out2)[:4]
-    gst_s = safe_lookup(gst_s_by_p1, p2, W=W2, C=C2)
-    s_row = safe_lookup(tbl_s.groups.group_rows, gst_s + w2)
-    t_prop = safe_lookup(t_row, p2, W=W2, C=C2)
-    r_prop = safe_lookup(p1, p2, W=W2, C=C2)  # p1 IS the R row
-    return dict(
-        r_row=torch.where(v2, r_prop, -1),
-        s_row=torch.where(v2, s_row, -1),
-        t_row=torch.where(v2, t_prop, -1),
-        valid=v2,
-        c_probe_RS=c_rs, c_probe_RS_cmp=c_rs_cmp,
-        c_probe_RT=c_rt, c_probe_RT_cmp=c_rt_cmp,
-        c_unnest_1=n_un1.to(I64), c_unnest_2=n_un2.to(I64),
-    )
+    with span("hj.probe.unnest"):
+        # unnest #2 (S): each (r, t_row) by its S group
+        glen_s_m = torch.where(both, glen_s, 0)
+        s_counts = torch.where(v1, safe_lookup(glen_s_m, p1, W=W1, C=C1), 0)
+        gstart_s_by_p = safe_lookup(tbl_s.groups.group_start, g_s)
+        gst_s_by_p1 = safe_lookup(gstart_s_by_p, p1, W=W1, C=C1)
+        p2, w2, v2, n_un2 = expand(s_counts, out2)[:4]
+        gst_s = safe_lookup(gst_s_by_p1, p2, W=W2, C=C2)
+        s_row = safe_lookup(tbl_s.groups.group_rows, gst_s + w2)
+        t_prop = safe_lookup(t_row, p2, W=W2, C=C2)
+        r_prop = safe_lookup(p1, p2, W=W2, C=C2)  # p1 IS the R row
+    with span("hj.probe.emit"):
+        return dict(
+            r_row=torch.where(v2, r_prop, -1),
+            s_row=torch.where(v2, s_row, -1),
+            t_row=torch.where(v2, t_prop, -1),
+            valid=v2,
+            c_probe_RS=c_rs, c_probe_RS_cmp=c_rs_cmp,
+            c_probe_RT=c_rt, c_probe_RT_cmp=c_rt_cmp,
+            c_unnest_1=n_un1.to(I64), c_unnest_2=n_un2.to(I64),
+        )
 
 
 @_with_route
@@ -749,48 +802,56 @@ def chj_strand_sorted(tbl_s, tbl_t, keys_iota: torch.Tensor, out1: int,
     _check_device(keys_iota, tbl_s.key_direct)
     sk = keys_iota
     P = sk.shape[0]
-    g_s = _key_groups(tbl_s, sk)
-    glen_s = safe_lookup(tbl_s.groups.group_len, g_s)
-    c_rs = glen_s.to(I64).sum()
+    with span("hj.probe.lookup"):
+        g_s = _key_groups(tbl_s, sk)
+        glen_s = safe_lookup(tbl_s.groups.group_len, g_s)
+        c_rs = glen_s.to(I64).sum()
     c_rs_cmp = _full_chain_cmps(tbl_s, sk)
 
-    # expansion #1: the RS pairs
     W1, C1 = stride_params(P / out1)
     W2, C2 = stride_params(out1 / out2)
-    gstart_s_by_p = safe_lookup(tbl_s.groups.group_start, g_s)
-    p1, w1, v1, _ = expand(glen_s, out1)[:4]
-    gst_s = safe_lookup(gstart_s_by_p, p1, W=W1, C=C1)
-    s_row = safe_lookup(tbl_s.groups.group_rows, gst_s + w1)
+    with span("hj.probe.unnest"):
+        # expansion #1: the RS pairs
+        gstart_s_by_p = safe_lookup(tbl_s.groups.group_start, g_s)
+        p1, w1, v1, _ = expand(glen_s, out1)[:4]
+        gst_s = safe_lookup(gstart_s_by_p, p1, W=W1, C=C1)
+        s_row = safe_lookup(tbl_s.groups.group_rows, gst_s + w1)
 
-    # each pair probes T with its R key, which is p1 (the keys are an iota)
-    g_t_by_p = _key_groups(tbl_t, sk)
-    glen_t_by_p = safe_lookup(tbl_t.groups.group_len, g_t_by_p)
-    t_counts = torch.where(v1, safe_lookup(glen_t_by_p, p1, W=W1, C=C1), 0)
-    c_rt = t_counts.to(I64).sum()
-    dom = torch.arange(tbl_t.key_direct.shape[0], dtype=I32,
-                       device=sk.device)
-    chain_t = tbl_t.bucket_len[
-        bucket_of(hash_key(dom, tbl_t.hashfun), tbl_t.num_buckets).long()]
-    cmps_t_by_key = safe_lookup(chain_t, sk)
-    c_rt_cmp = torch.where(v1, safe_lookup(cmps_t_by_key, p1, W=W1, C=C1),
-                           0).to(I64).sum()
+    with span("hj.probe.lookup"):
+        # each pair probes T with its R key, which is p1 (an iota)
+        g_t_by_p = _key_groups(tbl_t, sk)
+        glen_t_by_p = safe_lookup(tbl_t.groups.group_len, g_t_by_p)
+        t_counts = torch.where(v1, safe_lookup(glen_t_by_p, p1, W=W1, C=C1),
+                               0)
+        c_rt = t_counts.to(I64).sum()
+    with span("hj.probe.miss"):
+        dom = torch.arange(tbl_t.key_direct.shape[0], dtype=I32,
+                           device=sk.device)
+        chain_t = tbl_t.bucket_len[
+            bucket_of(hash_key(dom, tbl_t.hashfun),
+                      tbl_t.num_buckets).long()]
+        cmps_t_by_key = safe_lookup(chain_t, sk)
+        c_rt_cmp = torch.where(v1, safe_lookup(cmps_t_by_key, p1, W=W1,
+                                               C=C1), 0).to(I64).sum()
 
-    # expansion #2: one slot per T duplicate of each pair
-    gstart_t_by_p = safe_lookup(tbl_t.groups.group_start, g_t_by_p)
-    gst_t_by_p1 = safe_lookup(gstart_t_by_p, p1, W=W1, C=C1)
-    p2, w2, v2, n_rst = expand(t_counts, out2)[:4]
-    gst_t = safe_lookup(gst_t_by_p1, p2, W=W2, C=C2)
-    t_row = safe_lookup(tbl_t.groups.group_rows, gst_t + w2)
-    s_prop = safe_lookup(s_row, p2, W=W2, C=C2)
-    r_prop = safe_lookup(p1, p2, W=W2, C=C2)
-    return dict(
-        r_row=torch.where(v2, r_prop, -1),
-        s_row=torch.where(v2, s_prop, -1),
-        t_row=torch.where(v2, t_row, -1),
-        c_probe_RS=c_rs, c_probe_RS_cmp=c_rs_cmp,
-        c_probe_RT=c_rt, c_probe_RT_cmp=c_rt_cmp,
-        c_top=n_rst.to(I64),
-    )
+    with span("hj.probe.unnest"):
+        # expansion #2: one slot per T duplicate of each pair
+        gstart_t_by_p = safe_lookup(tbl_t.groups.group_start, g_t_by_p)
+        gst_t_by_p1 = safe_lookup(gstart_t_by_p, p1, W=W1, C=C1)
+        p2, w2, v2, n_rst = expand(t_counts, out2)[:4]
+        gst_t = safe_lookup(gst_t_by_p1, p2, W=W2, C=C2)
+        t_row = safe_lookup(tbl_t.groups.group_rows, gst_t + w2)
+        s_prop = safe_lookup(s_row, p2, W=W2, C=C2)
+        r_prop = safe_lookup(p1, p2, W=W2, C=C2)
+    with span("hj.probe.emit"):
+        return dict(
+            r_row=torch.where(v2, r_prop, -1),
+            s_row=torch.where(v2, s_prop, -1),
+            t_row=torch.where(v2, t_row, -1),
+            c_probe_RS=c_rs, c_probe_RS_cmp=c_rs_cmp,
+            c_probe_RT=c_rt, c_probe_RT_cmp=c_rt_cmp,
+            c_top=n_rst.to(I64),
+        )
 
 
 @_with_route
@@ -802,13 +863,14 @@ def nnu_strand_sorted(tbl_s, tbl_t, keys_iota: torch.Tensor) -> dict:
     sk = keys_iota
     g_s, hit_s, _, pos1_s, miss_s = _keydirect_probe(tbl_s, sk)
     g_t, both, _, pos1_t, miss_t = _second_probe(tbl_t, sk, hit_s)
-    c_rt = both.to(I64).sum()
-    return dict(
-        g_s=torch.where(both, g_s, -1),
-        g_t=torch.where(both, g_t, -1),
-        c_probe_RS=hit_s.to(I64).sum(),
-        c_probe_RS_cmp=pos1_s.to(I64).sum() + miss_s,
-        c_probe_RT=c_rt,
-        c_probe_RT_cmp=pos1_t.to(I64).sum() + miss_t,
-        c_top=c_rt,
-    )
+    with span("hj.probe.emit"):
+        c_rt = both.to(I64).sum()
+        return dict(
+            g_s=torch.where(both, g_s, -1),
+            g_t=torch.where(both, g_t, -1),
+            c_probe_RS=hit_s.to(I64).sum(),
+            c_probe_RS_cmp=pos1_s.to(I64).sum() + miss_s,
+            c_probe_RT=c_rt,
+            c_probe_RT_cmp=pos1_t.to(I64).sum() + miss_t,
+            c_top=c_rt,
+        )

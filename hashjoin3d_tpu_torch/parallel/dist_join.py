@@ -36,6 +36,7 @@ from ..ops.strands_windowed import (keydirect_chaining_strand_sorted,
                                     keydirect_nested_strand_sorted,
                                     merged_chaining_strand_sorted,
                                     merged_nested_strand_sorted)
+from ..utils.tracing import span
 from .mesh import SHARD_AXIS, axis_info
 from .shuffle import partition_exchange
 
@@ -47,13 +48,16 @@ def _global_rows(n_local: int, index: int, device) -> torch.Tensor:
 
 def _reduce(groups, counters) -> list:
     """Sum the counters over the mesh: one stacked int64 vector, one
-    ``all_reduce`` an axis group."""
-    dev = next(c.device for c in counters if isinstance(c, torch.Tensor))
-    vec = torch.stack([torch.as_tensor(c, dtype=I64, device=dev).reshape(())
-                       for c in counters])
-    for g in groups:
-        dist.all_reduce(vec, group=g)
-    return list(vec.unbind())
+    ``all_reduce`` an axis group (the ``hj.exchange.reduce`` span)."""
+    with span("hj.exchange.reduce"):
+        dev = next(c.device for c in counters
+                   if isinstance(c, torch.Tensor))
+        vec = torch.stack([torch.as_tensor(c, dtype=I64,
+                                           device=dev).reshape(())
+                           for c in counters])
+        for g in groups:
+            dist.all_reduce(vec, group=g)
+        return list(vec.unbind())
 
 
 def _merged_pad_cmps(table, pkeys, pvalid, chain_len) -> torch.Tensor:

@@ -28,6 +28,7 @@ import torch.distributed as dist
 from ..ops.hashing import bucket_of, hash_key
 from ..ops.layout import (I32, I64, UKEY_PAD, check_carrier, run_boundaries,
                           uorder)
+from ..utils.tracing import span
 
 
 def shard_of_key(keys: torch.Tensor, num_shards: int) -> torch.Tensor:
@@ -152,18 +153,23 @@ def partition_exchange(group, keys: torch.Tensor, payloads: dict,
     """
     check_carrier(keys)
     names = sorted(payloads)
-    dest = shard_of_key(keys, num_shards)
-    cols = [keys, *(payloads[k].to(I32) for k in names)]
-    fills = [UKEY_PAD, *([-1] * len(names))]
-    send, send_valid, overflow = pack_by_dest(
-        dest, cols, fills, num_shards, capacity, valid,
-        sort_cols=1 if sort_within_dest else 0)
-    recv, works = all_to_all([send[0], send_valid, *send[1:]], group,
-                             async_op=async_op)
-    pending = PendingExchange(names, recv, works, overflow)
-    if async_op:
-        return pending
-    keys_r, payloads_r, valid_r, overflow = pending.wait()
-    if reduce_overflow:
-        dist.all_reduce(overflow, group=group)
-    return keys_r, payloads_r, valid_r, overflow
+    with span("hj.exchange"):
+        with span("hj.exchange.route"):
+            dest = shard_of_key(keys, num_shards)
+        with span("hj.exchange.pack"):
+            cols = [keys, *(payloads[k].to(I32) for k in names)]
+            fills = [UKEY_PAD, *([-1] * len(names))]
+            send, send_valid, overflow = pack_by_dest(
+                dest, cols, fills, num_shards, capacity, valid,
+                sort_cols=1 if sort_within_dest else 0)
+        with span("hj.exchange.all_to_all"):
+            recv, works = all_to_all([send[0], send_valid, *send[1:]], group,
+                                     async_op=async_op)
+            pending = PendingExchange(names, recv, works, overflow)
+            if async_op:
+                return pending
+            keys_r, payloads_r, valid_r, overflow = pending.wait()
+        if reduce_overflow:
+            with span("hj.exchange.reduce"):
+                dist.all_reduce(overflow, group=group)
+        return keys_r, payloads_r, valid_r, overflow

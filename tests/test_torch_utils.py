@@ -5,8 +5,8 @@
   ``key_direct``, u64; chaining and nested; a bare ``GroupIndex``), field
   for field and through a probe, and a file written by the JAX package's
   ``save_table`` loaded by the port equal to ``convert.py``'s table;
-* ``utils/tracing.py``: ``trace``, ``DeviceTimer`` and ``checked`` on the
-  CPU;
+* ``utils/tracing.py``: ``trace`` and ``checked`` on the CPU (the spans
+  and host-read counters: ``tests/test_torch_tracing.py``);
 * ``utils/misc.py`` against the JAX package's helpers;
 * ``utils/gen.py`` / ``utils/mt19937.py``: ``mt19937_stream`` in both
   backends, ``gen_rand_int_vec`` against the JAX package's python backend
@@ -41,7 +41,7 @@ from hashjoin3d_tpu_torch.ops.strands_windowed import (
     merged_chaining_strand_sorted)
 from hashjoin3d_tpu_torch.utils import gen, misc
 from hashjoin3d_tpu_torch.utils.checkpoint import load_table, save_table
-from hashjoin3d_tpu_torch.utils.tracing import DeviceTimer, checked, trace
+from hashjoin3d_tpu_torch.utils.tracing import checked, trace
 
 GOLDEN = Path(__file__).parent / "golden"
 
@@ -177,12 +177,7 @@ def test_tracing_on_the_cpu(tmp_path):
     with trace(tmp_path / "prof") as prof:
         y = (x * 2).sum()
     assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
-    assert prof.key_averages() is not None
-    timer = DeviceTimer()
-    assert int(timer(torch.add, x, 1).sum()) == 55
-    timer(lambda: {"a": (x, [y])})
-    assert timer.calls == 2 and timer.total > 0
-    assert timer.mean == timer.total / 2
+    assert prof.key_averages() is not None and float(y) == 90.0
     err, out = checked(lambda t: t * 3)(x)
     assert err.get() is None and int(out[1]) == 3
     err.throw()  # clean: nothing raised

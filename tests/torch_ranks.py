@@ -222,6 +222,57 @@ def exchange(keys, capacity: int, sort_within_dest: bool) -> dict:
                 overflow=int(ovf))
 
 
+def exchange_spans() -> tuple:
+    """One ``partition_exchange`` (overflow reduced inside it) and one
+    ``dist_nested_join`` step on its key_domain + n_keys route in a CPU
+    profiler window: ``(root names, root name -> names under it, the
+    parent name of each hj.exchange.reduce span, None for a root)``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hashjoin3d_tpu_torch import parallel
+    from hashjoin3d_tpu_torch.parallel.mesh import axis_info
+    from hashjoin3d_tpu_torch.utils import tracing
+
+    mesh = _mesh("flat")
+    group, ns, index = axis_info(mesh, "x")
+    g = torch.Generator().manual_seed(11 + index)
+    domain = 256
+    build = torch.randint(0, domain, (1024,), generator=g, dtype=torch.int32)
+    probe = torch.arange(index * 128, (index + 1) * 128, dtype=torch.int32)
+    step = parallel.dist_nested_join(mesh, 64, build_capacity=1024,
+                                     probe_capacity=128, out_capacity=2048,
+                                     key_domain=domain, n_keys=domain)
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        parallel.partition_exchange(group, build, {"row": build}, ns, 1024)
+        out = step(build, probe)
+    recs = tracing.records()
+    tracing.clear()
+    assert int(out["overflow"]) == 0
+    # no span with children runs an operator of its own
+    for e in prof.events():
+        up = e.cpu_parent
+        while up is not None and not up.name.startswith("hj."):
+            up = up.cpu_parent
+        if up is not None and e.name.startswith("aten::"):
+            assert not any(c.name.startswith("hj.") for c in prof.events()
+                           if c.cpu_parent is up), (up.name, e.name)
+
+    def root(r):
+        while r.parent >= 0:
+            r = recs[r.parent]
+        return r
+
+    tree = {}
+    for r in recs:
+        subs = tree.setdefault(root(r).name, set())
+        if root(r) is not r:
+            subs.add(r.name)
+    return ([r.name for r in recs if r.parent < 0], tree,
+            [recs[r.parent].name if r.parent >= 0 else None
+             for r in recs if r.name == "hj.exchange.reduce"])
+
+
 def fuzz_dist_trials(trials: int, seed: int, tier: str, cut=None) -> list:
     """``tools/fuzz_dist.py``'s trials on the pool's group (the CPU): rank
     0's reports, the other ranks' empty lists."""
