@@ -28,7 +28,11 @@ then exp-4 (``main_experiment4 -R 24 -a 4 -A 4 -b 2 -B 2``: |R| 2^24,
    the one-block path, 2^14 and 2^15 on the multi-tile path) and key
    widths, bit-equal except take_min with a shuffled payload, whose
    equal-key payload order is free (keys equal, each segment's payload a
-   permutation that carries its own key);
+   permutation that carries its own key); MW (``miss_chain_sum``) equal
+   to its plain version at exp-4 Ndu's two walk shapes and on unaligned
+   keys and masks, ragged lengths, a prime bucket count, a table shorter
+   than its buckets, u64 keys and the bucket-id mode (``fib``, a
+   callable), and launched there; its time beside the walk it replaced;
 2. ``Experiment1(20, 24, t=0, plans=all + CsrSel, CrsSel, NrsSel,
    device="cuda")``, the launch counts set to 0 just before each plan:
    every row of ``all``'s plans equals the same plan's row of
@@ -53,8 +57,9 @@ then exp-4 (``main_experiment4 -R 24 -a 4 -A 4 -b 2 -B 2``: |R| 2^24,
 4. launch counts: K1, K2 and K3 launched in phase 2's Csr, CsrUU and Nsr,
    K2 and K3 in its Nrs and in each new plan (Crs and the *Sel plans), K4
    in its Crs and CrsSel (their whole-chain walks), K1 on the sorted route
-   of Crs's strand, K4 in phase 3 and in phase 3b's Nrs at t=4 (the other
-   t=0 plans never miss, so they bypass K4);
+   of Crs's strand, MW (the miss walk's one-pass sum) in phase 3 and in
+   phase 3b's Nrs at t=4, K4 in phase 3b's Crs at t=4 (the other t=0 plans
+   never miss, so they bypass MW);
 5. K2b, the kernel only the measurement tools reach, bit-equal to K2 (with
    and without coverage) and to the plain lookup on phase 2's table, at
    W = 8192 and 32768, on the K1-sorted probes and five edge streams made
@@ -82,8 +87,9 @@ then exp-4 (``main_experiment4 -R 24 -a 4 -A 4 -b 2 -B 2``: |R| 2^24,
    and Chj's rows equal ``artifacts/r5/e4_24.csv`` / ``e4_20.csv`` in
    every value column, Nnu's c_top equals numFkCommon, ``route_worst`` is
    0; at R20 every plan's counters, result triples (Nnu: its nested
-   tuples) equal the CPU run's, as multisets, and K2, K3 and K4 launch in
-   each plan (at R24 the probe walks sort globally, with no K4).
+   tuples) equal the CPU run's, as multisets, and K2 and K3 launch in
+   each plan, MW in Ndu's and Nnu's miss walks, K4 in Chj's whole-chain
+   walk.
 
 7. ``hashjoin3d_tpu_torch.join``, the one-call API, on the same R20/S24
    t=0 columns: ``join(R.k, S.a, how="chaining", unique=True)``,
@@ -278,6 +284,10 @@ EXP4_RUNS = (("R24", 24, REPO / "artifacts" / "r5" / "e4_24.csv", 0.3),
              ("R20", 20, REPO / "artifacts" / "r5" / "e4_20.csv", 0.05))
 EXP4_PARAMS = dict(alpha=4, mult_alpha=4, beta=2, mult_beta=2)
 EXP4_PLANS = ("Ndu", "Chj", "Nnu")
+#: the kernel each exp-4 plan's chain walks launch: the miss walks' MW, or
+#: K4 for Chj's whole-chain walk of S
+WALK_KERNEL = {"Ndu": "miss_chain_sum", "Nnu": "miss_chain_sum",
+               "Chj": "bitonic_sort_segmented"}
 LOG2_R, LOG2_S = 20, 24
 SEGMENT, WINDOW, KEY_BITS = 1 << 18, 8192, 20
 
@@ -295,6 +305,10 @@ KERNELS = {
     "K4 bitonic_sort_segmented": (
         "hashjoin3d_tpu_torch/csrc/radix.cu",
         "hashjoin3d_tpu/ops/bitonic.py:247", "bitonic_sort_segmented"),
+    "MW miss_chain_sum": (
+        "hashjoin3d_tpu_torch/csrc/chainwalk.cu",
+        "none: the miss walk's hash, K4 or library sort and K2 lookup",
+        "miss_chain_sum"),
     "K2b windowed_lookup db": (
         "hashjoin3d_tpu_torch/csrc/windowed.cu",
         "hashjoin3d_tpu/ops/windowed.py:115", "windowed_lookup_db"),
@@ -597,7 +611,107 @@ def phase1_kernels(rk, sa, ops):
             wide, SEGMENT, lid)),
         library_ms=cuda_ms(lambda: torch.sort(wide.view(K, SEGMENT), dim=1)),
         **bound(wide, lid, gk, gr))
+    results["MW miss_chain_sum"] = phase1_miss_walk(dev)
     return results
+
+
+def sorted_miss_walk(bucket_len, num_buckets, keys, mask, hashfun="murmur"):
+    """The miss walk MW replaced: the bucket ids, -1 where a probe does not
+    walk, sorted, their lengths through ``safe_lookup`` (K2), summed."""
+    from hashjoin3d_tpu_torch.ops import strands_windowed as sw
+    from hashjoin3d_tpu_torch.ops.hashing import bucket_of, hash_key
+    from hashjoin3d_tpu_torch.ops.layout import I64
+
+    b = torch.where(mask, bucket_of(hash_key(keys, hashfun), num_buckets),
+                    -1)
+    b_sorted, Wb = sw._sort_bucket_ids(b, num_buckets)
+    return sw.safe_lookup(bucket_len, b_sorted, W=Wb).to(I64).sum()
+
+
+def miss_walk_cases(dev):
+    """(label, keys, mask, bucket_len, num_buckets, hashfun) of MW's
+    checks: exp-4 Ndu's two walks (2^24 iota keys over 5,242,880 buckets,
+    69% and 25% of the probes walking), then an unaligned key and mask view,
+    an aligned key view with an unaligned mask, a ragged length with a
+    prime bucket count, a table shorter than its buckets, u64 keys (murmur,
+    identity, an unaligned view) and the bucket-id mode (``fib``, a
+    callable); seeded on the card."""
+    from hashjoin3d_tpu_torch.ops.layout import I32
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    n, nb = 1 << 24, 5_242_880
+    keys = torch.arange(n + 8, dtype=I32, device=dev)
+    u = torch.rand(n + 8, generator=gen, device=dev)
+    s_mask, t_mask = u < 0.69, u < 0.25
+    lens = torch.randint(0, 9, (nb,), generator=gen, device=dev, dtype=I32)
+    wide = (keys.long() * 2654435761) ^ (0xAB << 40)
+    prime = 1_000_003
+    return [
+        ("Ndu S walk", keys[:n], s_mask[:n], lens, nb, "murmur"),
+        ("Ndu T walk", keys[:n], t_mask[:n], lens, nb, "murmur"),
+        ("unaligned keys and mask", keys[1:n + 1], s_mask[1:n + 1], lens,
+         nb, "murmur"),
+        ("unaligned mask", keys[4:n + 4], s_mask[3:n + 3], lens, nb,
+         "murmur"),
+        ("ragged, prime buckets", keys[:n + 5], s_mask[:n + 5],
+         lens[:prime], prime, "murmur"),
+        ("table shorter than its buckets", keys[:n + 3], s_mask[:n + 3],
+         lens[:1_000_000], nb, "murmur"),
+        ("identity u32", keys[:n + 7], s_mask[:n + 7], lens, nb,
+         "identity"),
+        ("u64 murmur", wide[:n], s_mask[:n], lens, nb, "murmur"),
+        ("u64 identity", wide[:n + 1], s_mask[:n + 1], lens, prime,
+         "identity"),
+        ("u64 unaligned", wide[1:n + 2], s_mask[1:n + 2], lens, nb,
+         "murmur"),
+        ("bucket ids: fib", keys[:n + 2], t_mask[:n + 2], lens, nb, "fib"),
+        ("bucket ids: callable", wide[:n], t_mask[:n], lens, prime,
+         lambda x: x ^ (x >> 29)),
+    ]
+
+
+def phase1_miss_walk(dev) -> dict:
+    """MW against its plain version on every case of
+    :func:`miss_walk_cases`, bit-equal and launched; at Ndu's S walk also
+    equal to the sorted walk it replaced, with the times of the kernel,
+    the plain version and that walk."""
+    from hashjoin3d_tpu_torch import kernels
+    from hashjoin3d_tpu_torch.ops.chainwalk import (miss_chain_sum,
+                                                    miss_chain_sum_plain)
+    from hashjoin3d_tpu_torch.utils.measure import bound_ms, host_device_us
+
+    cases = miss_walk_cases(dev)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    for what, keys, mask, lens, nb, fn in cases:
+        got = miss_chain_sum(keys, mask, lens, nb, fn)
+        want = miss_chain_sum_plain(keys, mask, lens, nb, fn)
+        require(int(got) == int(want), f"MW {what}: {int(got)} != plain "
+                f"{int(want)}")
+        require(int(want) > 0, f"MW {what}: the walk is empty")
+    torch.cuda.synchronize()
+    launched = kernels.LAUNCHES["miss_chain_sum"]
+    require(launched == len(cases),
+            f"MW launched {launched} times in {len(cases)} cases")
+    _, keys, mask, lens, nb, _ = cases[0]
+    old = sorted_miss_walk(lens, nb, keys, mask)
+    require(int(old) == int(miss_chain_sum(keys, mask, lens, nb)),
+            "MW differs from the sorted walk at Ndu's S walk")
+    walkers = int(mask.sum())
+    _, device_us = host_device_us(
+        lambda: miss_chain_sum(keys, mask, lens, nb), calls=200,
+        profiled=20)
+    ms, by = bound_ms(keys.nbytes + mask.nbytes + 4 * walkers + 8)
+    return dict(
+        max_abs_err=0,
+        ms=cuda_ms(lambda: miss_chain_sum(keys, mask, lens, nb)),
+        device_ms=device_us / 1e3,
+        t_walk_ms=cuda_ms(lambda: miss_chain_sum(keys, cases[1][2], lens,
+                                                 nb)),
+        plain_ms=cuda_ms(lambda: miss_chain_sum_plain(keys, mask, lens, nb)),
+        sorted_walk_ms=cuda_ms(lambda: sorted_miss_walk(lens, nb, keys,
+                                                        mask)),
+        library_ms=None, walkers=walkers, bound_ms=ms, bound_by=by)
 
 
 def value_cols(header):
@@ -1106,7 +1220,7 @@ def phase6_exp4(dev, card):
     set to 0 just before each plan: Ndu's and Chj's rows equal the
     reference's in every value column, Nnu's c_top is numFkCommon, route
     0; at R20 counters, triples and Nnu's nested tuples equal the CPU
-    run's, and K2, K3 and K4 launch in every plan."""
+    run's, K2 and K3 launch in every plan, MW in Ndu and Nnu, K4 in Chj."""
     from hashjoin3d_tpu_torch import kernels
     from hashjoin3d_tpu_torch.models.exp4 import Experiment4
 
@@ -1154,7 +1268,8 @@ def phase6_exp4(dev, card):
 def check_exp4_against_cpu(exp, launches, label):
     """Each plan's strand on the CPU (plain versions) over CPU copies of
     the inputs and builds: counters equal, triples (Nnu: nested tuples)
-    equal as multisets; K2, K3 and K4 launched in every plan's run."""
+    equal as multisets; K2 and K3 launched in every plan's run, the miss
+    walks' MW in Ndu's and Nnu's, K4 in Chj's (its whole-chain walk)."""
     from hashjoin3d_tpu_torch.models.exp4 import Experiment4
 
     cpu = Experiment4(exp.log2_card_r, **EXP4_PARAMS, plans=EXP4_PLANS,
@@ -1176,8 +1291,7 @@ def check_exp4_against_cpu(exp, launches, label):
             require(torch.equal(triples_key(out).cpu(), triples_key(ocpu)),
                     f"phase 6 {label} {plan}: triples differ from the CPU "
                     "run")
-        for name in ("windowed_lookup", "multi_scan",
-                     "bitonic_sort_segmented"):
+        for name in ("windowed_lookup", "multi_scan", WALK_KERNEL[plan]):
             require(launches[f"{plan} {label}"][name] > 0,
                     f"{name} not launched in phase 6's {plan} {label}")
 
@@ -3087,11 +3201,12 @@ def main() -> int:
         for name in names:
             require(plan_launches[plan][name] > 0,
                     f"{name} not launched in phase 2's {plan}")
-    require(after3["bitonic_sort_segmented"] > 0,
-            "bitonic_sort_segmented not launched in phase 3")
-    for run in ("Nrs t=4", "Crs t=4"):
-        require(miss_launches[run]["bitonic_sort_segmented"] > 0,
-                f"bitonic_sort_segmented not launched in phase 3b's {run}")
+    require(after3["miss_chain_sum"] > 0,
+            "miss_chain_sum not launched in phase 3")
+    for run, name in (("Nrs t=4", "miss_chain_sum"),
+                      ("Crs t=4", "bitonic_sort_segmented")):
+        require(miss_launches[run][name] > 0,
+                f"{name} not launched in phase 3b's {run}")
     plan_launches.update(miss_launches)
     plan_launches["Crs sorted route"] = sorted_route
     for plan, counts in plan_launches.items():

@@ -1,0 +1,201 @@
+// MW: the probe strand's miss walk in one pass: hash, bucket, gather, sum.
+//
+// Replaces no TPU kernel on its own.  It replaces the composition that
+// ops/strands_windowed.py:_miss_chain_cmps ran on the card, as the JAX
+// package runs it (hashjoin3d_tpu/ops/strands_windowed.py): the bucket hash
+// over int64 passes (ops/hashing.py murmur32: about 20 elementwise passes),
+// bucket_of, a where, a sort of every bucket id (K4 of csrc/radix.cu, or the
+// library's radix sort where the segment policy refuses K4) and a K2 lookup
+// of the bucket lengths, summed.  The sort was there only so that K2's
+// window could cover the stream; a sum of integers does not depend on
+// order, so one pass computes
+//
+//   out = sum over i with mask[i] != 0 of (b_i < T ? len[b_i] : 0)
+//   b_i = hash(key[i]) % num_buckets, unsigned, in the key's width
+//         (mode 1 identity, mode 2 murmur: fmix32 on u32, fmix64 on u64)
+//   b_i = key[i] as u32 (mode 0: bucket ids the caller computed)
+//
+// bit for bit as that composition did (safe_lookup read a bucket outside
+// [0, T) as 0).  K2 and K4 keep their other callers.
+//
+// Bound: the keys (4 or 8 B each), the mask (1 B each) and one int32
+// length a walking probe, each read once: at exp-4 Ndu's S walk 2^24 x 5 B +
+// 11.5 M x 4 B = 130 MB, 39 us at 3.35 TB/s.  The gathers are random, so
+// each takes a whole 32 B sector in the worst case (from HBM: 368 MB more,
+// 110 us); Ndu's 21 MB of lengths fit the 50 MB L2.  Design: persistent
+// blocks, kBlocksPerSm per SM, walk the keys grid-stride.  A thread loads
+// 16 B of keys (4 u32 or 2 u64) and their mask bytes as one word where both
+// are aligned, else one key and one byte; a word with no bit set skips its
+// keys.  The hash runs in registers, and every lane whose mask byte is set
+// issues its gather (__ldg) before any is summed, so they are in flight
+// together.  Each thread sums in 64 bits; a warp shuffle and a block
+// reduction follow, then one atomicAdd a block into the int64 result, which
+// the entry point zeroes first on the same stream.  Nothing is allocated,
+// nothing synchronises.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+using u64 = unsigned long long;  // uint64_t is unsigned long: no __ldg for it
+constexpr int kThreads = 256;
+constexpr int kBlocksPerSm = 8;
+enum Mode : int { kIds = 0, kIdentity = 1, kMurmur = 2 };
+
+__device__ __forceinline__ uint32_t fmix(uint32_t h) {
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  return h ^ (h >> 16);
+}
+
+__device__ __forceinline__ u64 fmix(u64 h) {
+  h ^= h >> 33;
+  h *= 0xFF51AFD7ED558CCDull;
+  h ^= h >> 33;
+  h *= 0xC4CEB9FE1A95EC63ull;
+  return h ^ (h >> 33);
+}
+
+// The chain length a probe walks: len[b] if it walks and b < T, else 0.
+template <typename K, int kMode>
+__device__ __forceinline__ int chain(bool walk, K key,
+                                     const int* __restrict__ len, K nb,
+                                     unsigned long long T) {
+  unsigned long long b;
+  if constexpr (kMode == kIds) {
+    b = (uint32_t)key;
+  } else if constexpr (kMode == kMurmur) {
+    b = fmix(key) % nb;
+  } else {
+    b = key % nb;
+  }
+  return walk && b < T ? __ldg(len + b) : 0;
+}
+
+// 16 B of keys and the mask bytes that go with them.
+template <typename K>
+struct Vec;
+template <>
+struct Vec<uint32_t> {
+  using Keys = uint4;
+  using Mask = uint32_t;
+};
+template <>
+struct Vec<u64> {
+  using Keys = ulonglong2;
+  using Mask = uint16_t;
+};
+
+template <typename K, int kMode, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    chain_sum_kernel(const K* __restrict__ keys,
+                     const uint8_t* __restrict__ mask,
+                     const int* __restrict__ len,
+                     unsigned long long* __restrict__ out, long long n, K nb,
+                     unsigned long long T) {
+  constexpr int kPer = 16 / sizeof(K);
+  const long long stride = (long long)gridDim.x * kThreads;
+  const long long first = (long long)blockIdx.x * kThreads + threadIdx.x;
+  long long acc = 0;
+  long long done = 0;
+  if constexpr (kVec) {
+    using V = Vec<K>;
+    const long long nv = n / kPer;
+    const auto* kv = reinterpret_cast<const typename V::Keys*>(keys);
+    const auto* mv = reinterpret_cast<const typename V::Mask*>(mask);
+    for (long long j = first; j < nv; j += stride) {
+      const unsigned m = __ldg(mv + j);
+      if (m == 0) continue;
+      const typename V::Keys v = __ldg(kv + j);
+      const K* e = reinterpret_cast<const K*>(&v);
+      int l[kPer];
+#pragma unroll
+      for (int q = 0; q < kPer; ++q)
+        l[q] = chain<K, kMode>((m >> (8 * q)) & 0xFFu, e[q], len, nb, T);
+#pragma unroll
+      for (int q = 0; q < kPer; ++q) acc += l[q];
+    }
+    done = nv * kPer;
+  }
+  for (long long j = done + first; j < n; j += stride)
+    acc += chain<K, kMode>(__ldg(mask + j) != 0, __ldg(keys + j), len, nb,
+                           T);
+
+  __shared__ long long warp_sum[kThreads / 32];
+  for (int d = 16; d > 0; d >>= 1)
+    acc += __shfl_down_sync(0xffffffffu, acc, d);
+  if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5] = acc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    long long s = 0;
+    for (int w = 0; w < kThreads / 32; ++w) s += warp_sum[w];
+    if (s != 0) atomicAdd(out, (unsigned long long)s);
+  }
+}
+
+template <typename K, int kMode>
+void launch(const void* keys, const void* mask, const int* len,
+            unsigned long long* out, long long n, long long nb,
+            unsigned long long T, cudaStream_t s) {
+  constexpr int kPer = 16 / sizeof(K);
+  const bool vec = reinterpret_cast<uintptr_t>(keys) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(mask) % kPer == 0;
+  const long long items = vec ? n / kPer + n % kPer : n;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long most = (long long)kBlocksPerSm * (sms > 0 ? sms : 1);
+  long long grid = (items + kThreads - 1) / kThreads;
+  if (grid > most) grid = most;
+  if (grid < 1) grid = 1;
+  auto kernel = vec ? chain_sum_kernel<K, kMode, true>
+                    : chain_sum_kernel<K, kMode, false>;
+  kernel<<<(unsigned)grid, kThreads, 0, s>>>(
+      static_cast<const K*>(keys), static_cast<const uint8_t*>(mask), len,
+      out, n, (K)nb, T);
+}
+
+}  // namespace
+
+extern "C" {
+
+// keys: n keys of key_bytes each (4: u32 carrier, 8: u64 carrier), aligned
+// to their width; mask: n bytes, 0 = the probe does not walk; len: int32[T];
+// out: one int64, zeroed here, then the sum.  1 <= num_buckets < 2^31;
+// mode 0 (bucket ids, key_bytes 4), 1 (identity) or 2 (murmur).
+int hj3t_miss_chain_sum(const void* keys, const void* mask, const void* len,
+                        void* out, long long n, long long T,
+                        long long num_buckets, int mode, int key_bytes,
+                        void* stream) {
+  if (n < 0 || T < 0 || num_buckets < 1 || num_buckets >= (1LL << 31) ||
+      mode < kIds || mode > kMurmur || (key_bytes != 4 && key_bytes != 8) ||
+      (mode == kIds && key_bytes != 4) ||
+      reinterpret_cast<uintptr_t>(keys) % key_bytes != 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* sum = static_cast<unsigned long long*>(out);
+  cudaError_t err = cudaMemsetAsync(sum, 0, sizeof(*sum), s);
+  if (err != cudaSuccess) return (int)err;
+  if (n == 0) return (int)cudaGetLastError();
+  const int* l = static_cast<const int*>(len);
+  const unsigned long long t = (unsigned long long)T;
+  if (key_bytes == 4) {
+    if (mode == kIds)
+      launch<uint32_t, kIds>(keys, mask, l, sum, n, num_buckets, t, s);
+    else if (mode == kIdentity)
+      launch<uint32_t, kIdentity>(keys, mask, l, sum, n, num_buckets, t, s);
+    else
+      launch<uint32_t, kMurmur>(keys, mask, l, sum, n, num_buckets, t, s);
+  } else if (mode == kIdentity) {
+    launch<u64, kIdentity>(keys, mask, l, sum, n, num_buckets, t, s);
+  } else {
+    launch<u64, kMurmur>(keys, mask, l, sum, n, num_buckets, t, s);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

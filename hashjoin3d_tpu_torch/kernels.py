@@ -7,8 +7,8 @@ load through ``ctypes``.  Each C entry point takes its pointers and the CUDA
 stream as ``void*`` and returns ``cudaGetLastError()``.  Kernels launch on
 PyTorch's current stream, never synchronise and allocate nothing: the Python
 wrappers (``ops/scan.py``, ``ops/windowed.py``, ``ops/bitonic.py``,
-``ops/probes.py``) allocate outputs and scratch with ``torch.empty`` or
-``torch.zeros``.
+``ops/chainwalk.py``, ``ops/probes.py``) allocate outputs and scratch with
+``torch.empty`` or ``torch.zeros``.
 
 The launch path every wrapper shares is kept short, because a small kernel's
 call costs more on the host than on the card: :func:`kernel_device` checks
@@ -45,7 +45,8 @@ LAUNCHES = {"multi_scan": 0, "windowed_lookup": 0, "windowed_lookup_db": 0,
             "probe_roll": 0, "probe_rotate": 0, "probe_cumsum": 0,
             "probe_onehot_matmul": 0, "probe_permute": 0,
             "probe_masked_store": 0, "probe_block_copy": 0,
-            "probe_row_copy": 0, "probe_digit_histogram": 0}
+            "probe_row_copy": 0, "probe_digit_histogram": 0,
+            "miss_chain_sum": 0}
 
 _lib = None
 
@@ -71,6 +72,10 @@ _SIGNATURES = {
         # counts, segtot, ors, plan (host int32 words), scratch sizes (host
         # int64 words), n, log_seg, rows_from_pos, stream
         "hj3t_radix_sort_segmented": ([_P] * 11 + [_L, _I, _I, _P], _I),
+    },
+    "chainwalk.cu": {
+        # keys, mask, len, out, n, T, num_buckets, mode, key bytes, stream
+        "hj3t_miss_chain_sum": ([_P] * 4 + [_L] * 3 + [_I, _I, _P], _I),
     },
     "probes.cu": {
         # arguments as in each entry point's comment there

@@ -1,0 +1,75 @@
+"""The probe strand's miss walk in one pass (kernel MW, ``csrc/chainwalk.cu``).
+
+A probe that misses walks its whole bucket chain, so the comparisons of the
+missing probes are the sum of their buckets' chain lengths.
+:func:`miss_chain_sum` computes that sum straight from the keys: each masked
+key's bucket, ``bucket_of(hash_key(key, hashfun), num_buckets)``, reads its
+length in ``bucket_len`` (a bucket past the table reads 0) and the lengths
+add up in int64.  A sum does not depend on order, so nothing is sorted.
+
+On CUDA tensors it launches one kernel.  For the ``"murmur"`` and
+``"identity"`` functors the kernel hashes each key itself, in the key's
+width; for every other functor, a callable included, the bucket ids are
+computed here with :func:`~.hashing.bucket_of` and the kernel gathers and
+sums them.  On CPU tensors it runs :func:`miss_chain_sum_plain`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import kernels
+from .hashing import bucket_of, hash_key
+from .layout import I32, I64
+
+_MW = kernels.Kernel("hj3t_miss_chain_sum")
+#: functors the kernel hashes itself -> its mode (0: the caller's bucket ids)
+_KERNEL_MODES = {"identity": 1, "murmur": 2}
+
+
+def _check(keys, mask, bucket_len, num_buckets) -> None:
+    if keys.dim() != 1 or keys.dtype not in (I32, I64):
+        raise ValueError("keys must be a 1-D int32 or int64 carrier")
+    if mask.dtype != torch.bool or mask.shape != keys.shape:
+        raise ValueError("mask must be a bool tensor shaped like the keys")
+    if bucket_len.dim() != 1 or bucket_len.dtype != I32:
+        raise ValueError("bucket_len must be a 1-D int32 tensor")
+    if not 1 <= num_buckets < 1 << 31:
+        raise ValueError(f"num_buckets {num_buckets} must lie in [1, 2^31)")
+
+
+def miss_chain_sum(keys: torch.Tensor, mask: torch.Tensor,
+                   bucket_len: torch.Tensor, num_buckets: int,
+                   hashfun="murmur") -> torch.Tensor:
+    """The chain lengths the ``mask``-ed probes walk, summed: a 0-dim int64
+    tensor on the keys' device.
+
+    ``keys``: the probe keys on their carrier (int32 for u32, int64 for
+    u64), contiguous; ``mask``: bool, True where the probe walks;
+    ``bucket_len``: int32 chain length per bucket.  ``hashfun`` is a
+    :data:`~.hashing.HASH_FUNCTORS` name or a callable, as in
+    :func:`~.hashing.hash_key`."""
+    _check(keys, mask, bucket_len, num_buckets)
+    dev = kernels.kernel_device("miss_chain_sum", keys, mask, bucket_len)
+    if dev < 0:
+        return miss_chain_sum_plain(keys, mask, bucket_len, num_buckets,
+                                    hashfun)
+    mode = _KERNEL_MODES.get(hashfun, 0) if isinstance(hashfun, str) else 0
+    if mode == 0:
+        keys = bucket_of(hash_key(keys, hashfun), num_buckets)
+    out = torch.empty((), dtype=I64, device=keys.device)
+    _MW("miss_chain_sum", keys.data_ptr(), mask.data_ptr(),
+        bucket_len.data_ptr(), out.data_ptr(), keys.shape[0],
+        bucket_len.shape[0], num_buckets, mode, keys.element_size(),
+        kernels.stream(dev))
+    return out
+
+
+def miss_chain_sum_plain(keys: torch.Tensor, mask: torch.Tensor,
+                         bucket_len: torch.Tensor, num_buckets: int,
+                         hashfun="murmur") -> torch.Tensor:
+    """Exact PyTorch version of :func:`miss_chain_sum` (any device)."""
+    T = bucket_len.shape[0]
+    b = bucket_of(hash_key(keys, hashfun), num_buckets).long()
+    walked = bucket_len[b.clamp(max=T - 1)]
+    return torch.where(mask & (b < T), walked, 0).to(I64).sum()

@@ -11,10 +11,12 @@ order so every later access stays a windowed lookup).  Probes are sorted once
 column, or globally with their liveness riding the sort under a selection
 ``mask``; every per-key and per-group array is then read by one windowed
 lookup (K2) on a nondecreasing stream, the unnest expansions scan with K3,
-and missing probes walk their bucket chains through a second sorted stream
-(K4).  Emission is in sorted-key order; result pairs (exp-4: triples)
-equal the reference's as multisets and the counters (c_htProbe,
-c_htProbeCmp, c_unnest, c_top, exp-4's c_probe_*) are bit-equal.
+the missing probes' chain walks are summed in one unsorted pass over their
+keys (MW, ``ops/chainwalk.py``), and whole-chain walks read the bucket
+lengths through a second sorted stream (K4).  Emission is in sorted-key
+order; result pairs (exp-4: triples) equal the reference's as multisets and
+the counters (c_htProbe, c_htProbeCmp, c_unnest, c_top, exp-4's c_probe_*)
+are bit-equal.
 
 The JAX ``lax.cond`` / ``lax.switch`` routes are Python branches here, each
 on one value read back from the device.  Every :func:`safe_lookup` inside a
@@ -32,6 +34,7 @@ from typing import NamedTuple
 import torch
 
 from .bitonic import MAX_SEGMENT_BITONIC, bitonic_sort_packed_segmented
+from .chainwalk import miss_chain_sum
 from .hashing import bucket_of, hash_key
 from .layout import (I32, I64, SIGN, expand, inverse_permute,
                      is_sorted_ascending, same_key_width, shr, uorder)
@@ -43,22 +46,12 @@ from .windowed import DEFAULT_C, DEFAULT_W, windowed_lookup_covered
 ROUTE_WINDOWED, ROUTE_PATCHED, ROUTE_GATHER = 0, 1, 2
 
 # One record list per running strand; safe_lookup appends (route, nbad).
-# A None entry suppresses recording (the miss walk's lookup, as in the JAX
-# package, where it sits inside a cond branch).
 _route_records: list = []
 
 
 def _record_route(route: int, nbad: int) -> None:
-    if _route_records and _route_records[-1] is not None:
+    if _route_records:
         _route_records[-1].append((route, nbad))
-
-
-class _suppress_routes:
-    def __enter__(self):
-        _route_records.append(None)
-
-    def __exit__(self, *exc):
-        _route_records.pop()
 
 
 def _with_route(fn):
@@ -229,16 +222,15 @@ def _sort_bucket_ids(b: torch.Tensor, num_buckets: int):
 def _miss_chain_cmps(table_bucket_len, num_buckets, skey, miss_mask,
                      hashfun="murmur") -> torch.Tensor:
     """Comparisons of the missing probes: each walks its whole bucket chain
-    (``algebra.hh:640-658``).  Runs only when a probe misses."""
+    (``algebra.hh:640-658``), so their buckets' chain lengths are summed in
+    one pass over the keys (:func:`~.chainwalk.miss_chain_sum`, unsorted).
+    Runs only when a probe misses."""
     with span("hj.probe.miss"):
         if not host_read(miss_mask.any(), "miss.any"):
             return torch.zeros((), dtype=I64, device=skey.device)
-        b = bucket_of(hash_key(skey, hashfun), num_buckets)
-        b = torch.where(miss_mask, b, -1)
-        b_sorted, Wb = _sort_bucket_ids(b, num_buckets)
-        with _suppress_routes():
-            return safe_lookup(table_bucket_len, b_sorted,
-                               W=Wb).to(I64).sum()
+        return miss_chain_sum(skey.contiguous(), miss_mask.contiguous(),
+                              table_bucket_len.contiguous(), num_buckets,
+                              hashfun)
 
 
 @_with_route

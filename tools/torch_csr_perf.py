@@ -96,9 +96,11 @@ time of the kernels, one JSON line::
   names (``device_ops``) and events over 10 calls as well; P5's two
   runner cases and ``index_select`` of the same, host and device; K1, K2
   with coverage, K2b, K4 2-op and P7 at the inputs of ``times``, host and
-  device (200 and 20 calls).  Last, the probe section (alone with
-  ``--probes``; ``--probes P3,P4`` keeps those ids): the probe runner's
-  own cases of P1, P2, P3 (axis 1 and axis 0), P4, P6 and P9
+  device (200 and 20 calls); MW at exp-4 Ndu's two miss walks (R24), host
+  and device, with each walk's walking probes and byte bound.  Last, the
+  probe section (alone with ``--probes``; ``--probes P3,P4`` keeps those
+  ids): the probe runner's own cases of P1, P2, P3 (axis 1 and axis 0), P4,
+  P6 and P9
   (``mosaic_probe.cases``) and the library call of each where it has one
   (``torch.roll``, ``torch.gather``, ``torch.cumsum``, ``torch.matmul``
   f32): host and device µs a call, device operations a call and their
@@ -321,6 +323,42 @@ def kernel_device_costs(dev) -> dict:
     for name, fn in calls.items():
         res[f"{name}_host_us"], res[f"{name}_device_us"] = host_device_us(
             fn, calls=200, profiled=20)
+    return res
+
+
+def miss_walk_costs(dev) -> dict:
+    """Host and device µs per call of MW (``miss_chain_sum``) at exp-4
+    Ndu's two miss walks (R24 -a 4 -A 4 -b 2 -B 2: the iota R.k against
+    S, and under the S hits against T), each with its walking probes and
+    its byte bound (keys, mask and one length a walking probe, over the
+    card's memory rate).  A tree without MW gives no keys."""
+    try:
+        from hashjoin3d_tpu_torch.ops.chainwalk import miss_chain_sum
+    except ImportError:
+        return {}
+    from hashjoin3d_tpu_torch.models.exp4 import Experiment4
+    from hashjoin3d_tpu_torch.ops.strands_windowed import _key_groups
+    from hashjoin3d_tpu_torch.utils.measure import bound_ms, host_device_us
+
+    exp = Experiment4(24, 4, 4, 2, 2, plans=("Ndu",), trace=False,
+                      device=dev)
+    exp.init()
+    tbl_s, tbl_t = exp.build("Ndu", exp.sa), exp.build("Ndu", exp.ta)
+    rk = exp.rk
+    hit_s = _key_groups(tbl_s, rk) >= 0
+    both = torch.where(hit_s, _key_groups(tbl_t, rk), -1) >= 0
+    res = {}
+    for name, tbl, mask in (("mw_s_walk", tbl_s, ~hit_s),
+                            ("mw_t_walk", tbl_t, hit_s & ~both)):
+        def fn(tbl=tbl, mask=mask):
+            return miss_chain_sum(rk, mask, tbl.bucket_main_len,
+                                  tbl.num_buckets, tbl.hashfun)
+        res[f"{name}_host_us"], res[f"{name}_device_us"] = host_device_us(
+            fn, calls=200, profiled=20)
+        walkers = int(mask.sum())
+        res[f"{name}_walkers"] = walkers
+        res[f"{name}_bound_us"] = bound_ms(
+            rk.nbytes + mask.nbytes + 4 * walkers)[0] * 1e3
     return res
 
 
@@ -737,7 +775,8 @@ def main() -> int:
         dist_profile(dev, args.reps)
     elif args.mode == "launch":
         res = ({} if args.probes
-               else {**launch_costs(dev), **kernel_device_costs(dev)})
+               else {**launch_costs(dev), **kernel_device_costs(dev),
+                     **miss_walk_costs(dev)})
         res["probes"] = probe_launch_costs(
             dev, (args.probes or ",".join(LAUNCH_PROBES)).split(","))
         print(json.dumps(res))
