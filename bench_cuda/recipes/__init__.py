@@ -1,7 +1,9 @@
 """Seeded data recipes, one module a recipe, named by a configuration's
 ``recipe`` key.  Each ``columns(config, seed, device)`` returns the
 relations as int32 key carriers (u32 bits) made on ``device`` by a
-``torch.Generator`` from ``seed``, in a few large calls."""
+``torch.Generator`` from ``seed``, in a few large calls, and
+``small(config)`` returns the keys that a CPU copy of ``config`` (the
+tests') overrides, ``rows`` included."""
 
 from __future__ import annotations
 

@@ -37,3 +37,21 @@ def columns(config: dict, seed: int, device) -> dict:
                           device=device, dtype=torch.int32)])
         sa = sa[torch.randperm(n_s, generator=g, device=device)]
     return {"R": rk, "S": sa}
+
+
+def small(config: dict) -> dict:
+    """The keys a CPU copy of ``config`` overrides: 2^10 build keys (2^11
+    over a mesh's ranks), S as many times larger than R as in ``config``,
+    ``t`` kept; a mesh's ``key_domain`` and ``buckets_per_shard`` follow
+    from the cut as they do at full size."""
+    ranks = int(config.get("ranks", 1))
+    log_r = min(config["log2_card_r"], 10 + (ranks > 1))
+    log_s = log_r + config["log2_card_s"] - config["log2_card_r"]
+    out = dict(log2_card_r=log_r, log2_card_s=log_s,
+               rows={"R": 1 << log_r, "S": 1 << log_s})
+    if "key_domain" in config:
+        out["key_domain"] = 1 << (log_r - config["t"])
+    if "buckets_per_shard" in config:
+        out["buckets_per_shard"] = max((1 << log_r) // ranks // config["b"],
+                                       1)
+    return out

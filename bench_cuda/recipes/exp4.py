@@ -40,3 +40,11 @@ def columns(config: dict, seed: int, device) -> dict:
 
     return {"R": torch.arange(c["R"], dtype=torch.int32, device=device),
             "S": fk(common), "T": fk(common + excl)}
+
+
+def small(config: dict) -> dict:
+    """The keys a CPU copy of ``config`` overrides: R cut to 2^12 keys,
+    the multiplicities kept."""
+    log_r = min(config["log2_card_r"], 12)
+    c = cardinalities(dict(config, log2_card_r=log_r))
+    return dict(log2_card_r=log_r, rows={k: c[k] for k in ("R", "S", "T")})

@@ -1,15 +1,20 @@
 """One hash join of two relations: a table built on ``table.build`` and
-probed by every row of ``table.probe`` (exp-1's Csr and Nrs, and the
+probed by every row of ``table.probe`` (exp-1's Csr, Crs and Nrs, and the
 distributed Nrs on ``shards`` ranks).
 
 Counters, with the artifact's names in brackets: ``matches``
-[c_htProbe], probes that found their key; ``cmps`` [c_htProbeCmp], nodes
-compared; ``total`` [c_top / c_unnest], result pairs.  A chaining table
-with ``early_exit`` emits one pair a hit (the build keys are unique); a
-nested table emits every build row of a hit key.  The pair rows
-(``probe_row``, ``build_row``; -1 in unused slots) are judged by what they
-say: each names a probe row and a build row of equal keys, no pair comes
-twice, and as many come as the join has.
+[c_htProbe]; ``cmps`` [c_htProbeCmp], nodes compared; ``total`` [c_top /
+c_unnest], result pairs.  A probe that misses compares its whole chain.
+A chaining table with ``early_exit`` (Csr: unique build keys) counts a
+probe that finds its key as one match of ``pos + 1`` compared nodes and
+emits one pair.  One without it (Crs; ``algebra.hh:640-658`` without
+``IsBuildKeyUnique``) walks every probe's whole chain, and every build
+row of the key is a match and a pair.  A nested table counts a probe
+that finds its key's main node as one match of ``pos + 1`` nodes and
+emits every build row of the key.  The pair rows (``probe_row``,
+``build_row``; -1 in unused slots) are judged by what they say: each
+names a probe row and a build row of equal keys, no pair comes twice,
+and as many come as the join has.
 """
 
 from __future__ import annotations
@@ -53,10 +58,12 @@ def _table(cols, config, traffic):
         pos, rows, clen = nested_chains(bk, chain, nb * shards, domain)
         first_row = None
     hit, matches, cmps = probe_cmps(pos, clen, pk, chain, domain)
-    if t["kind"] == "chaining" and t["early_exit"]:
-        total = matches
-    else:
-        total = int(rows[pk[hit]].sum())
+    total = int(rows[pk[hit]].sum())
+    if t["kind"] == "chaining":
+        if t["early_exit"]:
+            total = matches
+        else:
+            matches, cmps = total, int(clen[chain(pk)].sum())
     return dict(bk=bk, pk=pk, hit=hit, first_row=first_row,
                 counters=dict(matches=matches, cmps=cmps, total=total))
 

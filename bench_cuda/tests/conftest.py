@@ -11,17 +11,18 @@ import torch
 
 from bench_cuda import harness, spec
 
-#: the configurations' sizes for CPU runs (the plain versions of the
-#: kernels run there)
-SMALL = {
-    "exp1-R20S24-t0": dict(log2_card_r=10, log2_card_s=14,
-                           rows={"R": 1024, "S": 16384}),
-    "exp4-R24": dict(log2_card_r=12, rows={"R": 4096, "S": 3072,
-                                           "T": 3072}),
-    "exp1-R22S26-t0-4ranks": dict(log2_card_r=11, log2_card_s=15,
-                                  rows={"R": 2048, "S": 32768},
-                                  key_domain=2048, buckets_per_shard=512),
-}
+
+def one_card_cells() -> list:
+    """The names of ``BENCHMARK.json``'s one-card cells, in its order."""
+    return [w["name"] for w in spec.load_benchmark()["workloads"]
+            if w["chips"] == 1]
+
+
+def small_copy(config: dict) -> dict:
+    """``config`` as its recipe cuts it for a CPU run (the plain versions
+    of the kernels run there)."""
+    return dict(config, **spec.module("recipes", config["recipe"]).small(
+        config))
 
 
 #: the 4-card cell waits outside ``BENCHMARK.json`` for its measurements
@@ -56,7 +57,7 @@ def write_small_bench(root: Path, small: bool = True) -> Path:
     for c in bench["configs"]:
         cfg = json.loads((spec.ROOT / c["file"]).read_text())
         if small:
-            cfg.update(SMALL[c["name"]])
+            cfg = small_copy(cfg)
         c["file"] = f"{c['name']}.json"
         (root / c["file"]).write_text(json.dumps(cfg))
     path = root / "BENCHMARK.json"

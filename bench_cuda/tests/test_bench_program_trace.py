@@ -11,6 +11,8 @@ import torch
 from bench_cuda import harness, measure, program_trace, spec
 from bench_cuda.harness import Run
 
+from .conftest import one_card_cells
+
 SPAN_METRICS = ("build_hash_ms", "build_sort_ms", "build_runs_ms",
                 "probe_sort_ms", "probe_lookup_ms", "probe_miss_ms",
                 "probe_unnest_ms", "exchange_ms")
@@ -140,8 +142,7 @@ def test_a_program_without_the_surface_reads_nothing(monkeypatch):
         assert read(name, _run(gaps={"hj.build": 1.0})) is None
 
 
-@pytest.mark.parametrize("name", ["exp1-t0.csr", "exp1-t0.nrs",
-                                  "exp4-R24.ndu"])
+@pytest.mark.parametrize("name", one_card_cells())
 def test_a_traced_cpu_run_reads_the_programs_counters(small_bench, quick,
                                                       monkeypatch, name):
     from hashjoin3d_tpu_torch.utils import tracing

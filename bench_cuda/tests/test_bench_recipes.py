@@ -1,9 +1,12 @@
 """The seeded generators: shapes, domains, multiplicities, and the same
 data from the same seed."""
 
+import json
+
 import pytest
 import torch
 
+from bench_cuda import spec
 from bench_cuda.recipes import exp1, exp4, instance_seed
 from hashjoin3d_tpu_torch.models.exp4 import Cardinalities
 
@@ -86,3 +89,31 @@ def test_exp1_every_key_occurs_whatever_the_draw():
         counts = torch.bincount(s.long(), minlength=1 << 12)
         assert int((counts == 0).sum()) == 0
         assert s.numel() == 1 << 12
+
+
+#: the CPU copies as the tests wrote them out before the recipes cut them
+SMALL = {
+    "exp1-R20S24-t0": dict(log2_card_r=10, log2_card_s=14,
+                           rows={"R": 1024, "S": 16384}),
+    "exp4-R24": dict(log2_card_r=12, rows={"R": 4096, "S": 3072,
+                                           "T": 3072}),
+    "exp1-R22S26-t0-4ranks": dict(log2_card_r=11, log2_card_s=15,
+                                  rows={"R": 2048, "S": 32768},
+                                  key_domain=2048, buckets_per_shard=512),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SMALL))
+def test_small_gives_the_copies_the_tests_had(name):
+    cfg = json.loads((spec.HERE / "configs" / f"{name}.json").read_text())
+    assert spec.module("recipes", cfg["recipe"]).small(cfg) == SMALL[name]
+
+
+def test_a_t4_copy_keeps_t():
+    cfg = dict(json.loads((spec.HERE / "configs" / "exp1-R20S24-t0.json")
+                          .read_text()), t=4)
+    cut = dict(cfg, **exp1.small(cfg))
+    assert (cut["log2_card_r"], cut["log2_card_s"], cut["t"]) == (10, 14, 4)
+    s = exp1.columns(cut, instance_seed(3, 0), CPU)["S"]
+    assert s.numel() == cut["rows"]["S"] == 64 * 256
+    assert torch.unique(s).tolist() == list(range(64))

@@ -8,10 +8,13 @@ import pytest
 import torch
 
 from bench_cuda import control, spec
+from bench_cuda.recipes import instance_seed
 from bench_cuda.refcore import fmix32
 from bench_cuda.references import three_way, two_way
 
-from .conftest import SMALL, write_small_bench
+from . import t4crs
+from .conftest import (DIST_CELL, one_card_cells, small_copy,
+                       write_small_bench)
 
 CPU = torch.device("cpu")
 
@@ -30,9 +33,10 @@ def chain_of(k, nb, shards):
     return (fmix(fmix(k)) % shards) * nb + b if shards > 1 else b
 
 
-def brute_chaining(build, probe, nb, shards=1):
+def brute_chaining(build, probe, nb, shards=1, early_exit=True):
     """``ht_chaining.hh``: the first row of a bucket is its directory
     node, later rows go in right behind it; an early-exit probe stops at
+    its key, any other walks its whole chain and matches every node of
     its key."""
     chains = {}
     for row, k in enumerate(build):
@@ -40,13 +44,18 @@ def brute_chaining(build, probe, nb, shards=1):
         c.insert(1, (k, row)) if c else c.append((k, row))
     m = cmps = 0
     for k in probe:
-        for i, (bk, _) in enumerate(chains.get(chain_of(k, nb, shards), [])):
+        chain = chains.get(chain_of(k, nb, shards), [])
+        if not early_exit:
+            m += sum(bk == k for bk, _ in chain)
+            cmps += len(chain)
+            continue
+        for i, (bk, _) in enumerate(chain):
             if bk == k:
                 m += 1
                 cmps += i + 1
                 break
         else:
-            cmps += len(chains.get(chain_of(k, nb, shards), []))
+            cmps += len(chain)
     return dict(matches=m, cmps=cmps, total=m)
 
 
@@ -94,6 +103,18 @@ def test_two_way_chaining_early_exit_equals_brute_force(seed):
                              early_exit=True, buckets="build_rows")}
     got = two_way.expect(_cols(R=build, S=probe), {"b": 4}, traffic)
     assert got == brute_chaining(build, probe, 50)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_two_way_chaining_without_early_exit_equals_brute_force(seed):
+    rng = random.Random(seed)
+    build = [rng.randrange(120) for _ in range(1500)]  # duplicate keys
+    probe = rng.sample(range(400), 400)                # hits and misses
+    traffic = {"table": dict(kind="chaining", build="S", probe="R",
+                             early_exit=False, buckets="build_distinct")}
+    got = two_way.expect(_cols(S=build, R=probe), {"b": 2}, traffic)
+    assert got == brute_chaining(build, probe, len(set(build)) // 2,
+                                 early_exit=False)
 
 
 @pytest.mark.parametrize("seed,shards", [(0, 1), (1, 1), (2, 4), (3, 4)])
@@ -189,8 +210,7 @@ CONTROL_SIZES = {"exp1": dict(log2_card_r=17, log2_card_s=19),
                  "exp4": dict(log2_card_r=18)}
 
 
-@pytest.mark.parametrize("cell", ["exp1-t0.csr", "exp1-t0.nrs",
-                                  "exp4-R24.ndu", "exp1-dist4.nrs"])
+@pytest.mark.parametrize("cell", one_card_cells() + [DIST_CELL["name"]])
 @pytest.mark.parametrize("seed", [1, 2 ** 31 + 77, 20261018])
 def test_control_comes_out_not_correct(tmp_path, cell, seed):
     c = spec.load_cell(cell, write_small_bench(tmp_path, small=False))
@@ -204,5 +224,64 @@ def test_the_control_at_a_size_below_2_16_would_pass():
     """Why the control's test size is what it is: below 2^16 keys u16
     truncation changes nothing."""
     c = spec.load_cell("exp1-t0.csr")
-    c.config = dict(c.config, **SMALL["exp1-R20S24-t0"])
+    c.config = small_copy(c.config)
     assert set(control.control_numbers(c, 3, CPU).values()) == {0}
+
+
+def _artifact_row(csv_name: str, plan: str) -> dict:
+    """A plan's counters in one of the artifact's measure files."""
+    lines = (spec.ROOT / "artifacts" / "r5" / csv_name).read_text().split()
+    head = lines[0].split(";")
+    row = next(dict(zip(head, ln.split(";"))) for ln in lines[1:]
+               if ln.split(";")[head.index("plan")] == plan)
+    return dict(matches=int(row["c_htProbe"]),
+                cmps=int(row["c_htProbeCmp"]), total=int(row["c_top"]))
+
+
+@pytest.fixture(scope="module")
+def artifact_columns():
+    """exp-1's columns as the artifact draws them, by ``-t``, made once."""
+    from hashjoin3d_tpu_torch.utils.gen import exp1_data
+
+    made = {}
+
+    def columns(t):
+        if t not in made:
+            rk, sa, _ = exp1_data(20, 24, False, t)
+            made[t] = _cols(R=rk.view("int32"), S=sa.view("int32"))
+        return made[t]
+
+    return columns
+
+
+@pytest.mark.parametrize("t,csv_name,plan", [(4, "e1_t4.csv", "Crs"),
+                                             (0, "e1_t0c.csv", "Crs"),
+                                             (0, "e1_t0c.csv", "Csr")])
+def test_two_way_gives_the_artifacts_counters_on_its_columns(
+        artifact_columns, t, csv_name, plan):
+    """At -R 20 -S 24 on the artifact's own columns: Crs walks every chain
+    whole, Csr stops at its key."""
+    table = (t4crs.TRAFFIC["table"] if plan == "Crs" else
+             spec.load_cell("exp1-t0.csr").traffic["table"])
+    got = two_way.expect(artifact_columns(t), {"b": 1}, {"table": table})
+    assert got == _artifact_row(csv_name, plan)
+
+
+#: ``expect`` on the small copies (data instance 0 of seed 2^31 + 77),
+#: as the reference gave them before the no-early-exit branch came
+SMALL_COUNTERS = {
+    "exp1-t0.csr": {"matches": 16384, "cmps": 24583, "total": 16384},
+    "exp1-t0.nrs": {"matches": 1024, "cmps": 1531, "total": 16384},
+    "exp4-R24.ndu": {"rs": 1280, "rs_cmp": 4685, "rt": 256, "rt_cmp": 1366,
+                     "unnest_t": 1024, "total": 4096},
+    "exp1-dist4.nrs": {"matches": 2048, "cmps": 3049, "total": 32768},
+}
+
+
+@pytest.mark.parametrize("cell", sorted(SMALL_COUNTERS))
+def test_the_small_copies_counters_stay(small_bench, cell):
+    c = spec.load_cell(cell, small_bench)
+    cols = spec.module("recipes", c.config["recipe"]).columns(
+        c.config, instance_seed(2 ** 31 + 77, 0), CPU)
+    ref = spec.module("references", c.traffic["reference"])
+    assert ref.expect(cols, c.config, c.traffic) == SMALL_COUNTERS[cell]

@@ -14,9 +14,10 @@ from bench_cuda import harness, ranks, spec
 from bench_cuda.run import forbidden_modules, result_line
 
 from . import rankfaults
+from .conftest import one_card_cells
 
 CPU = torch.device("cpu")
-SINGLE = ["exp1-t0.csr", "exp1-t0.nrs", "exp4-R24.ndu"]
+SINGLE = one_card_cells()
 
 
 def _line(cell, res, trace=False):
