@@ -467,8 +467,11 @@ def keydirect_nested_strand_sorted(table, pk: torch.Tensor, out_size: int,
 def _full_chain_cmps(table, skey: torch.Tensor, live=None) -> torch.Tensor:
     """Comparisons of probes that walk their whole bucket chain (no early
     exit): the bucket-length sum over the live probes' sorted bucket-id
-    stream (hash-ordered, so it gets its own sort)."""
-    with span("hj.probe.miss"):
+    stream (hash-ordered, so it gets its own sort).  Runs in the
+    ``hj.probe.walk`` span, the whole-chain walk of every live probe, hit
+    or miss; ``hj.probe.miss`` is the misses' walk alone
+    (:func:`_miss_chain_cmps`)."""
+    with span("hj.probe.walk"):
         b = bucket_of(hash_key(skey, table.hashfun), table.num_buckets)
         if live is not None:
             b = torch.where(live, b, -1)
@@ -816,7 +819,7 @@ def chj_strand_sorted(tbl_s, tbl_t, keys_iota: torch.Tensor, out1: int,
         t_counts = torch.where(v1, safe_lookup(glen_t_by_p, p1, W=W1, C=C1),
                                0)
         c_rt = t_counts.to(I64).sum()
-    with span("hj.probe.miss"):
+    with span("hj.probe.walk"):
         dom = torch.arange(tbl_t.key_direct.shape[0], dtype=I32,
                            device=sk.device)
         chain_t = tbl_t.bucket_len[
