@@ -33,6 +33,10 @@ then exp-4 (``main_experiment4 -R 24 -a 4 -A 4 -b 2 -B 2``: |R| 2^24,
    keys and masks, ragged lengths, a prime bucket count, a table shorter
    than its buckets, u64 keys and the bucket-id mode (``fib``, a
    callable), and launched there; its time beside the walk it replaced;
+   RL (``ops/runs.py``: the compacted builds' directory and main chains)
+   equal to its plain versions at Ndu's, Nrs's and Crs's shapes and on
+   its edge cases (``phase1_runs``), launched once a call, with its times
+   at Ndu's two calls;
 2. ``Experiment1(20, 24, t=0, plans=all + CsrSel, CrsSel, NrsSel,
    device="cuda")``, the launch counts set to 0 just before each plan:
    every row of ``all``'s plans equals the same plan's row of
@@ -55,8 +59,8 @@ then exp-4 (``main_experiment4 -R 24 -a 4 -A 4 -b 2 -B 2``: |R| 2^24,
    NrsNU's c_htProbe and c_htProbeCmp equal Nrs's, builds and pairs equal
    to the CPU run;
 4. launch counts: K1, K2 and K3 launched in phase 2's Csr, CsrUU and Nsr,
-   K2 and K3 in its Nrs and in each new plan (Crs and the *Sel plans), K4
-   in its Crs and CrsSel (their whole-chain walks), K1 on the sorted route
+   K2, K3 and RL in its Nrs, Crs, NrsSel and CrsSel, K2 and K3 in CsrSel,
+   K4 in its Crs and CrsSel (their whole-chain walks), K1 on the sorted route
    of Crs's strand, MW (the miss walk's one-pass sum) in phase 3 and in
    phase 3b's Nrs at t=4, K4 in phase 3b's Crs at t=4 (the other t=0 plans
    never miss, so they bypass MW);
@@ -87,9 +91,9 @@ then exp-4 (``main_experiment4 -R 24 -a 4 -A 4 -b 2 -B 2``: |R| 2^24,
    and Chj's rows equal ``artifacts/r5/e4_24.csv`` / ``e4_20.csv`` in
    every value column, Nnu's c_top equals numFkCommon, ``route_worst`` is
    0; at R20 every plan's counters, result triples (Nnu: its nested
-   tuples) equal the CPU run's, as multisets, and K2 and K3 launch in
-   each plan, MW in Ndu's and Nnu's miss walks, K4 in Chj's whole-chain
-   walk.
+   tuples) equal the CPU run's, as multisets, and K2 and RL launch in
+   each plan, K3 in Ndu's and Chj's, MW in Ndu's and Nnu's miss walks, K4
+   in Chj's whole-chain walk.
 
 7. ``hashjoin3d_tpu_torch.join``, the one-call API, on the same R20/S24
    t=0 columns: ``join(R.k, S.a, how="chaining", unique=True)``,
@@ -131,8 +135,8 @@ then exp-4 (``main_experiment4 -R 24 -a 4 -A 4 -b 2 -B 2``: |R| 2^24,
    queries on the card equal the goldens of ``tests/test_algebra.py``;
    8f. ``hash_aggregate`` (masked, with an ``n_keys`` hint),
    ``radix_partition`` (both ways) and ``compact`` over S.a's 2^24 rows
-   equal numpy.  K2 and K3 must launch in every join plan of 8a, 8c and
-   8d.
+   equal numpy.  RL must launch in every join plan of 8a, 8c and 8d,
+   and K2 and K3 in each but those of ``PHASE8_WITHOUT``.
 
 9. Out-of-core streaming (``ops/streaming.py``: the probe column on the
    host, uploaded chunk by chunk through pinned buffers on a side stream),
@@ -284,10 +288,25 @@ EXP4_RUNS = (("R24", 24, REPO / "artifacts" / "r5" / "e4_24.csv", 0.3),
              ("R20", 20, REPO / "artifacts" / "r5" / "e4_20.csv", 0.05))
 EXP4_PARAMS = dict(alpha=4, mult_alpha=4, beta=2, mult_beta=2)
 EXP4_PLANS = ("Ndu", "Chj", "Nnu")
-#: the kernel each exp-4 plan's chain walks launch: the miss walks' MW, or
-#: K4 for Chj's whole-chain walk of S
-WALK_KERNEL = {"Ndu": "miss_chain_sum", "Nnu": "miss_chain_sum",
-               "Chj": "bitonic_sort_segmented"}
+#: the kernels each exp-4 plan launches: K2, RL (every compacted build),
+#: K3 where a plan unnests or sums its buckets' runs (not Nnu), and its
+#: chain walks' kernel: the miss walks' MW, or K4 for Chj's whole-chain
+#: walk of S
+EXP4_KERNELS = {
+    "Ndu": ("windowed_lookup", "runs", "multi_scan", "miss_chain_sum"),
+    "Chj": ("windowed_lookup", "runs", "multi_scan",
+            "bitonic_sort_segmented"),
+    "Nnu": ("windowed_lookup", "runs", "miss_chain_sum")}
+#: phase 8's join plans that reach K2 or K3 no more since RL builds their
+#: directories (the clarity Csr and CsrUU fetched their directory alone
+#: with K2; NrsNU and Nnu unnest nothing); every other join plan launches
+#: K2, K3 and RL
+PHASE8_WITHOUT = {"Csr": ("windowed_lookup",), "CsrUU": ("windowed_lookup",),
+                  "Csr k<|R|/2": ("windowed_lookup",),
+                  "Csr non-dense": ("windowed_lookup",),
+                  "CsrUU non-dense": ("windowed_lookup",),
+                  "NrsNU": ("windowed_lookup", "multi_scan"),
+                  "Nnu R24 clarity": ("windowed_lookup", "multi_scan")}
 LOG2_R, LOG2_S = 20, 24
 SEGMENT, WINDOW, KEY_BITS = 1 << 18, 8192, 20
 
@@ -309,6 +328,10 @@ KERNELS = {
         "hashjoin3d_tpu_torch/csrc/chainwalk.cu",
         "none: the miss walk's hash, K4 or library sort and K2 lookup",
         "miss_chain_sum"),
+    "RL runs": (
+        "hashjoin3d_tpu_torch/csrc/runs.cu",
+        "none: the compacted builds' run_boundaries (K3), head scatter, K2 "
+        "fetches and histogram", "runs"),
     "K2b windowed_lookup db": (
         "hashjoin3d_tpu_torch/csrc/windowed.cu",
         "hashjoin3d_tpu/ops/windowed.py:115", "windowed_lookup_db"),
@@ -612,6 +635,7 @@ def phase1_kernels(rk, sa, ops):
         library_ms=cuda_ms(lambda: torch.sort(wide.view(K, SEGMENT), dim=1)),
         **bound(wide, lid, gk, gr))
     results["MW miss_chain_sum"] = phase1_miss_walk(dev)
+    results["RL runs"] = phase1_runs(dev)
     return results
 
 
@@ -712,6 +736,154 @@ def phase1_miss_walk(dev) -> dict:
         sorted_walk_ms=cuda_ms(lambda: sorted_miss_walk(lens, nb, keys,
                                                         mask)),
         library_ms=None, walkers=walkers, bound_ms=ms, bound_by=by)
+
+
+def runs_columns(dev):
+    """RL's key columns, seeded on the card: exp-4 Ndu's S (2^20 keys 4
+    times, 2^22 twice: 12,582,912 rows), exp-1 Nrs's S.a (2^24 rows over
+    2^20 keys, each once) and Crs's at t=4 (2^24 rows over 2^16 keys),
+    each shuffled; returns ``(label, keys, cap, main-chain buckets or
+    None)``."""
+    from hashjoin3d_tpu_torch.ops.layout import I32
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def shuffled(k):
+        return k[torch.randperm(k.shape[0], generator=gen, device=dev)]
+
+    ar = torch.arange(1 << 22, dtype=I32, device=dev)
+    ndu = torch.cat([ar[:1 << 20].repeat(4), ((1 << 20) + ar).repeat(2)])
+
+    def over(domain):
+        drawn = torch.randint(0, domain, ((1 << 24) - domain,),
+                              generator=gen, device=dev, dtype=I32)
+        return torch.cat([ar[:domain], drawn])
+
+    return [("Ndu", shuffled(ndu), 1 << 23, 5_242_880),
+            ("Nrs", shuffled(over(1 << 20)), 1 << 20, 1 << 20),
+            ("Crs", shuffled(over(1 << 16)), 1 << 16, None)]
+
+
+def main_chain_column(ukey, group_len, first_row, nb):
+    """``_main_chains``' sorted bucket ids and their group order."""
+    from hashjoin3d_tpu_torch.ops.hashing import bucket_of, hash_key
+    from hashjoin3d_tpu_torch.ops.layout import I32, I64
+
+    b = torch.where(group_len > 0, bucket_of(hash_key(ukey, "murmur"), nb),
+                    nb)
+    pk_s, gid_s = torch.sort((b.to(I64) << 32) | first_row.to(I64),
+                             stable=True)
+    return (pk_s >> 32).to(I32), gid_s
+
+
+def phase1_runs(dev) -> dict:
+    """RL (``ops/runs.py``) against its plain versions on the same CUDA
+    tensors, bit-equal and launched once a call: the directory and the
+    main chains at Ndu's, Nrs's and Crs's shapes (:func:`runs_columns`),
+    then the edge cases: no rows, one run across many tiles, all distinct,
+    a directory cut below its keys, ``n_valid`` as an int and as an int64
+    device scalar with each row's group, u64 keys, sizes around a tile,
+    bucket ids at and past the bucket count; with
+    the kernel's times at Ndu's two calls beside their bounds."""
+    from hashjoin3d_tpu_torch import kernels
+    from hashjoin3d_tpu_torch.ops import runs
+    from hashjoin3d_tpu_torch.ops.layout import I32, I64, sort_with_rows
+    from hashjoin3d_tpu_torch.utils.measure import bound_ms, host_device_us
+
+    calls = 0
+
+    def directory(what, skey, srow, cap, n_valid=None, with_gid=False):
+        nonlocal calls
+        got = runs.run_directory(skey, srow, cap, n_valid, with_gid)
+        want = runs.run_directory_plain(skey, srow, cap, n_valid, with_gid)
+        calls += 1
+        for name, g, w in zip(("ukey", "group_start", "group_len",
+                               "first_row", "n_keys", "gid"), got, want):
+            require(g.dtype == w.dtype and torch.equal(g, w),
+                    f"RL {what}: {name} differs from the plain version")
+        return got
+
+    def histogram(what, values, perm, nb):
+        nonlocal calls
+        got = runs.run_histogram(values, perm, nb)
+        want = runs.run_histogram_plain(values, perm, nb)
+        calls += 1
+        for name, g, w in zip(("bucket_len", "rank"), got, want):
+            require(torch.equal(g, w),
+                    f"RL {what}: {name} differs from the plain version")
+        return got
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    at = {}  # each shape's sorted column, directory and main-chain column
+    for label, keys, cap, nb in runs_columns(dev):
+        skey, srow, nk = sort_with_rows(keys)
+        d = directory(f"{label} directory", skey, srow, cap)
+        require(int(d[4]) == int(nk), f"RL {label}: n_keys {int(d[4])} != "
+                f"{int(nk)}")
+        at[label] = (skey, srow, cap, None)
+        if nb is not None:
+            bm_s, gid_s = main_chain_column(d[0], d[2], d[3], nb)
+            histogram(f"{label} main chains", bm_s, gid_s, nb)
+            at[label] = (skey, srow, cap, (bm_s, gid_s, nb))
+    skey, srow = at["Ndu"][:2]
+    n = skey.shape[0]
+    directory("cap below the keys", skey, srow, 1 << 20)
+    directory("n_valid an int", skey, srow, 1 << 23, n - 12345)
+    nv = torch.tensor(n - 4097, dtype=I64, device=dev)
+    directory("n_valid a device scalar, with gid", skey, srow, 1 << 23, nv,
+              True)
+    # an odd multiplier keeps equal keys equal and distinct ones distinct,
+    # and sets the high bits of most
+    wide = skey.to(I64) * 0x1E3779B97F4A7C15
+    directory("u64 keys", wide, srow, 1 << 23)
+    directory("no rows", skey[:0], srow[:0], 4)
+    one = torch.full((3 * 4096 + 5,), -7, dtype=I32, device=dev)
+    rows = torch.arange(one.shape[0], dtype=I32, device=dev)
+    directory("one run", one, rows, 1, with_gid=True)
+    distinct = torch.arange(100_003, dtype=I32, device=dev)
+    directory("all distinct", distinct * 3, distinct, 1 << 17)
+    for size in (4095, 4096, 4097, 2 * 4096 + 1):
+        directory(f"{size} rows", skey[:size], srow[:size], 1 << 13,
+                  with_gid=True)
+        directory(f"{size} rows at offset 1", skey[1:size + 1],
+                  srow[1:size + 1], 1 << 13)
+    directory("runs longer than a tile", distinct[:50_000] // 5000,
+              distinct[:50_000], 16)
+    nb = 700
+    gen = torch.Generator(device=dev).manual_seed(12)
+    ids = torch.sort(torch.randint(0, nb + 40, (100_000,), generator=gen,
+                                   device=dev, dtype=I32)).values
+    ids[-50:] = -5  # 2^32 - 5 unsigned, past every bucket
+    perm = torch.randperm(ids.shape[0], generator=gen, device=dev)
+    histogram("bucket ids past the buckets", ids, perm, nb)
+    torch.cuda.synchronize()
+    launched_runs = kernels.LAUNCHES["runs"]
+    require(launched_runs == calls,
+            f"RL launched {launched_runs} times in {calls} calls")
+
+    skey, srow, cap, (bm_s, gid_s, nb) = at["Ndu"]
+    times = dict(
+        ms=cuda_ms(lambda: runs.run_directory(skey, srow, cap)),
+        device_ms=host_device_us(lambda: runs.run_directory(skey, srow, cap),
+                                 calls=50, profiled=10)[1] / 1e3,
+        plain_ms=cuda_ms(lambda: runs.run_directory_plain(skey, srow, cap)),
+        histogram_ms=cuda_ms(lambda: runs.run_histogram(bm_s, gid_s, nb)),
+        histogram_device_ms=host_device_us(
+            lambda: runs.run_histogram(bm_s, gid_s, nb), calls=50,
+            profiled=10)[1] / 1e3,
+        histogram_plain_ms=cuda_ms(
+            lambda: runs.run_histogram_plain(bm_s, gid_s, nb)))
+    ms, by = bound_ms(skey.nbytes + srow.nbytes
+                      + cap * (skey.element_size() + 12))
+    hist_ms, _ = bound_ms(bm_s.nbytes + gid_s.nbytes + 4 * nb
+                          + 4 * bm_s.shape[0])
+    for label in ("Nrs", "Crs"):
+        k, r, c, _ = at[label]
+        times[f"{label.lower()}_ms"] = cuda_ms(
+            lambda: runs.run_directory(k, r, c))
+    return dict(max_abs_err=0, library_ms=None, calls=calls, bound_ms=ms,
+                bound_by=by, histogram_bound_ms=hist_ms, **times)
 
 
 def value_cols(header):
@@ -1220,7 +1392,7 @@ def phase6_exp4(dev, card):
     set to 0 just before each plan: Ndu's and Chj's rows equal the
     reference's in every value column, Nnu's c_top is numFkCommon, route
     0; at R20 counters, triples and Nnu's nested tuples equal the CPU
-    run's, K2 and K3 launch in every plan, MW in Ndu and Nnu, K4 in Chj."""
+    run's, and each plan launches its ``EXP4_KERNELS``."""
     from hashjoin3d_tpu_torch import kernels
     from hashjoin3d_tpu_torch.models.exp4 import Experiment4
 
@@ -1291,7 +1463,7 @@ def check_exp4_against_cpu(exp, launches, label):
             require(torch.equal(triples_key(out).cpu(), triples_key(ocpu)),
                     f"phase 6 {label} {plan}: triples differ from the CPU "
                     "run")
-        for name in ("windowed_lookup", "multi_scan", WALK_KERNEL[plan]):
+        for name in EXP4_KERNELS[plan]:
             require(launches[f"{plan} {label}"][name] > 0,
                     f"{name} not launched in phase 6's {plan} {label}")
 
@@ -3191,11 +3363,12 @@ def main() -> int:
     # phase 4: the paths went through the kernels
     need = {"Csr": ("bitonic_sort_packed_segmented", "windowed_lookup",
                     "multi_scan"),
-            "Nrs": ("windowed_lookup", "multi_scan"),
-            "Crs": ("windowed_lookup", "multi_scan",
+            "Nrs": ("windowed_lookup", "multi_scan", "runs"),
+            "Crs": ("windowed_lookup", "multi_scan", "runs",
                     "bitonic_sort_segmented")}
     need["CsrUU"] = need["Nsr"] = need["Csr"]
-    need["CsrSel"] = need["NrsSel"] = need["Nrs"]
+    need["CsrSel"] = ("windowed_lookup", "multi_scan")
+    need["NrsSel"] = need["Nrs"]
     need["CrsSel"] = need["Crs"]
     for plan, names in need.items():
         for name in names:
@@ -3280,7 +3453,9 @@ def main() -> int:
              *(f"{p} non-dense" for p in CLARITY_PLANS),
              *(f"{p} R{log2_r4} clarity" for p in EXP4_PLANS)]
     for plan in joins:
-        for name in ("windowed_lookup", "multi_scan"):
+        for name in ("windowed_lookup", "multi_scan", "runs"):
+            if name in PHASE8_WITHOUT.get(plan, ()):
+                continue
             require(algebra_launches[plan][name] > 0,
                     f"{name} not launched in phase 8's {plan}")
     for plan, counts in algebra_launches.items():

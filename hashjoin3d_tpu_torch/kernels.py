@@ -7,8 +7,8 @@ load through ``ctypes``.  Each C entry point takes its pointers and the CUDA
 stream as ``void*`` and returns ``cudaGetLastError()``.  Kernels launch on
 PyTorch's current stream, never synchronise and allocate nothing: the Python
 wrappers (``ops/scan.py``, ``ops/windowed.py``, ``ops/bitonic.py``,
-``ops/chainwalk.py``, ``ops/probes.py``) allocate outputs and scratch with
-``torch.empty`` or ``torch.zeros``.
+``ops/chainwalk.py``, ``ops/runs.py``, ``ops/probes.py``) allocate outputs
+and scratch with ``torch.empty`` or ``torch.zeros``.
 
 The launch path every wrapper shares is kept short, because a small kernel's
 call costs more on the host than on the card: :func:`kernel_device` checks
@@ -46,7 +46,7 @@ LAUNCHES = {"multi_scan": 0, "windowed_lookup": 0, "windowed_lookup_db": 0,
             "probe_onehot_matmul": 0, "probe_permute": 0,
             "probe_masked_store": 0, "probe_block_copy": 0,
             "probe_row_copy": 0, "probe_digit_histogram": 0,
-            "miss_chain_sum": 0}
+            "miss_chain_sum": 0, "runs": 0}
 
 _lib = None
 
@@ -72,6 +72,15 @@ _SIGNATURES = {
         # counts, segtot, ors, plan (host int32 words), scratch sizes (host
         # int64 words), n, log_seg, rows_from_pos, stream
         "hj3t_radix_sort_segmented": ([_P] * 11 + [_L, _I, _I, _P], _I),
+    },
+    "runs.cu": {
+        # values, their bytes, n, n_valid, its device scalar and bytes,
+        # slots, mode, srow, perm, ukey, group_start, group_len,
+        # first_row, count, gid, rank, workspace, its capacity in tiles,
+        # stream
+        "hj3t_runs": ([_P, _I, _L, _L, _P, _I, _L, _I, _P, _P]
+                      + [_P] * 8 + [_L, _P], _I),
+        "hj3t_runs_tile": ([], _I),
     },
     "chainwalk.cu": {
         # keys, mask, len, out, n, T, num_buckets, mode, key bytes, stream

@@ -20,10 +20,11 @@ composite :func:`pack2u32` key) as the int64 tensor with the same bits:
 Counters are int64.
 
 Where the JAX package compacts run heads or places expansion heads with a
-sort on the TPU, the port takes the scatter.  The scatters of
-:func:`compact_group_index`, :func:`key_direct_index` and :func:`expand`
-send the entries they drop to slots of their own past the kept range, not
-all to one slot, so no two stores meet at one address.
+sort on the TPU, the port takes the scatter or, for the compacted
+directory, one pass over the sorted keys (``ops/runs.py``).  The scatters
+of :func:`key_direct_index` and :func:`expand` send the entries they drop
+to slots of their own past the kept range, not all to one slot, so no two
+stores meet at one address.
 """
 
 from __future__ import annotations
@@ -263,67 +264,24 @@ def compact_group_index(keys: torch.Tensor, skey: torch.Tensor,
     passes its rows' global ids, so the strands emit global coordinates;
     ``first_row`` stays the local arrival row (chain order).
 
-    The run heads' sorted positions scatter into the directory (group ids
-    ascend with the sorted keys), then the key, run length and first row
-    of each group are fetched at those positions: by ``safe_lookup`` (K2)
-    while heads stride at most 8 rows per key, by a plain gather past that
-    (the window would have to grow past its cap).  A 64-bit key is fetched
-    as its two u32 halves.  ``gid_by_row`` is not materialised (no probe
+    One pass over the sorted keys writes the directory
+    (:func:`~.runs.run_directory`, kernel RL on the GPU): group ids ascend
+    with the sorted keys, heads past ``cap`` (a too-small cap) drop, and
+    nothing is read back.  ``gid_by_row`` is not materialised (no probe
     reads it) unless ``with_gid_by_row``.
     """
-    n = keys.shape[0]
-    dev = keys.device
-    i = torch.arange(n, dtype=I32, device=dev)
-    is_first, gid, _, run_len = run_boundaries(
-        skey, n if n_valid is None else n_valid)
-    if n == 0:
-        ukey = torch.full((cap,), UKEY_PAD, dtype=skey.dtype, device=dev)
-        group_start = torch.zeros(cap, dtype=I32, device=dev)
-        group_len = torch.zeros(cap, dtype=I32, device=dev)
-        first_row = torch.zeros(cap, dtype=I32, device=dev)
-        n_keys = torch.zeros((), dtype=I32, device=dev)
-    else:
-        from .strands_windowed import safe_lookup, stride_params
+    from .runs import run_directory
 
-        n_keys = torch.clamp(gid[-1] + 1, min=0)
-        slot = torch.arange(cap, dtype=I32, device=dev)
-        pad = slot >= torch.clamp(n_keys, max=cap)
-        # heads past the directory (a too-small cap) drop, like the rest
-        tgt = torch.where(is_first & (gid < cap), gid, cap + i)
-        head = torch.full((cap + n,), n, dtype=I32, device=dev)
-        head[tgt.long()] = i
-        head = head[:cap]
-        hp = torch.clamp(head, max=n - 1)
-        stride = n / cap
-        if stride <= 8:
-            W, C = stride_params(stride, margin=2.0)
-
-            def fetch(vals):
-                return safe_lookup(vals, hp, W=W, C=C)
-        else:
-            def fetch(vals):
-                return vals[hp.long()]
-        if skey.dtype == I64:
-            hi = fetch(i64_to_u32(skey >> 32))
-            lo = fetch(i64_to_u32(skey))
-            skey_hp = (hi.to(I64) << 32) | u32_to_i64(lo)
-        else:
-            skey_hp = fetch(skey)
-        ukey = torch.where(pad, UKEY_PAD, skey_hp)
-        group_start = torch.where(pad, n, head)
-        group_len = torch.where(pad, 0, fetch(run_len))
-        first_row = torch.where(pad, n, fetch(srow))
-    gid_by_row = torch.zeros(0, dtype=I32, device=dev)
-    if with_gid_by_row:
-        live_gid = gid if n_valid is None else torch.where(i < n_valid, gid,
-                                                           -1)
-        gid_by_row = inverse_permute(srow, live_gid)
+    ukey, group_start, group_len, first_row, n_keys, gid = run_directory(
+        skey, srow, cap, n_valid, with_gid_by_row)
+    gid_by_row = (inverse_permute(srow, gid) if with_gid_by_row
+                  else torch.zeros(0, dtype=I32, device=keys.device))
     return GroupIndex(ukey=ukey, group_start=group_start,
                       group_len=group_len,
                       group_rows=srow if row_values is None
                       else row_values.to(I32),
                       first_row=first_row, gid_by_row=gid_by_row,
-                      n_keys=n_keys.to(I32))
+                      n_keys=n_keys)
 
 
 def drop_pad_groups(groups: GroupIndex) -> GroupIndex:

@@ -42,6 +42,7 @@ from .layout import (I32, I64, GroupIndex, check_carrier,
                      inverse_permute, key_direct_index, key_direct_lookup,
                      key_group_index, lookup_auto, run_boundaries,
                      shrink_group_arrays, sort_with_rows, sorted_histogram)
+from .runs import run_histogram
 
 
 @dataclass(frozen=True)
@@ -92,8 +93,8 @@ def _main_chains(groups: GroupIndex, num_buckets: int, hashfun):
     int64 word with the padding groups parked at bucket ``num_buckets``, so
     within a bucket they stand in first-occurrence order (tail append,
     ``ht_nested.hh:299-308``) and a group's main-chain position is its rank
-    in its bucket's run."""
-    cap = groups.ukey.shape[0]
+    in its bucket's run.  One pass over the sorted buckets
+    (:func:`~.runs.run_histogram`, kernel RL on the GPU) writes both."""
     with span("hj.build.hash"):
         validg = groups.group_len > 0
         b_main = torch.where(validg,
@@ -105,13 +106,9 @@ def _main_chains(groups: GroupIndex, num_buckets: int, hashfun):
         pk_s, gid_s = torch.sort(packed, stable=True)
         bm_s = (pk_s >> 32).to(I32)
     with span("hj.build.runs"):
-        is_first_m, _, run_start, run_len_m = run_boundaries(
-            bm_s, validg.sum(dtype=I32))
-        _, bucket_main_len = sorted_histogram(bm_s, num_buckets, is_first_m,
-                                              run_len_m)
-    with span("hj.build.assemble"):
-        pos_s = torch.arange(cap, dtype=I32, device=bm_s.device) - run_start
-        return inverse_permute(gid_s.to(I32), pos_s), bucket_main_len
+        bucket_main_len, main_pos_by_group = run_histogram(bm_s, gid_s,
+                                                           num_buckets)
+    return main_pos_by_group, bucket_main_len
 
 
 def build_nested(keys: torch.Tensor, num_buckets: int,

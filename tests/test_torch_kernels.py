@@ -30,7 +30,7 @@ from hashjoin3d_tpu.ops.windowed import (
     windowed_coverage_ok as jax_coverage_ok)
 from hashjoin3d_tpu.ops.windowed import windowed_lookup as jax_windowed_lookup
 
-from hashjoin3d_tpu_torch.ops import chainwalk, probes
+from hashjoin3d_tpu_torch.ops import chainwalk, probes, runs
 from hashjoin3d_tpu_torch.ops import strands_windowed as tw
 from hashjoin3d_tpu_torch.ops.bitonic import (bitonic_sort_packed_segmented,
                                               bitonic_sort_segmented,
@@ -537,6 +537,8 @@ def test_bitonic_sort_packed_plain_matches_jax_kernel():
     lambda x: probes.digit_histogram(x.view(-1, 128)),
     lambda x: chainwalk.miss_chain_sum(x, x.new_empty(x.shape,
                                                       dtype=torch.bool), x, 7),
+    lambda x: runs.run_directory(x, x, 16),
+    lambda x: runs.run_histogram(x, x.long(), 7),
 ])
 def test_wrappers_launch_or_raise_off_the_cpu(call):
     """Only CPU tensors take the plain version: any other device must reach

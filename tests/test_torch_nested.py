@@ -5,7 +5,7 @@ work: the tolerance is zero):
 
 * the dense-direct and the compacted builds of ``build_nested_host``,
   field by field, on uniform, t=4-like (16 rows a key) and zipf-like key
-  columns (a hot group, directory fetches on both sides of the stride gate);
+  columns (a hot group; the directory takes no windowed fetch);
 * the layout pieces they use: ``sort_with_rows``, ``group_capacity`` and
   ``expand`` (counts with zeros, a truncated buffer, one large segment);
 * ``keydirect_nested_strand_sorted`` with and without unnest, on the
@@ -57,8 +57,8 @@ def same(got: torch.Tensor, want) -> bool:
 
 def key_column(kind: str) -> tuple[np.ndarray, int]:
     """(2^14 build keys, their key domain): uniform over 2^12 keys (4 rows
-    a key: the windowed directory fetch), t=4-like over 2^10 (16 rows a
-    key: the plain gather), zipf-like over 2^12 (a hot group at key 0)."""
+    a key), t=4-like over 2^10 (16 rows a key), zipf-like over 2^12 (a hot
+    group at key 0)."""
     rng = np.random.default_rng({"uniform": 0, "t4": 1, "zipf": 2}[kind])
     if kind == "uniform":
         dom = 1 << 12
@@ -115,8 +115,9 @@ def test_compacted_nested_build_matches_jax(kind, monkeypatch):
     for f in ("main_pos_by_group", "bucket_main_len", "key_direct", "keys"):
         assert same(getattr(got, f), getattr(want, f)), f
     assert int(got.groups.n_keys) == int(want.groups.n_keys)
-    # 4 rows a key take the windowed directory fetch, 16 the plain gather
-    assert bool(calls) == (kind != "t4")
+    # the directory is one pass over the sorted keys (ops/runs.py): no
+    # windowed fetch at 4 rows a key or at 16
+    assert calls == []
     assert got.groups.ukey.shape[0] == tl.group_capacity(
         np.unique(keys).size, N)
 

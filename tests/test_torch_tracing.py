@@ -280,13 +280,13 @@ def test_the_ndu_path_opens_two_builds_and_one_probe():
     unnests = [r for r in recs if r.name == "hj.probe.unnest"]
     assert len(unnests) == 2  # T's, then S's
     got = reads_by_root(recs)
-    # each build: its key sort's check, and the directory's three fetches
-    # by the windowed lookup (heads at most 8 rows apart)
-    assert got["hj.build"] == {"sort.presorted": 2, "lookup.route": 6}
+    # each build: its key sort's check alone (the directory and the main
+    # chains are one pass each over a sorted column, ops/runs.py)
+    assert got["hj.build"] == {"sort.presorted": 2}
     # the probe: its lookups' routes and one miss test a join (the miss
     # walks' one-pass sums read nothing back)
     assert got["hj.probe"] == {"lookup.route": 18, "miss.any": 2}
-    assert sum(reads.values()) == 28
+    assert sum(reads.values()) == 22
 
 
 def test_spans_change_no_result():
