@@ -32,7 +32,7 @@ then exp-4 (``main_experiment4 -R 24 -a 4 -A 4 -b 2 -B 2``: |R| 2^24,
    to its plain version at exp-4 Ndu's two walk shapes and on unaligned
    keys and masks, ragged lengths, a prime bucket count, a table shorter
    than its buckets, u64 keys and the bucket-id mode (``fib``, a
-   callable), and launched there; its time beside the walk it replaced;
+   callable), and launched there, with its time;
    RL (``ops/runs.py``: the compacted builds' directory and main chains)
    equal to its plain versions at Ndu's, Nrs's and Crs's shapes and on
    its edge cases (``phase1_runs``), launched once a call, with its times
@@ -60,10 +60,10 @@ then exp-4 (``main_experiment4 -R 24 -a 4 -A 4 -b 2 -B 2``: |R| 2^24,
    to the CPU run;
 4. launch counts: K1, K2 and K3 launched in phase 2's Csr, CsrUU and Nsr,
    K2, K3 and RL in its Nrs, Crs, NrsSel and CrsSel, K2 and K3 in CsrSel,
-   K4 in its Crs and CrsSel (their whole-chain walks), K1 on the sorted route
-   of Crs's strand, MW (the miss walk's one-pass sum) in phase 3 and in
-   phase 3b's Nrs at t=4, K4 in phase 3b's Crs at t=4 (the other t=0 plans
-   never miss, so they bypass MW);
+   MW (the chain walks' one-pass sum) in its Crs and CrsSel (their
+   whole-chain walks), K1 on the sorted route of Crs's strand, MW in phase
+   3 and in phase 3b's Nrs and Crs at t=4 (the other t=0 plans never miss,
+   so they bypass MW);
 5. K2b, the kernel only the measurement tools reach, bit-equal to K2 (with
    and without coverage) and to the plain lookup on phase 2's table, at
    W = 8192 and 32768, on the K1-sorted probes and five edge streams made
@@ -92,7 +92,7 @@ then exp-4 (``main_experiment4 -R 24 -a 4 -A 4 -b 2 -B 2``: |R| 2^24,
    every value column, Nnu's c_top equals numFkCommon, ``route_worst`` is
    0; at R20 every plan's counters, result triples (Nnu: its nested
    tuples) equal the CPU run's, as multisets, and K2 and RL launch in
-   each plan, K3 in Ndu's and Chj's, MW in Ndu's and Nnu's miss walks, K4
+   each plan, K3 in Ndu's and Chj's, MW in Ndu's and Nnu's miss walks and
    in Chj's whole-chain walk.
 
 7. ``hashjoin3d_tpu_torch.join``, the one-call API, on the same R20/S24
@@ -107,9 +107,10 @@ then exp-4 (``main_experiment4 -R 24 -a 4 -A 4 -b 2 -B 2``: |R| 2^24,
    Nrs-shaped call under ``hashfun="fib"``); left, semi and anti on the
    Nrs-shaped u32 and u64 inputs derive from the inner join's hit set
    with its counters; a post predicate equals numpy's filter of the inner
-   pairs; ``fib`` on the u64 Nrs-shaped call keeps its pairs; K1-K4 all
-   launch.  Each call prints its wall ms (median of 3, host work, sizing
-   read and copy to the host included), ``route_worst`` and its launch
+   pairs; ``fib`` on the u64 Nrs-shaped call keeps its pairs; K1, K2,
+   K3 and MW (the Crs-shaped call's whole-chain walk) all launch.  Each
+   call prints its wall ms (median of 3, host work, sizing read and copy
+   to the host included), ``route_worst`` and its launch
    counts from 0; then ``lookup_auto``'s two methods timed on the semi
    path's probe.
 
@@ -289,13 +290,11 @@ EXP4_RUNS = (("R24", 24, REPO / "artifacts" / "r5" / "e4_24.csv", 0.3),
 EXP4_PARAMS = dict(alpha=4, mult_alpha=4, beta=2, mult_beta=2)
 EXP4_PLANS = ("Ndu", "Chj", "Nnu")
 #: the kernels each exp-4 plan launches: K2, RL (every compacted build),
-#: K3 where a plan unnests or sums its buckets' runs (not Nnu), and its
-#: chain walks' kernel: the miss walks' MW, or K4 for Chj's whole-chain
-#: walk of S
+#: K3 where a plan unnests or sums its buckets' runs (not Nnu), and MW,
+#: its chain walks' kernel: the miss walks and Chj's whole-chain walk of S
 EXP4_KERNELS = {
     "Ndu": ("windowed_lookup", "runs", "multi_scan", "miss_chain_sum"),
-    "Chj": ("windowed_lookup", "runs", "multi_scan",
-            "bitonic_sort_segmented"),
+    "Chj": ("windowed_lookup", "runs", "multi_scan", "miss_chain_sum"),
     "Nnu": ("windowed_lookup", "runs", "miss_chain_sum")}
 #: phase 8's join plans that reach K2 or K3 no more since RL builds their
 #: directories (the clarity Csr and CsrUU fetched their directory alone
@@ -326,7 +325,7 @@ KERNELS = {
         "hashjoin3d_tpu/ops/bitonic.py:247", "bitonic_sort_segmented"),
     "MW miss_chain_sum": (
         "hashjoin3d_tpu_torch/csrc/chainwalk.cu",
-        "none: the miss walk's hash, K4 or library sort and K2 lookup",
+        "none: the chain walks' hash, K4 or library sort and K2 lookup",
         "miss_chain_sum"),
     "RL runs": (
         "hashjoin3d_tpu_torch/csrc/runs.cu",
@@ -600,7 +599,7 @@ def phase1_kernels(rk, sa, ops):
                                     torch.cummax(fwd[1], 0))),
         **bound(*fwd, *fwd))
 
-    # K4 (a) 1-op signed: miss-walk bucket ids with -1 dead markers
+    # K4 (a) 1-op signed: bucket ids with -1 dead markers
     bucket_ids = bucket_of(hash_key(sa), 1 << LOG2_R)
     dead = torch.rand(sa.shape, generator=gen, device=dev) < 0.3
     bucket_ids = torch.where(dead, -1, bucket_ids)
@@ -637,19 +636,6 @@ def phase1_kernels(rk, sa, ops):
     results["MW miss_chain_sum"] = phase1_miss_walk(dev)
     results["RL runs"] = phase1_runs(dev)
     return results
-
-
-def sorted_miss_walk(bucket_len, num_buckets, keys, mask, hashfun="murmur"):
-    """The miss walk MW replaced: the bucket ids, -1 where a probe does not
-    walk, sorted, their lengths through ``safe_lookup`` (K2), summed."""
-    from hashjoin3d_tpu_torch.ops import strands_windowed as sw
-    from hashjoin3d_tpu_torch.ops.hashing import bucket_of, hash_key
-    from hashjoin3d_tpu_torch.ops.layout import I64
-
-    b = torch.where(mask, bucket_of(hash_key(keys, hashfun), num_buckets),
-                    -1)
-    b_sorted, Wb = sw._sort_bucket_ids(b, num_buckets)
-    return sw.safe_lookup(bucket_len, b_sorted, W=Wb).to(I64).sum()
 
 
 def miss_walk_cases(dev):
@@ -696,9 +682,8 @@ def miss_walk_cases(dev):
 
 def phase1_miss_walk(dev) -> dict:
     """MW against its plain version on every case of
-    :func:`miss_walk_cases`, bit-equal and launched; at Ndu's S walk also
-    equal to the sorted walk it replaced, with the times of the kernel,
-    the plain version and that walk."""
+    :func:`miss_walk_cases`, bit-equal and launched, with the times of the
+    kernel and the plain version at Ndu's S walk."""
     from hashjoin3d_tpu_torch import kernels
     from hashjoin3d_tpu_torch.ops.chainwalk import (miss_chain_sum,
                                                     miss_chain_sum_plain)
@@ -718,9 +703,6 @@ def phase1_miss_walk(dev) -> dict:
     require(launched == len(cases),
             f"MW launched {launched} times in {len(cases)} cases")
     _, keys, mask, lens, nb, _ = cases[0]
-    old = sorted_miss_walk(lens, nb, keys, mask)
-    require(int(old) == int(miss_chain_sum(keys, mask, lens, nb)),
-            "MW differs from the sorted walk at Ndu's S walk")
     walkers = int(mask.sum())
     _, device_us = host_device_us(
         lambda: miss_chain_sum(keys, mask, lens, nb), calls=200,
@@ -733,8 +715,6 @@ def phase1_miss_walk(dev) -> dict:
         t_walk_ms=cuda_ms(lambda: miss_chain_sum(keys, cases[1][2], lens,
                                                  nb)),
         plain_ms=cuda_ms(lambda: miss_chain_sum_plain(keys, mask, lens, nb)),
-        sorted_walk_ms=cuda_ms(lambda: sorted_miss_walk(lens, nb, keys,
-                                                        mask)),
         library_ms=None, walkers=walkers, bound_ms=ms, bound_by=by)
 
 
@@ -1441,7 +1421,7 @@ def check_exp4_against_cpu(exp, launches, label):
     """Each plan's strand on the CPU (plain versions) over CPU copies of
     the inputs and builds: counters equal, triples (Nnu: nested tuples)
     equal as multisets; K2 and K3 launched in every plan's run, the miss
-    walks' MW in Ndu's and Nnu's, K4 in Chj's (its whole-chain walk)."""
+    walks' MW in Ndu's and Nnu's and in Chj's whole-chain walk."""
     from hashjoin3d_tpu_torch.models.exp4 import Experiment4
 
     cpu = Experiment4(exp.log2_card_r, **EXP4_PARAMS, plans=EXP4_PLANS,
@@ -1481,7 +1461,7 @@ U64_HI = np.uint64(0xAB << 40)
 #: the CPU stay inside the phase's budget)
 CPU_LOG2_R, CPU_LOG2_S = 18, 22
 JOIN_KERNELS = ("bitonic_sort_packed_segmented", "windowed_lookup",
-                "multi_scan", "bitonic_sort_segmented")
+                "multi_scan", "miss_chain_sum")
 
 
 def key_maps():
@@ -3365,7 +3345,7 @@ def main() -> int:
                     "multi_scan"),
             "Nrs": ("windowed_lookup", "multi_scan", "runs"),
             "Crs": ("windowed_lookup", "multi_scan", "runs",
-                    "bitonic_sort_segmented")}
+                    "miss_chain_sum")}
     need["CsrUU"] = need["Nsr"] = need["Csr"]
     need["CsrSel"] = ("windowed_lookup", "multi_scan")
     need["NrsSel"] = need["Nrs"]
@@ -3377,7 +3357,7 @@ def main() -> int:
     require(after3["miss_chain_sum"] > 0,
             "miss_chain_sum not launched in phase 3")
     for run, name in (("Nrs t=4", "miss_chain_sum"),
-                      ("Crs t=4", "bitonic_sort_segmented")):
+                      ("Crs t=4", "miss_chain_sum")):
         require(miss_launches[run][name] > 0,
                 f"{name} not launched in phase 3b's {run}")
     plan_launches.update(miss_launches)

@@ -1,4 +1,6 @@
-// MW: the probe strand's miss walk in one pass: hash, bucket, gather, sum.
+// MW: every whole-bucket chain walk in one pass: hash, bucket, gather, sum.
+// It serves the misses of an early-exit probe and every live probe of a
+// walk without early exit, in the probe strands and the probe ops alike.
 //
 // Replaces no TPU kernel on its own.  It replaces the composition that
 // ops/strands_windowed.py:_miss_chain_cmps ran on the card, as the JAX
@@ -16,7 +18,9 @@
 //   b_i = key[i] as u32 (mode 0: bucket ids the caller computed)
 //
 // bit for bit as that composition did (safe_lookup read a bucket outside
-// [0, T) as 0).  K2 and K4 keep their other callers.
+// [0, T) as 0).  The whole-chain walks of the probe strands without early
+// exit ran the same sorted composition; they call MW too.  K2 and K4 keep
+// their other callers.
 //
 // Bound: the keys (4 or 8 B each), the mask (1 B each) and one int32
 // length a walking probe, each read once: at exp-4 Ndu's S walk 2^24 x 5 B +

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..utils.tracing import host_read, span
+from .chainwalk import miss_chain_sum
 from .hashing import bucket_of, hash_key, hash_key_np
 from .layout import (I32, I64, UKEY_PAD, GroupIndex, check_carrier,
                      compact_group_index, drop_pad_groups, emit_pos,
@@ -505,33 +506,28 @@ def probe_chaining(table: ChainingTable, probe_keys: torch.Tensor,
     bucket's chain), a ``key_direct`` table (one gather of the map) and a
     compacted table without one (:func:`~.layout.lookup_auto` with
     ``method``).  ``probe_keys`` ride the table's key carrier."""
-    pk = probe_keys
+    pk = probe_keys.contiguous()
     _check_probe(table, pk)
-
-    def blen_of(keys):
-        return table.bucket_len[bucket_of(hash_key(keys, table.hashfun),
-                                          table.num_buckets).long()]
+    live = (torch.ones_like(pk, dtype=torch.bool) if mask is None
+            else mask.contiguous())
 
     if table.direct is not None:
         in_range, hit, row, pos1 = _direct_probe(
             table.direct, table.direct_shift, pk, mask)
         if unique:
-            live_miss = ~in_range if mask is None else mask & ~in_range
+            live_miss = live & ~in_range
             cmps = torch.where(hit, pos1, 0).to(I64).sum()
             if host_read(live_miss.any(), "miss.any"):
-                cmps = cmps + torch.where(live_miss, blen_of(pk),
-                                          0).to(I64).sum()
+                cmps = cmps + miss_chain_sum(pk, live_miss, table.bucket_len,
+                                             table.num_buckets, table.hashfun)
         else:
             # no early exit (CsrUU): every live probe walks its whole chain
-            walked = blen_of(pk)
-            if mask is not None:
-                walked = torch.where(mask, walked, 0)
-            cmps = walked.to(I64).sum()
+            cmps = miss_chain_sum(pk, live, table.bucket_len,
+                                  table.num_buckets, table.hashfun)
         return ChainProbeResult(g=row, hit=hit, match_count=hit.to(I32),
                                 num_matches=hit.to(I64).sum(),
                                 num_cmps=cmps, from_direct=True)
 
-    blen = blen_of(pk)
     if table.key_direct is not None:
         g, hit = key_direct_lookup(table.key_direct, pk)
     else:
@@ -545,16 +541,17 @@ def probe_chaining(table: ChainingTable, probe_keys: torch.Tensor,
             raise ValueError(
                 "table was built with early_exit_index=False; "
                 "IsBuildKeyUnique probes need the chain-position index")
-        cmps = torch.where(hit, table.group_min_pos[gl] + 1, blen)
+        cmps = (torch.where(hit, table.group_min_pos[gl] + 1, 0).to(I64).sum()
+                + miss_chain_sum(pk, live & ~hit, table.bucket_len,
+                                 table.num_buckets, table.hashfun))
         match_count = hit.to(I32)
     else:
-        cmps = blen
+        cmps = miss_chain_sum(pk, live, table.bucket_len, table.num_buckets,
+                              table.hashfun)
         match_count = glen
-    if mask is not None:
-        cmps = torch.where(mask, cmps, 0)
     return ChainProbeResult(g=g, hit=hit, match_count=match_count,
                             num_matches=match_count.to(I64).sum(),
-                            num_cmps=cmps.to(I64).sum())
+                            num_cmps=cmps)
 
 
 def _clamped(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,11 @@
-"""The probe strand's miss walk in one pass (kernel MW, ``csrc/chainwalk.cu``).
+"""Every whole-bucket chain walk in one pass (kernel MW, csrc/chainwalk.cu).
 
-A probe that misses walks its whole bucket chain, so the comparisons of the
-missing probes are the sum of their buckets' chain lengths.
-:func:`miss_chain_sum` computes that sum straight from the keys: each masked
-key's bucket, ``bucket_of(hash_key(key, hashfun), num_buckets)``, reads its
+A probe that walks its whole bucket chain counts that chain's length: the
+misses of an early-exit probe, and every live probe of a walk without early
+exit (no ``unique``).  Their comparisons are the sum of their buckets'
+chain lengths, and :func:`miss_chain_sum` computes that sum straight from
+the keys, for the probe strands and the probe ops alike: each masked key's
+bucket, ``bucket_of(hash_key(key, hashfun), num_buckets)``, reads its
 length in ``bucket_len`` (a bucket past the table reads 0) and the lengths
 add up in int64.  A sum does not depend on order, so nothing is sorted.
 
@@ -42,7 +44,8 @@ def miss_chain_sum(keys: torch.Tensor, mask: torch.Tensor,
                    bucket_len: torch.Tensor, num_buckets: int,
                    hashfun="murmur") -> torch.Tensor:
     """The chain lengths the ``mask``-ed probes walk, summed: a 0-dim int64
-    tensor on the keys' device.
+    tensor on the keys' device.  ``mask`` marks the misses of an early-exit
+    probe, or every live probe of a walk without early exit.
 
     ``keys``: the probe keys on their carrier (int32 for u32, int64 for
     u64), contiguous; ``mask``: bool, True where the probe walks;

@@ -35,6 +35,7 @@ import torch
 from ..utils.tracing import host_read, span
 from .chaining import _check_probe, _clamped, _direct_probe, _nbytes
 from .chaining import can_use_dense_direct as _chaining_dense_ok
+from .chainwalk import miss_chain_sum
 from .hashing import bucket_of, hash_key
 from .layout import (I32, I64, GroupIndex, check_carrier,
                      compact_group_index, drop_pad_groups, emit_pos,
@@ -311,24 +312,22 @@ def probe_nested(table: NestedTable, probe_keys: torch.Tensor,
     compacted one through ``key_direct`` (one gather) or
     :func:`~.layout.lookup_auto` with ``method``.  ``probe_keys`` ride
     the table's key carrier."""
-    pk = probe_keys
+    pk = probe_keys.contiguous()
     _check_probe(table, pk)
     P = pk.shape[0]
     rows = torch.arange(P, dtype=I32, device=pk.device)
-
-    def main_len_of(keys):
-        return table.bucket_main_len[bucket_of(
-            hash_key(keys, table.hashfun), table.num_buckets).long()]
+    live = (torch.ones_like(pk, dtype=torch.bool) if mask is None
+            else mask.contiguous())
 
     if table.direct is not None:
         n = table.direct.shape[0]
         in_range, hit, row, pos1 = _direct_probe(
             table.direct, table.direct_shift, pk, mask)
         cmps = torch.where(hit, pos1, 0).to(I64).sum()
-        live_miss = ~in_range if mask is None else mask & ~in_range
+        live_miss = live & ~in_range
         if host_read(live_miss.any(), "miss.any"):
-            cmps = cmps + torch.where(live_miss, main_len_of(pk),
-                                      0).to(I64).sum()
+            cmps = cmps + miss_chain_sum(pk, live_miss, table.bucket_main_len,
+                                         table.num_buckets, table.hashfun)
         return NestedBatch(probe_row=rows,
                            g=torch.where(in_range, pk, n - 1).to(I32),
                            hit=hit, group_len=hit.to(I32),
@@ -342,14 +341,14 @@ def probe_nested(table: NestedTable, probe_keys: torch.Tensor,
     if mask is not None:
         hit = hit & mask
     gl = g.long()
-    cmps = torch.where(hit, table.main_pos_by_group[gl] + 1, main_len_of(pk))
-    if mask is not None:
-        cmps = torch.where(mask, cmps, 0)
+    cmps = (torch.where(hit, table.main_pos_by_group[gl] + 1, 0).to(I64).sum()
+            + miss_chain_sum(pk, live & ~hit, table.bucket_main_len,
+                             table.num_buckets, table.hashfun))
     return NestedBatch(probe_row=rows, g=g, hit=hit,
                        group_len=torch.where(hit, table.groups.group_len[gl],
                                              0),
                        num_matches=hit.to(I64).sum(),
-                       num_cmps=cmps.to(I64).sum())
+                       num_cmps=cmps)
 
 
 def unnest(table: NestedTable, nested: NestedBatch, out_size: int):

@@ -2,7 +2,7 @@
 
 Port of ``hashjoin3d_tpu/ops/sort.py`` (``sort_by_key``, ``sort_rows``,
 ``radix_partition``, ``probe_sort_chunk``, ``window_for_chunk``,
-``sort_segmented``, ``sort_segmented_1op``).  The first three are the
+``sort_segmented``).  The first three are the
 engine's sort operator and the single-chip hash partition; they sort with
 the library (the JAX package's ``lax.sort``: no Pallas kernel).  The
 policy numbers are the JAX package's (segments up to 2^18, windows up to
@@ -134,10 +134,3 @@ def sort_segmented(keys_u32: torch.Tensor, chunk: int, stable: bool = True):
     seg_base = torch.arange(K, dtype=I32, device=dev) * chunk
     return sk, (sr.view(K, chunk) + seg_base[:, None]).reshape(P)
 
-
-def sort_segmented_1op(vals_i32: torch.Tensor, chunk: int) -> torch.Tensor:
-    """Ascending int32 sort within ``chunk`` segments (bucket-id streams
-    with -1 dead markers sorting to each segment's front)."""
-    if chunk <= MAX_SEGMENT_BITONIC:
-        return bitonic_sort_segmented(vals_i32, chunk, unsigned=False)[0]
-    return plain_sort_segmented(vals_i32, chunk, unsigned=False)[0]

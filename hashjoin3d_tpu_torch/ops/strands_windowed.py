@@ -11,12 +11,12 @@ order so every later access stays a windowed lookup).  Probes are sorted once
 column, or globally with their liveness riding the sort under a selection
 ``mask``; every per-key and per-group array is then read by one windowed
 lookup (K2) on a nondecreasing stream, the unnest expansions scan with K3,
-the missing probes' chain walks are summed in one unsorted pass over their
-keys (MW, ``ops/chainwalk.py``), and whole-chain walks read the bucket
-lengths through a second sorted stream (K4).  Emission is in sorted-key
-order; result pairs (exp-4: triples) equal the reference's as multisets and
-the counters (c_htProbe, c_htProbeCmp, c_unnest, c_top, exp-4's c_probe_*)
-are bit-equal.
+and every whole-bucket chain walk, the misses' of an early-exit probe and
+every live probe's without one, is summed in one unsorted pass over the
+keys (MW, ``ops/chainwalk.py``).  Emission is in sorted-key order; result
+pairs (exp-4: triples) equal the reference's as multisets and the counters
+(c_htProbe, c_htProbeCmp, c_unnest, c_top, exp-4's c_probe_*) are
+bit-equal.
 
 The JAX ``lax.cond`` / ``lax.switch`` routes are Python branches here, each
 on one value read back from the device.  Every :func:`safe_lookup` inside a
@@ -38,8 +38,7 @@ from .chainwalk import miss_chain_sum
 from .hashing import bucket_of, hash_key
 from .layout import (I32, I64, SIGN, expand, inverse_permute,
                      is_sorted_ascending, same_key_width, shr, uorder)
-from .sort import (probe_sort_chunk, sort_segmented, sort_segmented_1op,
-                   window_for_chunk)
+from .sort import probe_sort_chunk, sort_segmented, window_for_chunk
 from ..utils.tracing import host_read, span
 from .windowed import DEFAULT_C, DEFAULT_W, windowed_lookup_covered
 
@@ -172,7 +171,7 @@ def _sort_probes(pk: torch.Tensor, domain: int | None = None) -> SortedProbes:
         W = window_for_chunk(chunk, domain) if domain else DEFAULT_W
         if chunk is None:
             if domain:
-                # global-sort sparse-stream margin (see _sort_bucket_ids)
+                # global-sort sparse-stream margin
                 W = max(W, stride_params(domain / max(P, 1),
                                          margin=2.0)[0])
             if is_sorted_ascending(pk):
@@ -205,18 +204,6 @@ def _sort_live(pk: torch.Tensor, mask: torch.Tensor):
         pk_m = torch.where(mask, pk, -1)
         s, idx = torch.sort(pk_m ^ SIGN, stable=True)
         return s ^ SIGN, mask[idx], idx.to(I32)
-
-
-def _sort_bucket_ids(b: torch.Tensor, num_buckets: int):
-    """(ascending bucket-id stream, lookup W); segmented when profitable
-    (the -1 dead markers sort to each segment's front)."""
-    P = b.shape[0]
-    chunk = probe_sort_chunk(P, num_buckets)
-    W = window_for_chunk(chunk, num_buckets)
-    if chunk is None:
-        W = max(W, stride_params(num_buckets / max(P, 1), margin=2.0)[0])
-        return torch.sort(b).values, W
-    return sort_segmented_1op(b, chunk), W
 
 
 def _miss_chain_cmps(table_bucket_len, num_buckets, skey, miss_mask,
@@ -466,17 +453,16 @@ def keydirect_nested_strand_sorted(table, pk: torch.Tensor, out_size: int,
 
 def _full_chain_cmps(table, skey: torch.Tensor, live=None) -> torch.Tensor:
     """Comparisons of probes that walk their whole bucket chain (no early
-    exit): the bucket-length sum over the live probes' sorted bucket-id
-    stream (hash-ordered, so it gets its own sort).  Runs in the
-    ``hj.probe.walk`` span, the whole-chain walk of every live probe, hit
-    or miss; ``hj.probe.miss`` is the misses' walk alone
-    (:func:`_miss_chain_cmps`)."""
+    exit): the live probes' chain lengths summed in one unsorted pass
+    (:func:`~.chainwalk.miss_chain_sum`).  Runs in the ``hj.probe.walk``
+    span, the whole-chain walk of every live probe, hit or miss;
+    ``hj.probe.miss`` is the misses' walk alone (:func:`_miss_chain_cmps`)."""
     with span("hj.probe.walk"):
-        b = bucket_of(hash_key(skey, table.hashfun), table.num_buckets)
-        if live is not None:
-            b = torch.where(live, b, -1)
-        b_sorted, Wb = _sort_bucket_ids(b, table.num_buckets)
-        return safe_lookup(table.bucket_len, b_sorted, W=Wb).to(I64).sum()
+        if live is None:
+            live = torch.ones_like(skey, dtype=torch.bool)
+        return miss_chain_sum(skey.contiguous(), live.contiguous(),
+                              table.bucket_len.contiguous(),
+                              table.num_buckets, table.hashfun)
 
 
 @_with_route
@@ -644,13 +630,10 @@ def merged_chaining_strand_sorted(table, pk: torch.Tensor, out_size: int,
     """Windowed chaining probe strand for u64, composite and sparse-domain
     keys (``algebra.hh:625-659``): :func:`keydirect_chaining_strand_sorted`
     with its group ids from :func:`_merge_groups`.  Without ``unique`` the
-    whole-chain counts sum ``bucket_len`` over the probes' sorted bucket
-    ids (:func:`_full_chain_cmps`: K4 where the segment policy picks it).
-    Those ids come from the P probe keys, not from the merged stream: the
-    JAX package hashes all K + P merged keys with the directory's marked
-    dead, which halves the live density of Crs-shaped streams (K = P) and
-    leaves the window no margin (most chunks uncovered, route 2, on the
-    card); the sum is the same.
+    whole-chain counts sum ``bucket_len`` over the P probe keys
+    (:func:`_full_chain_cmps`), not over the merged stream, where the JAX
+    package hashes all K + P merged keys with the directory's marked dead;
+    the sum is the same.
     ``do_expand=False`` returns the counters only (the emitted-pair total
     of a chaining probe is ``c_htProbe``).  ``pk`` rides the table's key
     carrier."""
@@ -788,10 +771,11 @@ def chj_strand_sorted(tbl_s, tbl_t, keys_iota: torch.Tensor, out1: int,
     Probe(S) materialises every RS pair, then each pair probes T with its
     R key, both probes walking whole chains (no early exit).
 
-    The S chain walks sum ``bucket_len`` over the sorted bucket-id stream
-    (K4); the T walks read each key's chain length from a plain index over
-    the whole key domain (the iota keys' buckets are hash-ordered, so no
-    window could cover them), then a windowed lookup by the pair's R row.
+    The S chain walks sum ``bucket_len`` over the keys in one pass
+    (:func:`_full_chain_cmps`); the T walks read each key's chain length
+    from a plain index over the whole key domain (the iota keys' buckets
+    are hash-ordered, so no window could cover them), then a windowed
+    lookup by the pair's R row.
     Returns the triples and c_probe_RS(_cmp), c_probe_RT(_cmp), c_top.
     """
     _check_device(keys_iota, tbl_s.key_direct)

@@ -1,12 +1,14 @@
-"""The miss walk's one-pass chain-length sum (``ops/chainwalk.py``) on the
-CPU, through its wrapper (the plain version), against the composition it
-replaces: hash, ``bucket_of``, a ``where`` that marks the non-walking probes
--1, the sort of the bucket ids and a windowed lookup of the lengths, summed.
-That composition is kept here as the oracle.  The CUDA kernel itself needs
-the card: ``chip_smoke.py`` holds it against the plain version there.
+"""The one-pass chain-length sum (``ops/chainwalk.py``) on the CPU, through
+its wrapper (the plain version), against the composition it replaced: hash,
+``bucket_of``, a ``where`` that marks the non-walking probes -1, the sort of
+the bucket ids and a gather of the lengths with miss-as-0, summed.  That
+composition is kept here as the oracle, in torch primitives.  The CUDA
+kernel itself needs the card: ``chip_smoke.py`` holds it against the plain
+version there.
 """
 
 import functools
+import types
 
 import numpy as np
 import pytest
@@ -18,16 +20,19 @@ from hashjoin3d_tpu_torch.ops.chainwalk import (miss_chain_sum,
 from hashjoin3d_tpu_torch.ops.hashing import bucket_of, hash_key
 from hashjoin3d_tpu_torch.ops.layout import I32, I64
 
-N = 3000  # no multiple of the lookup's chunk
+N = 3000  # no multiple of the old lookup's chunk
 
 
 def old_miss_walk(bucket_len, num_buckets, keys, mask, hashfun):
-    """The miss walk before the one-pass sum: sorted bucket ids, K2's
-    lookup of their lengths (a bucket past the table reads 0), summed."""
-    b = bucket_of(hash_key(keys, hashfun), num_buckets)
-    b = torch.where(mask, b, -1)
-    b_sorted, Wb = sw._sort_bucket_ids(b, num_buckets)
-    return sw.safe_lookup(bucket_len, b_sorted, W=Wb).to(I64).sum()
+    """The chain walk before the one-pass sum: the sorted bucket ids (-1
+    where a probe does not walk), their lengths gathered (a bucket outside
+    the table reads 0), summed."""
+    b = bucket_of(hash_key(keys, hashfun), num_buckets).long()
+    b_sorted = torch.sort(torch.where(mask, b, -1)).values
+    T = bucket_len.shape[0]
+    inside = (b_sorted >= 0) & (b_sorted < T)
+    walked = bucket_len[b_sorted.clamp(0, T - 1)]
+    return torch.where(inside, walked, 0).to(I64).sum()
 
 
 def xor_fold(x):
@@ -78,9 +83,13 @@ def test_miss_chain_sum_equals_the_sorted_walk(wide, hashfun, mask_kind,
     got = miss_chain_sum(keys, mask, bl, num_buckets, hashfun)
     assert got.dtype == I64 and got.dim() == 0
     assert int(got) == want
-    # the strand's call site, guard included
+    # the strands' call sites: the miss walk (guard included) and the
+    # whole-chain walk over the live probes
     assert int(sw._miss_chain_cmps(bl, num_buckets, keys, mask,
                                    hashfun)) == want
+    table = types.SimpleNamespace(bucket_len=bl, num_buckets=num_buckets,
+                                  hashfun=hashfun)
+    assert int(sw._full_chain_cmps(table, keys, mask)) == want
     if mask_kind == "all":  # the oracle's walk is not empty
         assert want > 0
 

@@ -42,6 +42,7 @@ from hashjoin3d_tpu.ops.strands_windowed import (
 from hashjoin3d_tpu_torch.convert import (CHAINING_FIELDS, OPTIONAL_FIELDS,
                                           chaining_table_from_numpy)
 from hashjoin3d_tpu_torch.models.exp1 import Experiment1, sel_mask
+from hashjoin3d_tpu_torch.ops import sort as tsort
 from hashjoin3d_tpu_torch.ops import stats as tstats
 from hashjoin3d_tpu_torch.ops import strands_windowed as tw
 from hashjoin3d_tpu_torch.ops.chaining import (_build_chaining_fused,
@@ -50,6 +51,7 @@ from hashjoin3d_tpu_torch.ops.layout import from_numpy_u32
 from hashjoin3d_tpu_torch.ops.nested import build_nested_host
 
 from test_experiments import GOLDEN, _VALUE_COLS
+from test_torch_merged import recorded
 
 N = 1 << 13
 TABLE_FIELDS = ("bucket_start", "bucket_len", "pos_by_row", "group_min_pos",
@@ -188,6 +190,8 @@ def test_chaining_strand_matches_jax(route, unique, monkeypatch):
     real = tw.bitonic_sort_packed_segmented
     monkeypatch.setattr(tw, "bitonic_sort_packed_segmented",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
+    walks = recorded(monkeypatch, tw, "miss_chain_sum")
+    k4 = recorded(monkeypatch, tsort, "bitonic_sort_segmented")
     want = jax_crs(jt, pk, out_size, unique=unique, mask=mask, **kw)
     got = tw.keydirect_chaining_strand_sorted(
         pt, t32(pk), out_size, unique=unique,
@@ -199,6 +203,12 @@ def test_chaining_strand_matches_jax(route, unique, monkeypatch):
     if int(want["route_worst"]) == 0:
         assert got["route_worst"] == 0
     assert calls == ([1] if route == "sorted_packed" else [])
+    # one chain walk through MW (with unique, where a live probe misses);
+    # K4 only where the probe sort takes it
+    live = pk.size if mask is None else int(mask.sum())
+    assert walks == ([1] if not unique or int(want["c_htProbe"]) < live
+                     else [])
+    assert k4 == ([1] if route == "sorted_wide" else [])
 
 
 def test_chaining_strand_needs_the_early_exit_index():

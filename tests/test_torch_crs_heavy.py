@@ -54,10 +54,10 @@ def _crs(cfg: dict, seed: int):
 
 
 #: host reads of a Crs query: the build's key sort checks its input once;
-#: the probe reads each windowed lookup's route (two in the lookup, one in
-#: the walk's chain-length lookup, four in the unnest)
+#: the probe reads each windowed lookup's route (two in the lookup, four in
+#: the unnest); the walk's one-pass sum reads nothing
 PINNED_READS = {"hj.build": {"sort.presorted": 1},
-                "hj.probe": {"lookup.route": 7}}
+                "hj.probe": {"lookup.route": 6}}
 
 
 def _join(plan):
@@ -96,5 +96,5 @@ def test_a_traced_crs_query_opens_the_walk_span_and_pins_its_reads():
     walks = [r for r in recs if r.name == "hj.probe.walk"]
     assert len(walks) == 1 and recs[walks[0].parent].name == "hj.probe"
     assert reads_by_root(recs) == PINNED_READS
-    assert walks[0].reads == {"lookup.route": 1}
-    assert reads == {"sort.presorted": 1, "lookup.route": 7}
+    assert walks[0].reads == {}
+    assert reads == {"sort.presorted": 1, "lookup.route": 6}

@@ -40,10 +40,12 @@ from hashjoin3d_tpu_torch.convert import (CHAINING_FIELDS, NESTED_FIELDS,
                                           nested_table_from_numpy)
 from hashjoin3d_tpu_torch.models import exp4 as texp4
 from hashjoin3d_tpu_torch.models.exp4 import Experiment4
+from hashjoin3d_tpu_torch.ops import sort as tsort
 from hashjoin3d_tpu_torch.ops import strands_windowed as tw
 from hashjoin3d_tpu_torch.utils.gen import exp4_data
 
 from test_experiments import GOLDEN, _VALUE_COLS
+from test_torch_merged import recorded
 
 REPO = Path(__file__).resolve().parent.parent
 GOLDENS = [("e4_R8_a3_A3_b2_B1.csv", (8, 3, 3, 2, 1)),
@@ -112,8 +114,10 @@ COUNTERS = ("c_probe_RS", "c_probe_RS_cmp", "c_probe_RT", "c_probe_RT_cmp")
 
 
 @pytest.mark.parametrize("plan", ["Ndu", "Chj"])
-def test_strands_match_jax_and_oracle(plan, tables):
+def test_strands_match_jax_and_oracle(plan, tables, monkeypatch):
     e = tables["exp"]
+    walks = recorded(monkeypatch, tw, "miss_chain_sum")
+    k4 = recorded(monkeypatch, tsort, "bitonic_sort_segmented")
     kind = "nested" if plan == "Ndu" else "chaining"
     (js, ps), (jt, pt) = tables[f"{kind}_s"], tables[f"{kind}_t"]
     rk = tables["rk"]
@@ -135,6 +139,10 @@ def test_strands_match_jax_and_oracle(plan, tables):
     assert len(oracle) == c2
     assert triples(got) == triples(want) == oracle
     assert got["route_worst"] == 0 == int(want["route_worst"])
+    # the iota probes are not sorted; Chj's S walk is one MW call
+    assert k4 == []
+    if plan == "Chj":
+        assert walks == [1]
 
 
 def test_nnu_strand_matches_jax(tables):

@@ -14,7 +14,8 @@ tolerance is zero):
   ``key_direct``, and the directory lookup by search and by merge) and
   ``probe_nested`` (dense-direct, ``key_direct``, search, merge), each with
   and without ``mask``: hit masks, match counts, counters and the hits'
-  group ids equal;
+  group ids equal, and the chain walk summed by one MW call; their
+  counters on the compacted sparse u32, u64 and composite tables;
 * ``lookup``, ``merge_lookup`` (with a mask) and ``key_direct_lookup`` on
   u32 and u64 directories.
 """
@@ -38,7 +39,10 @@ from hashjoin3d_tpu_torch.convert import (CHAINING_FIELDS, FIELDS,
                                           OPTIONAL_FIELDS,
                                           chaining_table_from_numpy,
                                           nested_table_from_numpy)
+from hashjoin3d_tpu_torch.ops import chaining as tchaining
 from hashjoin3d_tpu_torch.ops import layout as tl
+from hashjoin3d_tpu_torch.ops import nested as tnested
+from hashjoin3d_tpu_torch.ops import sort as tsort
 from hashjoin3d_tpu_torch.ops import strands_windowed as tw
 from hashjoin3d_tpu_torch.ops.chaining import probe_chaining
 from hashjoin3d_tpu_torch.ops.layout import key_column, pack2u32
@@ -65,6 +69,14 @@ def fields(table, names):
 
 def carrier(a):
     return key_column(a, "cpu")
+
+
+def recorded(monkeypatch, module, name):
+    """A list that grows by one at each call of ``module.name``."""
+    calls, real = [], getattr(module, name)
+    monkeypatch.setattr(module, name,
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    return calls
 
 
 def pairs(out):
@@ -142,12 +154,17 @@ def test_merged_nested_strand_matches_jax(tables, kind):
 
 @pytest.mark.parametrize("unique", [False, True])
 @pytest.mark.parametrize("kind", KINDS)
-def test_merged_chaining_strand_matches_jax(tables, kind, unique):
+def test_merged_chaining_strand_matches_jax(tables, kind, unique,
+                                           monkeypatch):
     t = tables[kind]
+    walks = recorded(monkeypatch, tw, "miss_chain_sum")
+    k4 = recorded(monkeypatch, tsort, "bitonic_sort_segmented")
     want = jax_merged_chaining(t["jc"], jnp.asarray(t["pk"]), OUT,
                                unique=unique)
     got = tw.merged_chaining_strand_sorted(t["tc"], carrier(t["pk"]), OUT,
                                            unique=unique)
+    # the chain walk (every probe's, or the misses') is one MW call
+    assert walks == [1] and k4 == []
     for k in ("c_htProbe", "c_htProbeCmp", "total", "route_worst"):
         assert int(got[k]) == int(want[k]), k
     assert 0 < int(want["total"]) < OUT
@@ -239,35 +256,73 @@ PROBE_BRANCHES = [("dense", "auto"), ("key_direct", "auto"),
 
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("branch,method", PROBE_BRANCHES)
-def test_probe_chaining_matches_jax(probe_cases, branch, method, masked):
+def test_probe_chaining_matches_jax(probe_cases, branch, method, masked,
+                                    monkeypatch):
     _, jc, _, tc, _, pk = next(c for c in probe_cases if c[0] == branch)
     mask = np.random.default_rng(12).random(P) < 0.7
     jmask = jnp.asarray(mask) if masked else None
     tmask = torch.from_numpy(mask) if masked else None
+    walks = recorded(monkeypatch, tchaining, "miss_chain_sum")
     for unique in (False, True):
         want = jax_probe_chaining(jc, jnp.asarray(pk), unique=unique,
                                   mask=jmask, method=method)
+        walks.clear()
         got = probe_chaining(tc, carrier(pk), unique=unique, mask=tmask,
                              method=method)
         probe_result_equal(got, want, f"{branch} {method} unique={unique}")
+        assert walks == [1], (branch, unique)  # every branch has misses
 
 
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("branch,method", PROBE_BRANCHES)
-def test_probe_nested_matches_jax(probe_cases, branch, method, masked):
+def test_probe_nested_matches_jax(probe_cases, branch, method, masked,
+                                  monkeypatch):
     _, _, jn, _, tn, pk = next(c for c in probe_cases if c[0] == branch)
     mask = np.random.default_rng(13).random(P) < 0.7
     want = jax_probe_nested(jn, jnp.asarray(pk),
                             mask=jnp.asarray(mask) if masked else None,
                             method=method)
+    walks = recorded(monkeypatch, tnested, "miss_chain_sum")
     got = probe_nested(tn, carrier(pk),
                        mask=torch.from_numpy(mask) if masked else None,
                        method=method)
     probe_result_equal(got, want, f"{branch} {method}")
+    assert walks == [1]  # every branch has misses
     if branch == "dense":
         hit = np.asarray(want.hit)
         assert np.array_equal(got.direct_row.numpy()[hit],
                               np.asarray(want.direct_row)[hit])
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("op", ["chaining", "chaining_unique", "nested"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_probe_ops_on_compacted_tables_match_jax(tables, kind, op, masked,
+                                                 monkeypatch):
+    """``probe_chaining`` (``unique`` off and on) and ``probe_nested`` over
+    the compacted sparse u32, u64 and composite tables, with and without a
+    mask: counters equal to the JAX package's, the chain walk one MW
+    call."""
+    t = tables[kind]
+    pk = t["pk"]
+    mask = np.random.default_rng(14).random(pk.size) < 0.7
+    jmask = jnp.asarray(mask) if masked else None
+    tmask = torch.from_numpy(mask) if masked else None
+    if op == "nested":
+        walks = recorded(monkeypatch, tnested, "miss_chain_sum")
+        want = jax_probe_nested(t["jn"], jnp.asarray(pk), mask=jmask)
+        got = probe_nested(t["tn"], carrier(pk), mask=tmask)
+    else:
+        unique = op == "chaining_unique"
+        walks = recorded(monkeypatch, tchaining, "miss_chain_sum")
+        want = jax_probe_chaining(t["jc"], jnp.asarray(pk), unique=unique,
+                                  mask=jmask)
+        got = probe_chaining(t["tc"], carrier(pk), unique=unique,
+                             mask=tmask)
+    for k in ("num_matches", "num_cmps"):
+        assert int(getattr(got, k)) == int(getattr(want, k)), k
+    assert int(want.num_cmps) > int(want.num_matches) > 0
+    assert walks == [1]
 
 
 @pytest.mark.parametrize("kind", KINDS)
