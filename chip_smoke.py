@@ -32,7 +32,14 @@ then exp-4 (``main_experiment4 -R 24 -a 4 -A 4 -b 2 -B 2``: |R| 2^24,
    to its plain version at exp-4 Ndu's two walk shapes and on unaligned
    keys and masks, ragged lengths, a prime bucket count, a table shorter
    than its buckets, u64 keys and the bucket-id mode (``fib``, a
-   callable), and launched there, with its time;
+   callable), and launched there, with its time; HB (``bucket_ids``,
+   the builds' bucket hash) equal to its plain version on both widths and
+   both functor modes at n = 0, 1, 5 and 2^23 + 3, over 1 and 5,242,880
+   buckets, with and without a live mask, under ``fib`` and a callable
+   (hashed by the wrapper, bucketed in HB's identity mode), and on
+   unaligned views
+   (``phase1_bucket_ids``), launched once a call, with its times at Ndu's
+   directory (2^23 keys) beside the plain composition's;
    RL (``ops/runs.py``: the compacted builds' directory and main chains)
    equal to its plain versions at Ndu's, Nrs's and Crs's shapes and on
    its edge cases (``phase1_runs``), launched once a call, with its times
@@ -107,8 +114,9 @@ then exp-4 (``main_experiment4 -R 24 -a 4 -A 4 -b 2 -B 2``: |R| 2^24,
    Nrs-shaped call under ``hashfun="fib"``); left, semi and anti on the
    Nrs-shaped u32 and u64 inputs derive from the inner join's hit set
    with its counters; a post predicate equals numpy's filter of the inner
-   pairs; ``fib`` on the u64 Nrs-shaped call keeps its pairs; K1, K2,
-   K3 and MW (the Crs-shaped call's whole-chain walk) all launch.  Each
+   pairs; ``fib`` on the u64 Nrs-shaped call keeps its pairs and its
+   build hash launches HB; K1, K2, K3 and MW (the Crs-shaped call's
+   whole-chain walk) all launch.  Each
    call prints its wall ms (median of 3, host work, sizing read and copy
    to the host included), ``route_worst`` and its launch
    counts from 0; then ``lookup_auto``'s two methods timed on the semi
@@ -289,13 +297,16 @@ EXP4_RUNS = (("R24", 24, REPO / "artifacts" / "r5" / "e4_24.csv", 0.3),
              ("R20", 20, REPO / "artifacts" / "r5" / "e4_20.csv", 0.05))
 EXP4_PARAMS = dict(alpha=4, mult_alpha=4, beta=2, mult_beta=2)
 EXP4_PLANS = ("Ndu", "Chj", "Nnu")
-#: the kernels each exp-4 plan launches: K2, RL (every compacted build),
-#: K3 where a plan unnests or sums its buckets' runs (not Nnu), and MW,
-#: its chain walks' kernel: the miss walks and Chj's whole-chain walk of S
+#: the kernels each exp-4 plan launches: K2, RL and HB (every compacted
+#: build), K3 where a plan unnests or sums its buckets' runs (not Nnu), and
+#: MW, its chain walks' kernel: the miss walks and Chj's whole-chain walk
+#: of S
 EXP4_KERNELS = {
-    "Ndu": ("windowed_lookup", "runs", "multi_scan", "miss_chain_sum"),
-    "Chj": ("windowed_lookup", "runs", "multi_scan", "miss_chain_sum"),
-    "Nnu": ("windowed_lookup", "runs", "miss_chain_sum")}
+    "Ndu": ("windowed_lookup", "runs", "multi_scan", "miss_chain_sum",
+            "bucket_ids"),
+    "Chj": ("windowed_lookup", "runs", "multi_scan", "miss_chain_sum",
+            "bucket_ids"),
+    "Nnu": ("windowed_lookup", "runs", "miss_chain_sum", "bucket_ids")}
 #: phase 8's join plans that reach K2 or K3 no more since RL builds their
 #: directories (the clarity Csr and CsrUU fetched their directory alone
 #: with K2; NrsNU and Nnu unnest nothing); every other join plan launches
@@ -331,6 +342,10 @@ KERNELS = {
         "hashjoin3d_tpu_torch/csrc/runs.cu",
         "none: the compacted builds' run_boundaries (K3), head scatter, K2 "
         "fetches and histogram", "runs"),
+    "HB bucket_ids": (
+        "hashjoin3d_tpu_torch/csrc/chainwalk.cu",
+        "none: the builds' murmur32 and bucket_of over int64 passes",
+        "bucket_ids"),
     "K2b windowed_lookup db": (
         "hashjoin3d_tpu_torch/csrc/windowed.cu",
         "hashjoin3d_tpu/ops/windowed.py:115", "windowed_lookup_db"),
@@ -635,6 +650,7 @@ def phase1_kernels(rk, sa, ops):
         **bound(wide, lid, gk, gr))
     results["MW miss_chain_sum"] = phase1_miss_walk(dev)
     results["RL runs"] = phase1_runs(dev)
+    results["HB bucket_ids"] = phase1_bucket_ids(dev)
     return results
 
 
@@ -716,6 +732,101 @@ def phase1_miss_walk(dev) -> dict:
                                                  nb)),
         plain_ms=cuda_ms(lambda: miss_chain_sum_plain(keys, mask, lens, nb)),
         library_ms=None, walkers=walkers, bound_ms=ms, bound_by=by)
+
+
+def bucket_id_cases(dev):
+    """(label, keys, num_buckets, hashfun, live) of HB's checks: u32 and
+    u64 keys (the carriers' edges first), murmur and identity, at n = 0,
+    1, 5 and 2^23 + 3, over 1 and 5,242,880 buckets, with and without a
+    live mask; ``fib`` and a callable (hashed by the wrapper, bucketed by
+    HB's identity mode) at n = 5 and 2^23 + 3 over 7 and 5,242,880
+    buckets; then unaligned key and mask views (the scalar path); seeded
+    on the card."""
+    from hashjoin3d_tpu_torch.ops.layout import I32, I64
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    big = (1 << 23) + 3
+    k32 = torch.randint(-2**31, 2**31 - 1, (big + 1,), generator=gen,
+                        device=dev, dtype=I32)
+    k32[:3] = torch.tensor([0, -2**31, -1], dtype=I32, device=dev)
+    k64 = (k32.to(I64) * 0x1E3779B97F4A7C15) ^ (k32.to(I64) << 32)
+    k64[:4] = torch.tensor([0, -1, -2**63, 2**32 - 1], dtype=I64,
+                           device=dev)
+    live = torch.rand(big + 1, generator=gen, device=dev) < 0.6
+    cases = [(f"{'u64' if wide else 'u32'} {hf} n={n} nb={nb}"
+              + (" live" if lv else ""), (k64 if wide else k32)[:n], nb, hf,
+              live[:n] if lv else None)
+             for wide in (False, True) for hf in ("murmur", "identity")
+             for n in (0, 1, 5, big) for nb in (1, 5_242_880)
+             for lv in (False, True)]
+    # functors HB does not hash itself: the wrapper hashes, HB buckets
+    cases += [(f"{'u64' if wide else 'u32'} {label} n={n} nb={nb}"
+               + (" live" if lv else ""), (k64 if wide else k32)[:n], nb,
+               hf, live[:n] if lv else None)
+              for wide in (False, True)
+              for label, hf in (("fib", "fib"),
+                                ("callable", lambda x: x ^ (x >> 29)))
+              for n in (5, big) for nb in (7, 5_242_880)
+              for lv in (False, True)]
+    return cases + [
+        ("u32 unaligned keys and live", k32[1:], 5_242_880, "murmur",
+         live[1:]),
+        ("u64 unaligned live", k64[:big], 5_242_880, "murmur",
+         live[1:]),
+        ("u32 aligned, unaligned live", k32[:big], 7, "identity",
+         live[1:])]
+
+
+def phase1_bucket_ids(dev) -> dict:
+    """HB (``bucket_ids``) against its plain version on every case of
+    :func:`bucket_id_cases`, bit-equal after a synchronise and launched
+    once a call, with the times of the kernel and of the plain composition
+    at exp-4 Ndu's directory: 2^23 sorted u32 keys, 5,242,880 of them live
+    (the rest padding), 5,242,880 buckets, murmur."""
+    from hashjoin3d_tpu_torch import kernels
+    from hashjoin3d_tpu_torch.ops.chainwalk import (bucket_ids,
+                                                    bucket_ids_plain)
+    from hashjoin3d_tpu_torch.ops.layout import I32
+    from hashjoin3d_tpu_torch.utils.measure import bound_ms, host_device_us
+
+    cases = bucket_id_cases(dev)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    for what, keys, nb, hf, live in cases:
+        got = bucket_ids(keys, nb, hf, live)
+        torch.cuda.synchronize()
+        want = bucket_ids_plain(keys, nb, hf, live)
+        require(got.dtype == I32 and torch.equal(got, want),
+                f"HB {what}: differs from the plain version")
+    torch.cuda.synchronize()
+    launched = kernels.LAUNCHES["bucket_ids"]
+    require(launched == len(cases),
+            f"HB launched {launched} times in {len(cases)} cases")
+
+    nb, cap = 5_242_880, 1 << 23
+    gen = torch.Generator(device=dev).manual_seed(14)
+    ukey = torch.sort(torch.randint(0, 2**31 - 1, (cap,), generator=gen,
+                                    device=dev, dtype=I32)).values
+    group_len = torch.where(torch.arange(cap, device=dev) < nb, 2,
+                            0).to(I32)
+    live = group_len > 0
+    _, device_us = host_device_us(
+        lambda: bucket_ids(ukey, nb, "murmur", live), calls=200,
+        profiled=20)
+    ms, by = bound_ms(ukey.nbytes + live.nbytes + 4 * cap)
+    phase_ms, _ = bound_ms(ukey.nbytes + group_len.nbytes + 4 * cap)
+    return dict(
+        max_abs_err=0,
+        ms=cuda_ms(lambda: bucket_ids(ukey, nb, "murmur", live)),
+        device_ms=device_us / 1e3,
+        with_mask_ms=cuda_ms(
+            lambda: bucket_ids(ukey, nb, "murmur", group_len > 0)),
+        plain_ms=cuda_ms(
+            lambda: bucket_ids_plain(ukey, nb, "murmur", group_len > 0)),
+        plain_device_ms=host_device_us(
+            lambda: bucket_ids_plain(ukey, nb, "murmur", group_len > 0),
+            calls=20, profiled=5)[1] / 1e3,
+        library_ms=None, bound_ms=ms, bound_by=by, phase_bound_ms=phase_ms)
 
 
 def runs_columns(dev):
@@ -1461,7 +1572,7 @@ U64_HI = np.uint64(0xAB << 40)
 #: the CPU stay inside the phase's budget)
 CPU_LOG2_R, CPU_LOG2_S = 18, 22
 JOIN_KERNELS = ("bitonic_sort_packed_segmented", "windowed_lookup",
-                "multi_scan", "miss_chain_sum")
+                "multi_scan", "miss_chain_sum", "bucket_ids")
 
 
 def key_maps():
@@ -1684,6 +1795,8 @@ def phase7_join(dev, card, rk_np, sa_np):
     require(res.num_results == u32["Nrs"].num_results
             and torch.equal(join_pairs_key(res, dev), keys["Nrs"]),
             "phase 7 Nrs u64 fib: pairs differ from the u32 call's")
+    require(launches["Nrs u64 fib"]["bucket_ids"] > 0,
+            "phase 7 Nrs u64 fib: the build hash did not launch HB")
     print(join_line("Nrs u64 fib", res, ms, launches, card))
     del keys
     methods = phase7_lookup_methods(dev, sides, card)
@@ -3171,7 +3284,7 @@ FUZZ_SMALL = {"fuzz_api": 60, "fuzz_stream": 40, "fuzz_order": 40}
 FUZZ_LARGE = 4
 #: the kernels phase 12a's large tier must launch
 FUZZ_KERNELS = ("bitonic_sort_packed_segmented", "windowed_lookup",
-                "multi_scan", "bitonic_sort_segmented")
+                "multi_scan", "bitonic_sort_segmented", "bucket_ids")
 
 
 def phase12a_fuzz(dev, card) -> dict:
@@ -3292,6 +3405,8 @@ def main() -> int:
     for name, r in results.items():
         print(f"phase 1 {name}: max_abs_err {r['max_abs_err']}, "
               f"{r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms")
+    print(f"phase 1 HB at Ndu's directory on {card}: "
+          + json.dumps(results["HB bucket_ids"]))
     del table
 
     # phase 2: the main path, Experiment1's eleven plans on the card, the
@@ -3342,12 +3457,12 @@ def main() -> int:
 
     # phase 4: the paths went through the kernels
     need = {"Csr": ("bitonic_sort_packed_segmented", "windowed_lookup",
-                    "multi_scan"),
-            "Nrs": ("windowed_lookup", "multi_scan", "runs"),
+                    "multi_scan", "bucket_ids"),
+            "Nrs": ("windowed_lookup", "multi_scan", "runs", "bucket_ids"),
             "Crs": ("windowed_lookup", "multi_scan", "runs",
-                    "miss_chain_sum")}
+                    "miss_chain_sum", "bucket_ids")}
     need["CsrUU"] = need["Nsr"] = need["Csr"]
-    need["CsrSel"] = ("windowed_lookup", "multi_scan")
+    need["CsrSel"] = ("windowed_lookup", "multi_scan", "bucket_ids")
     need["NrsSel"] = need["Nrs"]
     need["CrsSel"] = need["Crs"]
     for plan, names in need.items():

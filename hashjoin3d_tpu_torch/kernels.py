@@ -46,7 +46,7 @@ LAUNCHES = {"multi_scan": 0, "windowed_lookup": 0, "windowed_lookup_db": 0,
             "probe_onehot_matmul": 0, "probe_permute": 0,
             "probe_masked_store": 0, "probe_block_copy": 0,
             "probe_row_copy": 0, "probe_digit_histogram": 0,
-            "miss_chain_sum": 0, "runs": 0}
+            "miss_chain_sum": 0, "runs": 0, "bucket_ids": 0}
 
 _lib = None
 
@@ -85,6 +85,8 @@ _SIGNATURES = {
     "chainwalk.cu": {
         # keys, mask, len, out, n, T, num_buckets, mode, key bytes, stream
         "hj3t_miss_chain_sum": ([_P] * 4 + [_L] * 3 + [_I, _I, _P], _I),
+        # keys, live (or null), out, n, num_buckets, mode, key bytes, stream
+        "hj3t_bucket_ids": ([_P] * 3 + [_L] * 2 + [_I, _I, _P], _I),
     },
     "probes.cu": {
         # arguments as in each entry point's comment there

@@ -38,8 +38,8 @@ import numpy as np
 import torch
 
 from ..utils.tracing import host_read, span
-from .chainwalk import miss_chain_sum
-from .hashing import bucket_of, hash_key, hash_key_np
+from .chainwalk import bucket_ids, miss_chain_sum
+from .hashing import hash_key_np
 from .layout import (I32, I64, UKEY_PAD, GroupIndex, check_carrier,
                      compact_group_index, drop_pad_groups, emit_pos,
                      empty_group_index, expand, group_capacity, i64_to_u32,
@@ -129,7 +129,7 @@ def _build_chaining_dense(keys: torch.Tensor, num_buckets: int,
         n = keys.shape[0]
         with span("hj.build.hash"):
             row = torch.arange(n, dtype=I32, device=keys.device)
-            b = bucket_of(hash_key(keys, hashfun), num_buckets)
+            b = bucket_ids(keys, num_buckets, hashfun)
         with span("hj.build.sort"):
             b_sorted, srow = torch.sort(b, stable=True)
             srow = srow.to(I32)
@@ -142,7 +142,7 @@ def _build_chaining_dense(keys: torch.Tensor, num_buckets: int,
         if full_chain_index:
             with span("hj.build.hash"):
                 chain_by_key = bucket_len[
-                    bucket_of(hash_key(row, hashfun), num_buckets).long()]
+                    bucket_ids(row, num_buckets, hashfun).long()]
         with span("hj.build.assemble"):
             rank = row - run_start_b
             # insertion rank 0 -> chain pos 0 (directory node); rank p > 0
@@ -186,9 +186,7 @@ def build_chaining(keys: torch.Tensor, num_buckets: int,
     n = keys.shape[0]
     dev = keys.device
     row = torch.arange(n, dtype=I32, device=dev)
-    b = bucket_of(hash_key(keys, hashfun), num_buckets)
-    if valid is not None:
-        b = torch.where(valid, b, num_buckets)
+    b = bucket_ids(keys, num_buckets, hashfun, live=valid)
     b_sorted, srow = torch.sort(b, stable=True)
     srow = srow.to(I32)
     vs = b_sorted < num_buckets
@@ -335,9 +333,8 @@ def _build_chaining_phase2(keys: torch.Tensor, skey: torch.Tensor,
         if not early_exit_index and 2 * cap <= n:
             with span("hj.build.hash"):
                 validg = groups.group_len > 0
-                b_g = torch.where(validg,
-                                  bucket_of(hash_key(groups.ukey, hashfun),
-                                            num_buckets), num_buckets)
+                b_g = bucket_ids(groups.ukey, num_buckets, hashfun,
+                                 live=validg)
             with span("hj.build.sort"):
                 bs, order = torch.sort(b_g, stable=True)
             with span("hj.build.runs"):
@@ -350,7 +347,7 @@ def _build_chaining_phase2(keys: torch.Tensor, skey: torch.Tensor,
 
         with span("hj.build.hash"):
             row = torch.arange(n, dtype=I32, device=dev)
-            b = bucket_of(hash_key(keys, hashfun), num_buckets)
+            b = bucket_ids(keys, num_buckets, hashfun)
             if drop_pad_key:
                 # dead rows park past the last bucket, where the histogram
                 # drops them

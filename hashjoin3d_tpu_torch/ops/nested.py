@@ -35,8 +35,7 @@ import torch
 from ..utils.tracing import host_read, span
 from .chaining import _check_probe, _clamped, _direct_probe, _nbytes
 from .chaining import can_use_dense_direct as _chaining_dense_ok
-from .chainwalk import miss_chain_sum
-from .hashing import bucket_of, hash_key
+from .chainwalk import bucket_ids, miss_chain_sum
 from .layout import (I32, I64, GroupIndex, check_carrier,
                      compact_group_index, drop_pad_groups, emit_pos,
                      empty_group_index, expand, group_capacity, i64_to_u32,
@@ -91,16 +90,15 @@ def can_use_dense_direct(keys_np, num_buckets: int,
 def _main_chains(groups: GroupIndex, num_buckets: int, hashfun):
     """``(main_pos_by_group, bucket_main_len)`` of a directory: the groups
     sort by (bucket, first row), one stable sort of the two packed in an
-    int64 word with the padding groups parked at bucket ``num_buckets``, so
+    int64 word with the padding groups parked at bucket ``num_buckets``
+    (the ids from :func:`~.chainwalk.bucket_ids`, kernel HB on the GPU), so
     within a bucket they stand in first-occurrence order (tail append,
     ``ht_nested.hh:299-308``) and a group's main-chain position is its rank
     in its bucket's run.  One pass over the sorted buckets
     (:func:`~.runs.run_histogram`, kernel RL on the GPU) writes both."""
     with span("hj.build.hash"):
-        validg = groups.group_len > 0
-        b_main = torch.where(validg,
-                             bucket_of(hash_key(groups.ukey, hashfun),
-                                       num_buckets), num_buckets)
+        b_main = bucket_ids(groups.ukey, num_buckets, hashfun,
+                            live=groups.group_len > 0)
     with span("hj.build.sort"):
         # first_row <= n < 2^31 and b_main <= num_buckets < 2^31: both fit
         packed = (b_main.to(I64) << 32) | groups.first_row.to(I64)
@@ -192,7 +190,7 @@ def _build_nested_dense(keys: torch.Tensor, num_buckets: int,
         n = keys.shape[0]
         with span("hj.build.hash"):
             row = torch.arange(n, dtype=I32, device=keys.device)
-            b = bucket_of(hash_key(keys, hashfun), num_buckets)
+            b = bucket_ids(keys, num_buckets, hashfun)
         with span("hj.build.sort"):
             b_sorted, srow = torch.sort(b, stable=True)
         with span("hj.build.runs"):

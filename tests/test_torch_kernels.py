@@ -539,6 +539,9 @@ def test_bitonic_sort_packed_plain_matches_jax_kernel():
                                                       dtype=torch.bool), x, 7),
     lambda x: runs.run_directory(x, x, 16),
     lambda x: runs.run_histogram(x, x.long(), 7),
+    lambda x: chainwalk.bucket_ids(x, 7),
+    lambda x: chainwalk.bucket_ids(x, 7, "fib",
+                                   x.new_empty(x.shape, dtype=torch.bool)),
 ])
 def test_wrappers_launch_or_raise_off_the_cpu(call):
     """Only CPU tensors take the plain version: any other device must reach
