@@ -39,7 +39,7 @@ from .hashing import bucket_of, hash_key
 from .layout import (I32, I64, SIGN, expand, inverse_permute,
                      is_sorted_ascending, same_key_width, shr, uorder)
 from .sort import probe_sort_chunk, sort_segmented, window_for_chunk
-from ..utils.tracing import host_read, span
+from ..utils.tracing import count, host_read, span, timed
 from .windowed import DEFAULT_C, DEFAULT_W, windowed_lookup_covered
 
 ROUTE_WINDOWED, ROUTE_PATCHED, ROUTE_GATHER = 0, 1, 2
@@ -49,8 +49,12 @@ _route_records: list = []
 
 
 def _record_route(route: int, nbad: int) -> None:
+    """Keep a lookup's route for its strand and, while a span is open, add
+    its uncovered chunks to the span's ``lookup.uncovered`` tally."""
     if _route_records:
         _route_records[-1].append((route, nbad))
+    if nbad:
+        count("lookup.uncovered", nbad)
 
 
 def _with_route(fn):
@@ -96,6 +100,7 @@ def safe_lookup(values: torch.Tensor, keys: torch.Tensor,
     by a small gather.  Route 2: too many uncovered chunks; K2's words are
     dropped and a plain gather answers the whole stream.  K2 never reads
     outside the table, so running it before the route is known is safe.
+    Off route 0 the open span times the gather (``lookup.regather``).
     """
     values, keys = values.contiguous(), keys.contiguous()
     T = values.shape[0]
@@ -110,16 +115,20 @@ def safe_lookup(values: torch.Tensor, keys: torch.Tensor,
     route = (ROUTE_WINDOWED if nbad == 0 else
              ROUTE_PATCHED if nbad <= cap else ROUTE_GATHER)
     _record_route(route, nbad)
+    if route == ROUTE_WINDOWED:
+        return out[:n] if pad else out
 
-    if route == ROUTE_GATHER:
-        out = torch.where((kp >= 0) & (kp < T),
-                          values[kp.clamp(0, T - 1).long()], 0)
-    elif route == ROUTE_PATCHED:
-        rows = (torch.nonzero(bad).view(-1, 1) * C
-                + torch.arange(C, device=kp.device)).view(-1)
-        pk = kp[rows]
-        ok = (pk >= 0) & (pk < T)
-        out[rows] = torch.where(ok, values[pk.clamp(0, T - 1).long()], 0)
+    with timed("lookup.regather"):
+        if route == ROUTE_GATHER:
+            out = torch.where((kp >= 0) & (kp < T),
+                              values[kp.clamp(0, T - 1).long()], 0)
+        else:
+            rows = (torch.nonzero(bad).view(-1, 1) * C
+                    + torch.arange(C, device=kp.device)).view(-1)
+            pk = kp[rows]
+            ok = (pk >= 0) & (pk < T)
+            out[rows] = torch.where(ok, values[pk.clamp(0, T - 1).long()],
+                                    0)
     return out[:n] if pad else out
 
 

@@ -11,7 +11,8 @@ reference's observability tools:
   strands and the distributed exchange (``hj.build``, ``hj.probe``,
   ``hj.exchange`` and their ``hj.<root>.<phase>`` children), and
   :func:`host_read`, each device-to-host read of those paths counted by
-  site;
+  site, :func:`count`, a tally of other work by site, and :func:`timed`,
+  a sub-step of a phase timed without a span of its own;
 * its ASan/UBSan build mode (``makefile:56-58``) -> :func:`checked`, which
   runs a function, synchronises, and returns a device assert, an index
   error or a NaN in a float output as an error object instead of raising.
@@ -22,9 +23,10 @@ returns a shared no-op.  An open span is a profiler range (a
 ``record_function`` without its operator), so it lies on the profiler's
 timeline with the device's operations, and it appends a
 :class:`SpanRecord` to an in-memory list (:func:`records`): host times, a
-CUDA event at each end where CUDA is in use, and the host reads made
-inside it.  Reads are counted only there: off, :func:`host_read` is the
-bare read.
+CUDA event at each end where CUDA is in use, the host reads made inside
+it, its tallies and its timed sites.  Reads, tallies and timed sites are
+kept only there: off, :func:`host_read` is the bare read and
+:func:`count` and :func:`timed` do nothing.
 """
 
 from __future__ import annotations
@@ -52,8 +54,10 @@ _RANGE = getattr(torch._C._profiler, "_RecordFunctionFast",
 class SpanRecord:
     """One span: its ``name``, the index of its parent in
     :func:`records` (-1 for a root), host ``perf_counter_ns`` at its ends,
-    a CUDA event at each end (None where CUDA is not in use), and the
-    host reads made directly inside it, by site (``reads``).
+    a CUDA event at each end (None where CUDA is not in use), the host
+    reads made directly inside it, by site (``reads``), the tallies of
+    other work, by site (``counts``, :func:`count`), and the event pairs of
+    its timed sites, by site (``timings``, :func:`timed`).
 
     A span with children launches no device work of its own: its children
     tile it.  So one event marks each boundary: a child starts at its
@@ -62,12 +66,14 @@ class SpanRecord:
     of microseconds, so this halves what spans add to a traced query."""
 
     __slots__ = ("name", "parent", "index", "t0_ns", "t1_ns", "ev0", "ev1",
-                 "reads", "mark", "nested")
+                 "reads", "counts", "timings", "mark", "nested")
 
     def __init__(self, name: str, parent: int, index, ev0):
         self.name, self.parent, self.index = name, parent, index
         self.t1_ns = self.ev1 = None
         self.reads: dict = {}
+        self.counts: dict = {}
+        self.timings: dict = {}
         #: the last boundary inside the span: its start or a child's end
         self.ev0 = self.mark = ev0
         self.nested = False
@@ -83,6 +89,17 @@ class SpanRecord:
             return None
         self.ev1.synchronize()
         return self.ev0.elapsed_time(self.ev1)
+
+    def timed_ms(self, site: str) -> float | None:
+        """Device ms of the span's timed ``site`` pairs, summed (0.0 with
+        none); None where a pair has no events."""
+        total = 0.0
+        for ev0, ev1 in self.timings.get(site, ()):
+            if ev0 is None or ev1 is None:
+                return None
+            ev1.synchronize()
+            total += ev0.elapsed_time(ev1)
+        return total
 
 
 _records: list = []
@@ -173,6 +190,41 @@ def host_read(t: torch.Tensor, site: str):
         reads = _open[-1].reads
         reads[site] = reads.get(site, 0) + 1
     return t.item()
+
+
+def count(site: str, n: int) -> None:
+    """While a span is open, add ``n`` to the tally of ``site`` in the
+    innermost one's record: work that is not a host read, such as the
+    chunks a lookup left uncovered."""
+    if _open:
+        counts = _open[-1].counts
+        counts[site] = counts.get(site, 0) + int(n)
+
+
+class _Timed:
+    __slots__ = ("rec", "site", "ev0")
+
+    def __init__(self, rec: SpanRecord, site: str):
+        self.rec, self.site = rec, site
+
+    def __enter__(self):
+        self.ev0 = _event()
+        return None
+
+    def __exit__(self, *exc):
+        self.rec.timings.setdefault(self.site, []).append(
+            (self.ev0, _event()))
+        return False
+
+
+def timed(site: str):
+    """A context manager around a sub-step of the innermost open span:
+    a CUDA event at each end, kept under ``site`` in that span's record
+    (:meth:`SpanRecord.timed_ms`).  It opens no span, so the children of
+    a span still tile it.  With no span open it is the shared no-op."""
+    if not _open:
+        return _NOOP
+    return _Timed(_open[-1], site)
 
 
 def records() -> list:
