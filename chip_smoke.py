@@ -43,7 +43,13 @@ then exp-4 (``main_experiment4 -R 24 -a 4 -A 4 -b 2 -B 2``: |R| 2^24,
    RL (``ops/runs.py``: the compacted builds' directory and main chains)
    equal to its plain versions at Ndu's, Nrs's and Crs's shapes and on
    its edge cases (``phase1_runs``), launched once a call, with its times
-   at Ndu's two calls;
+   at Ndu's two calls; MC (``runs.main_chains``, the nested builds' main
+   chains with no sort) equal to its plain version at Ndu's and Nrs's
+   directories and on its edge cases: one bucket (one tile and 2^20
+   groups), 2^20 groups over 2^13 buckets, long buckets among short ones,
+   dead groups, no group, views (``phase1_main_chains``), launched once a
+   call, with its times at Ndu's directory and at the two long shapes
+   beside the sort it replaced, and each of its kernels' at Ndu's;
 2. ``Experiment1(20, 24, t=0, plans=all + CsrSel, CrsSel, NrsSel,
    device="cuda")``, the launch counts set to 0 just before each plan:
    every row of ``all``'s plans equals the same plan's row of
@@ -298,15 +304,16 @@ EXP4_RUNS = (("R24", 24, REPO / "artifacts" / "r5" / "e4_24.csv", 0.3),
 EXP4_PARAMS = dict(alpha=4, mult_alpha=4, beta=2, mult_beta=2)
 EXP4_PLANS = ("Ndu", "Chj", "Nnu")
 #: the kernels each exp-4 plan launches: K2, RL and HB (every compacted
-#: build), K3 where a plan unnests or sums its buckets' runs (not Nnu), and
-#: MW, its chain walks' kernel: the miss walks and Chj's whole-chain walk
-#: of S
+#: build), MC (the nested builds' main chains: not Chj), K3 where a plan
+#: unnests or sums its buckets' runs (not Nnu), and MW, its chain walks'
+#: kernel: the miss walks and Chj's whole-chain walk of S
 EXP4_KERNELS = {
     "Ndu": ("windowed_lookup", "runs", "multi_scan", "miss_chain_sum",
-            "bucket_ids"),
+            "bucket_ids", "main_chains"),
     "Chj": ("windowed_lookup", "runs", "multi_scan", "miss_chain_sum",
             "bucket_ids"),
-    "Nnu": ("windowed_lookup", "runs", "miss_chain_sum", "bucket_ids")}
+    "Nnu": ("windowed_lookup", "runs", "miss_chain_sum", "bucket_ids",
+            "main_chains")}
 #: phase 8's join plans that reach K2 or K3 no more since RL builds their
 #: directories (the clarity Csr and CsrUU fetched their directory alone
 #: with K2; NrsNU and Nnu unnest nothing); every other join plan launches
@@ -346,6 +353,10 @@ KERNELS = {
         "hashjoin3d_tpu_torch/csrc/chainwalk.cu",
         "none: the builds' murmur32 and bucket_of over int64 passes",
         "bucket_ids"),
+    "MC main_chains": (
+        "hashjoin3d_tpu_torch/csrc/runs.cu",
+        "none: _main_chains' int64 (bucket, first row) pack, library sort "
+        "and RL's histogram mode", "main_chains"),
     "K2b windowed_lookup db": (
         "hashjoin3d_tpu_torch/csrc/windowed.cu",
         "hashjoin3d_tpu/ops/windowed.py:115", "windowed_lookup_db"),
@@ -651,6 +662,7 @@ def phase1_kernels(rk, sa, ops):
     results["MW miss_chain_sum"] = phase1_miss_walk(dev)
     results["RL runs"] = phase1_runs(dev)
     results["HB bucket_ids"] = phase1_bucket_ids(dev)
+    results["MC main_chains"] = phase1_main_chains(dev)
     return results
 
 
@@ -827,6 +839,163 @@ def phase1_bucket_ids(dev) -> dict:
             lambda: bucket_ids_plain(ukey, nb, "murmur", group_len > 0),
             calls=20, profiled=5)[1] / 1e3,
         library_ms=None, bound_ms=ms, bound_by=by, phase_bound_ms=phase_ms)
+
+
+def main_chain_cases(dev):
+    """(label, bucket ids, first rows, bucket count) of MC's checks: the
+    directories of exp-4 Ndu's S build (2^23 slots, 5,242,880 live over
+    5,242,880 buckets) and exp-1 Nrs's (2^20 over 2^20), from RL's
+    directory and HB's ids as ``_main_chains`` takes them; then the edge
+    cases, each a synthetic directory (live groups first, distinct first
+    rows, then dead groups at bucket nb with first row n): every group in
+    one bucket (one tile of the long path, and 2^20 groups: merge passes),
+    2^20 groups over 2^13 buckets (a load factor of 128: every bucket
+    long), buckets of exactly ``SHORT_CHAIN`` groups and one more among
+    short ones, long buckets of a tile and a tile plus one, a dropped pad
+    key's dead group, no live group, no dead group, no group, one group,
+    and unaligned views."""
+    from hashjoin3d_tpu_torch.ops.chainwalk import bucket_ids
+    from hashjoin3d_tpu_torch.ops.layout import I32, sort_with_rows
+    from hashjoin3d_tpu_torch.ops.runs import run_directory
+
+    SHORT_CHAIN = 64  # MC's longest bucket ranked by counting (kShortChain)
+
+    cases = []
+    for label, keys, cap, nb in runs_columns(dev):
+        if nb is None:
+            continue
+        skey, srow, _ = sort_with_rows(keys)
+        ukey, _, group_len, first_row, _, _ = run_directory(skey, srow, cap)
+        cases.append((label, bucket_ids(ukey, nb, "murmur", group_len > 0),
+                      first_row, nb))
+    gen = torch.Generator(device=dev).manual_seed(15)
+
+    def synthetic(sizes, pairs, n_dead, nb, pad_group=False, spread=0):
+        live = [torch.full((m,), i + 3, dtype=I32, device=dev)
+                for i, m in enumerate(sizes)]
+        if spread:  # groups over every bucket at random
+            live.append(torch.randint(0, nb, (spread,), generator=gen,
+                                      device=dev, dtype=I32))
+        if pairs:
+            spread = torch.randperm(nb - len(sizes) - 3, generator=gen,
+                                    device=dev)[:pairs] + len(sizes) + 3
+            live.append(spread.to(I32).repeat(2))
+        b = torch.cat(live) if live else torch.zeros(0, dtype=I32,
+                                                     device=dev)
+        b = b[torch.randperm(b.shape[0], generator=gen, device=dev)]
+        n_live = b.shape[0]
+        n = 2 * (n_live + n_dead) + 5
+        rows = torch.randperm(n, generator=gen, device=dev).to(I32)
+        first = torch.cat([rows[:n_live],
+                           torch.full((n_dead,), n, dtype=I32, device=dev)])
+        if pad_group and n_dead:
+            first[n_live] = rows[n_live]
+        b = torch.cat([b, torch.full((n_dead,), nb, dtype=I32, device=dev)])
+        return b, first
+
+    for label, sizes, pairs, n_dead, nb, pad in (
+            ("one bucket, one tile", (1000,), 0, 24, 7, False),
+            ("one bucket, 2^20 groups", (1 << 20,), 0, 5, 7, False),
+            ("short and long buckets", (SHORT_CHAIN, SHORT_CHAIN + 1, 2048,
+                                        2049, 4097, 70_000), 50_000, 3000,
+             200_000, False),
+            ("a dropped pad key", (9, 4), 1000, 500, 5000, True),
+            ("no live group", (), 0, 777, 10, True),
+            ("no dead group", (70,), 3000, 0, 10_000, False),
+            ("no group", (), 0, 0, 10, False),
+            ("one group", (1,), 0, 0, 10, False)):
+        b, first = synthetic(sizes, pairs, n_dead, nb, pad)
+        cases.append((label, b, first, nb))
+    b, first = synthetic((), 0, 5, 1 << 13, spread=1 << 20)
+    cases.append(("2^20 groups over 2^13 buckets", b, first, 1 << 13))
+    b, first = synthetic((SHORT_CHAIN + 1, 2000), 4000, 100, 9000)
+    cases.append(("unaligned views", b[1:], first[1:], 9000))
+    return cases
+
+
+def phase1_main_chains(dev) -> dict:
+    """MC (``runs.main_chains``) against its plain version on every case
+    of :func:`main_chain_cases`, bit-equal after a synchronise and launched
+    once a call, with its times at exp-4 Ndu's directory beside the
+    composition it replaced (the int64 (bucket, first row) pack, the
+    library's stable sort and RL's histogram mode), its bound and each of
+    its kernels' device time; the long path's time on 2^20 groups in one
+    bucket."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from hashjoin3d_tpu_torch import kernels
+    from hashjoin3d_tpu_torch.ops import runs
+    from hashjoin3d_tpu_torch.ops.layout import I32, I64
+    from hashjoin3d_tpu_torch.utils.measure import bound_ms, host_device_us
+
+    cases = main_chain_cases(dev)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    for what, b, first, nb in cases:
+        got = runs.main_chains(b, first, nb)
+        torch.cuda.synchronize()
+        want = runs.main_chains_plain(b, first, nb)
+        for name, g, w in zip(("pos", "bucket_len"), got, want):
+            require(g.dtype == I32 and torch.equal(g, w),
+                    f"MC {what}: {name} differs from the plain version")
+    torch.cuda.synchronize()
+    launched = kernels.LAUNCHES["main_chains"]
+    require(launched == len(cases),
+            f"MC launched {launched} times in {len(cases)} cases")
+
+    def replaced(b, first, nb):
+        packed = (b.to(I64) << 32) | first.to(I64)
+        pk_s, gid_s = torch.sort(packed, stable=True)
+        return runs.run_histogram((pk_s >> 32).to(I32), gid_s, nb)
+
+    shapes = {c[0]: c[1:] for c in cases}
+    b, first, nb = shapes["Ndu"]
+
+    def mc():
+        return runs.main_chains(b, first, nb)
+
+    mc()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            mc()
+        torch.cuda.synchronize()
+    kernel_us = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            kernel_us[e.name] = (kernel_us.get(e.name, 0.0)
+                                 + e.time_range.elapsed_us() / 10)
+    cap = b.shape[0]
+    ms, by = bound_ms(b.nbytes + first.nbytes + 4 * nb + 4 * cap)
+    # what the four launches move: the ids and first rows twice, the
+    # bucket arrays four times, 8 B a live slot written and read
+    n_live = int(((b >= 0) & (b < nb)).sum())
+    design_ms, _ = bound_ms(2 * (b.nbytes + first.nbytes) + 4 * 4 * nb
+                            + 16 * n_live)
+    out = dict(
+        max_abs_err=0, calls=len(cases),
+        ms=cuda_ms(mc),
+        device_ms=host_device_us(mc, calls=50, profiled=10)[1] / 1e3,
+        kernel_us=kernel_us,
+        plain_ms=cuda_ms(lambda: runs.main_chains_plain(b, first, nb),
+                         reps=3),
+        replaced_ms=cuda_ms(lambda: replaced(b, first, nb)),
+        replaced_device_ms=host_device_us(lambda: replaced(b, first, nb),
+                                          calls=20, profiled=10)[1] / 1e3,
+        library_ms=None, bound_ms=ms, bound_by=by, design_bound_ms=design_ms)
+    for key, label in (("long_2e20", "one bucket, 2^20 groups"),
+                       ("lf128", "2^20 groups over 2^13 buckets")):
+        lb, lf, lnb = shapes[label]
+        out[f"{key}_ms"] = cuda_ms(lambda: runs.main_chains(lb, lf, lnb))
+        out[f"{key}_device_ms"] = host_device_us(
+            lambda: runs.main_chains(lb, lf, lnb), calls=20,
+            profiled=10)[1] / 1e3
+        out[f"{key}_replaced_ms"] = cuda_ms(lambda: replaced(lb, lf, lnb))
+        out[f"{key}_replaced_device_ms"] = host_device_us(
+            lambda: replaced(lb, lf, lnb), calls=20, profiled=10)[1] / 1e3
+    return out
 
 
 def runs_columns(dev):
@@ -3458,7 +3627,8 @@ def main() -> int:
     # phase 4: the paths went through the kernels
     need = {"Csr": ("bitonic_sort_packed_segmented", "windowed_lookup",
                     "multi_scan", "bucket_ids"),
-            "Nrs": ("windowed_lookup", "multi_scan", "runs", "bucket_ids"),
+            "Nrs": ("windowed_lookup", "multi_scan", "runs", "bucket_ids",
+                    "main_chains"),
             "Crs": ("windowed_lookup", "multi_scan", "runs",
                     "miss_chain_sum", "bucket_ids")}
     need["CsrUU"] = need["Nsr"] = need["Csr"]
@@ -3472,7 +3642,10 @@ def main() -> int:
     require(after3["miss_chain_sum"] > 0,
             "miss_chain_sum not launched in phase 3")
     for run, name in (("Nrs t=4", "miss_chain_sum"),
-                      ("Crs t=4", "miss_chain_sum")):
+                      ("Crs t=4", "miss_chain_sum"),
+                      ("Nrs t=4", "main_chains"), ("NrsNU t=4", "main_chains"),
+                      ("Nrs zipf", "main_chains"),
+                      ("NrsNU zipf", "main_chains")):
         require(miss_launches[run][name] > 0,
                 f"{name} not launched in phase 3b's {run}")
     plan_launches.update(miss_launches)

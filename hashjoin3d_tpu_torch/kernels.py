@@ -46,7 +46,8 @@ LAUNCHES = {"multi_scan": 0, "windowed_lookup": 0, "windowed_lookup_db": 0,
             "probe_onehot_matmul": 0, "probe_permute": 0,
             "probe_masked_store": 0, "probe_block_copy": 0,
             "probe_row_copy": 0, "probe_digit_histogram": 0,
-            "miss_chain_sum": 0, "runs": 0, "bucket_ids": 0}
+            "miss_chain_sum": 0, "runs": 0, "bucket_ids": 0,
+            "main_chains": 0}
 
 _lib = None
 
@@ -81,6 +82,11 @@ _SIGNATURES = {
         "hj3t_runs": ([_P, _I, _L, _L, _P, _I, _L, _I, _P, _P]
                       + [_P] * 8 + [_L, _P], _I),
         "hj3t_runs_tile": ([], _I),
+        # bucket ids, first rows, cap, num_buckets, len, pos, scratch, its
+        # bytes, workspace, its capacity in tiles, stream
+        "hj3t_main_chains": ([_P, _P, _L, _L, _P, _P, _P, _L, _P, _L, _P],
+                             _I),
+        "hj3t_main_chains_scratch": ([_L, _L], _L),
     },
     "chainwalk.cu": {
         # keys, mask, len, out, n, T, num_buckets, mode, key bytes, stream

@@ -42,7 +42,7 @@ from .layout import (I32, I64, GroupIndex, check_carrier,
                      inverse_permute, key_direct_index, key_direct_lookup,
                      key_group_index, lookup_auto, run_boundaries,
                      shrink_group_arrays, sort_with_rows, sorted_histogram)
-from .runs import run_histogram
+from .runs import main_chains
 
 
 @dataclass(frozen=True)
@@ -88,26 +88,18 @@ def can_use_dense_direct(keys_np, num_buckets: int,
 
 
 def _main_chains(groups: GroupIndex, num_buckets: int, hashfun):
-    """``(main_pos_by_group, bucket_main_len)`` of a directory: the groups
-    sort by (bucket, first row), one stable sort of the two packed in an
-    int64 word with the padding groups parked at bucket ``num_buckets``
-    (the ids from :func:`~.chainwalk.bucket_ids`, kernel HB on the GPU), so
-    within a bucket they stand in first-occurrence order (tail append,
-    ``ht_nested.hh:299-308``) and a group's main-chain position is its rank
-    in its bucket's run.  One pass over the sorted buckets
-    (:func:`~.runs.run_histogram`, kernel RL on the GPU) writes both."""
+    """``(main_pos_by_group, bucket_main_len)`` of a directory: each live
+    group's rank by first row among the live groups of its bucket
+    (first-occurrence order: tail append, ``ht_nested.hh:299-308``) and
+    each bucket's count, from the groups' bucket ids
+    (:func:`~.chainwalk.bucket_ids`, kernel HB on the GPU; padding groups
+    at bucket ``num_buckets``) with no sort (:func:`~.runs.main_chains`,
+    kernel MC on the GPU)."""
     with span("hj.build.hash"):
         b_main = bucket_ids(groups.ukey, num_buckets, hashfun,
                             live=groups.group_len > 0)
-    with span("hj.build.sort"):
-        # first_row <= n < 2^31 and b_main <= num_buckets < 2^31: both fit
-        packed = (b_main.to(I64) << 32) | groups.first_row.to(I64)
-        pk_s, gid_s = torch.sort(packed, stable=True)
-        bm_s = (pk_s >> 32).to(I32)
     with span("hj.build.runs"):
-        bucket_main_len, main_pos_by_group = run_histogram(bm_s, gid_s,
-                                                           num_buckets)
-    return main_pos_by_group, bucket_main_len
+        return main_chains(b_main, groups.first_row, num_buckets)
 
 
 def build_nested(keys: torch.Tensor, num_buckets: int,

@@ -16,6 +16,16 @@ for the pad slots); nothing is read back to the host.  Its look-back status
 the kernel leaves it clean for the next call.  On CPU tensors the calls run
 :func:`run_directory_plain` and :func:`run_histogram_plain`, the exact
 PyTorch versions.
+
+:func:`main_chains` gives a compacted directory its main chains with no
+sort: each live group's rank by first row among the live groups of its
+bucket, and each bucket's count (kernel MC of the same source: a
+histogram, the buckets' starts chained by RL's look-back status, a slot
+claim and a count in each bucket; the buckets too long to count spread
+over the whole grid, tile sorts, then merge passes).  The nested builds'
+``_main_chains`` calls it; on CPU tensors it runs
+:func:`main_chains_plain`, the composition MC replaced: a stable sort of
+(bucket, first row) and :func:`run_histogram_plain`.
 """
 
 from __future__ import annotations
@@ -29,11 +39,13 @@ from .layout import I32, I64, UKEY_PAD
 from .scan import scan_plan
 
 _RL = kernels.Kernel("hj3t_runs")
+_MC = kernels.Kernel("hj3t_main_chains")
 _TILE = 0
 #: (device index, stream handle) -> (capacity in tiles, data_ptr, tensor)
 _WORKSPACES: dict = {}
 _DIRECTORY, _HISTOGRAM = 0, 1
 _LIMIT = (1 << 31) - 1
+_U32 = 0xFFFFFFFF
 
 
 def tile() -> int:
@@ -207,3 +219,49 @@ def run_histogram_plain(values, perm, num_buckets: int):
     rank = torch.empty_like(i)
     rank[perm.long()] = i - start
     return bucket_len, rank
+
+
+def main_chains(bucket: torch.Tensor, first_row: torch.Tensor,
+                num_buckets: int):
+    """The main chains of a directory: ``(pos, bucket_len)``.
+    ``bucket`` (int32[cap]) holds each group's bucket id, a value at or
+    past ``num_buckets`` (compared unsigned) marking a dead group;
+    ``first_row`` (int32[cap], >= 0 where live) each group's first row.
+    ``bucket_len[b]`` counts the live groups in bucket b.  A live group's
+    ``pos`` counts the live groups of its bucket with a smaller (first row,
+    group id): its rank in first-occurrence order.  A dead group gets its
+    distance from the start of the last non-empty bucket's run in (bucket,
+    first row) order, as :func:`main_chains_plain` gives it, where the
+    dead groups are the directory's tail and stand in that order, as in
+    every build (MC writes g minus that start, g + 1 with no live
+    group)."""
+    _check_column(bucket, (I32,), "bucket")
+    _check_column(first_row, (I32,), "first_row")
+    if first_row.shape != bucket.shape:
+        raise ValueError("first_row must be shaped like bucket")
+    num_buckets = _slots(num_buckets, 1, "num_buckets")
+    dev = kernels.kernel_device("main_chains", bucket, first_row)
+    if dev < 0:
+        return main_chains_plain(bucket, first_row, num_buckets)
+    cap = bucket.shape[0]
+    pos = torch.empty(cap, dtype=I32, device=bucket.device)
+    bucket_len = torch.empty(num_buckets, dtype=I32, device=bucket.device)
+    size = kernels.lib().hj3t_main_chains_scratch(cap, num_buckets)
+    scratch = torch.empty((size + 7) // 8, dtype=I64, device=bucket.device)
+    stream = kernels.stream(dev)
+    ws_cap, ws = _workspace(dev, stream, num_buckets, bucket)
+    _MC("main_chains", bucket.data_ptr(), first_row.data_ptr(), cap,
+        num_buckets, bucket_len.data_ptr(), pos.data_ptr(),
+        scratch.data_ptr(), 8 * scratch.shape[0], ws, ws_cap, stream)
+    return pos, bucket_len
+
+
+def main_chains_plain(bucket, first_row, num_buckets: int):
+    """Exact PyTorch version of :func:`main_chains` (any device): the
+    groups sorted stably by (bucket, first row) packed in an int64 word,
+    and :func:`run_histogram_plain` over the sorted buckets."""
+    packed = ((bucket.to(I64) & _U32) << 32) | (first_row.to(I64) & _U32)
+    pk_s, gid_s = torch.sort(packed, stable=True)
+    bucket_len, pos = run_histogram_plain((pk_s >> 32).to(I32), gid_s,
+                                          num_buckets)
+    return pos, bucket_len

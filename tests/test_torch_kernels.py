@@ -539,6 +539,7 @@ def test_bitonic_sort_packed_plain_matches_jax_kernel():
                                                       dtype=torch.bool), x, 7),
     lambda x: runs.run_directory(x, x, 16),
     lambda x: runs.run_histogram(x, x.long(), 7),
+    lambda x: runs.main_chains(x, x, 7),
     lambda x: chainwalk.bucket_ids(x, 7),
     lambda x: chainwalk.bucket_ids(x, 7, "fib",
                                    x.new_empty(x.shape, dtype=torch.bool)),

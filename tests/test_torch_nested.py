@@ -13,6 +13,13 @@ work: the tolerance is zero):
   counters equal, result pairs equal as multisets;
 * ``HtStatistics.to_csv_fields`` and ``memory_consumption`` of both table
   kinds;
+* the main chains (``main_pos_by_group``, ``bucket_main_len``, pads
+  included) of the compacted, fused and clarity builds, which take them
+  from ``runs.main_chains`` (kernel MC on the card, with no sort; its
+  plain version here): uniform, t=4-like and zipf-like
+  keys, the ``identity`` functor with every group in one bucket and with
+  long buckets among short ones, ``drop_pad_key``'s dead group, no live
+  group, a truncated directory, u64 keys and a ``valid`` mask;
 * JAX-built nested tables (dense and compacted) carried across by
   ``convert.py`` and probed by the port.
 """
@@ -26,6 +33,8 @@ import jax.numpy as jnp
 from hashjoin3d_tpu.ops import layout as jl
 from hashjoin3d_tpu.ops import stats as jstats
 from hashjoin3d_tpu.ops.chaining import build_chaining_host as jax_chaining
+from hashjoin3d_tpu.ops.nested import _build_nested_fused as jax_fused
+from hashjoin3d_tpu.ops.nested import build_nested as jax_clarity
 from hashjoin3d_tpu.ops.nested import build_nested_host as jax_build
 from hashjoin3d_tpu.ops.strands_windowed import (
     direct_probe_strand_sorted as jax_direct_strand,
@@ -37,7 +46,10 @@ from hashjoin3d_tpu_torch.ops import layout as tl
 from hashjoin3d_tpu_torch.ops import stats as tstats
 from hashjoin3d_tpu_torch.ops import strands_windowed as tw
 from hashjoin3d_tpu_torch.ops.chaining import build_chaining_host
-from hashjoin3d_tpu_torch.ops.nested import build_nested_host
+from hashjoin3d_tpu_torch.ops.chainwalk import bucket_ids
+from hashjoin3d_tpu_torch.ops.nested import (_build_nested_fused,
+                                             build_nested, build_nested_host)
+from hashjoin3d_tpu_torch.ops.runs import main_chains_plain
 
 N = 1 << 14
 GROUP_FIELDS = ("ukey", "group_start", "group_len", "group_rows",
@@ -130,6 +142,93 @@ def test_compacted_build_without_n_keys_reads_it_back():
         assert same(getattr(got.groups, f), getattr(want.groups, f)), f
     assert same(got.main_pos_by_group, want.main_pos_by_group)
     assert same(got.bucket_main_len, want.bucket_main_len)
+
+
+PAD = 2**32 - 1  # drop_pad_key's all-ones key
+SHORT_CHAIN = 64  # MC's longest bucket ranked by counting (kShortChain)
+
+
+def _host(keys, nb, n_keys=None, hashfun="murmur"):
+    """Both packages' ``build_nested_host`` on one column."""
+    nk = np.unique(keys).size if n_keys is None else n_keys
+    t = torch.from_numpy(keys.view(np.int64 if keys.dtype == np.uint64
+                                   else np.int32))
+    return (jax_build(keys, nb, n_keys=nk, hashfun=hashfun),
+            build_nested_host(t, nb, n_keys=nk, hashfun=hashfun))
+
+
+def _identity_keys(long_sizes, nb, seed):
+    """Distinct keys two rows each under the ``identity`` functor (bucket
+    = key % nb): one bucket of each of ``long_sizes`` groups, the rest
+    spread one or two a bucket, shuffled."""
+    rng = np.random.default_rng(seed)
+    parts = [(b + 7) + nb * np.arange(1, m + 1) for b, m in
+             enumerate(long_sizes)]
+    parts.append(rng.choice(nb * 1000, 3 * nb // 2, replace=False)
+                 + nb * 9000)
+    k = np.unique(np.concatenate(parts)).astype(np.uint32)
+    return rng.permutation(np.repeat(k, 2))
+
+
+def _fused(keys, nb, cap=None):
+    """Both packages' fused build with ``drop_pad_key`` (a receive's dead
+    all-ones rows) at the next power of two of the distinct keys."""
+    cap = cap or tl.group_capacity(np.unique(keys).size, keys.size)
+    return (jax_fused(keys, cap, nb, False, drop_pad_key=True),
+            _build_nested_fused(t32(keys), cap, nb, False,
+                                drop_pad_key=True))
+
+
+def _clarity(keys, nb, live):
+    return (jax_clarity(keys, nb, valid=live),
+            build_nested(t32(keys), nb, valid=torch.from_numpy(live)))
+
+
+def _pad_rows(seed):
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, 600, 3000).astype(np.uint32)
+    keys[rng.random(3000) < 0.2] = PAD
+    return keys
+
+
+MAIN_CHAIN_CASES = {
+    "uniform": lambda: _host(key_column("uniform")[0], 3000),
+    "t4": lambda: _host(key_column("t4")[0], 700),
+    "zipf": lambda: _host(key_column("zipf")[0], 1000),
+    "identity, one bucket": lambda: _host(
+        np.repeat(np.arange(1, 301, dtype=np.uint32) * 97, 3), 97,
+        hashfun="identity"),
+    "identity, long buckets among short": lambda: _host(
+        _identity_keys((SHORT_CHAIN, SHORT_CHAIN + 1, 200, 1100), 1000, 4),
+        1000, hashfun="identity"),
+    "drop_pad_key's dead group": lambda: _fused(_pad_rows(5), 401),
+    "no live group": lambda: _fused(np.full(64, PAD, np.uint32), 13),
+    "cap below n_keys": lambda: _host(key_column("t4")[0], 500,
+                                      n_keys=300),
+    "u64 keys": lambda: _host(
+        key_column("uniform")[0].astype(np.uint64) * 0x9E3779B97F4A7C15,
+        2000),
+    "clarity, a valid mask": lambda: _clarity(
+        _pad_rows(6), 300, np.random.default_rng(7).random(3000) < 0.6),
+    "clarity, no valid row": lambda: _clarity(
+        _pad_rows(8), 300, np.zeros(3000, bool)),
+}
+
+
+@pytest.mark.parametrize("case", MAIN_CHAIN_CASES)
+def test_main_chains_match_jax(case):
+    """The builds' main chains equal the JAX package's in full, the dead
+    groups' entries included, and so does ``main_chains_plain`` on the
+    port's bucket ids (the CPU path of every build)."""
+    want, got = MAIN_CHAIN_CASES[case]()
+    for f in ("main_pos_by_group", "bucket_main_len"):
+        assert same(getattr(got, f), getattr(want, f)), f
+    g = got.groups
+    b = bucket_ids(g.ukey, got.num_buckets, got.hashfun,
+                   live=g.group_len > 0)
+    pos, blen = main_chains_plain(b, g.first_row, got.num_buckets)
+    assert same(pos, want.main_pos_by_group)
+    assert same(blen, want.bucket_main_len)
 
 
 @pytest.mark.parametrize("presorted", [False, True])

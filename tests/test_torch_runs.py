@@ -7,25 +7,37 @@ held here, field for field, to the code they replaced, kept here as the
 oracle: ``run_boundaries`` (two scans), a head scatter into a ``cap + n``
 buffer and three windowed fetches for the directory; ``run_boundaries``,
 ``sorted_histogram``, an ``arange`` minus the run starts and an inverse
-permutation for the main chains.  The wrappers' argument checks are pinned
-too.  The CUDA kernel itself needs the card: ``chip_smoke.py`` holds it
-against the plain versions there.
+permutation for the main chains.  ``main_chains`` (kernel MC), which now
+gives ``_main_chains`` its output with no sort on the card, is held to the
+int64 (bucket, first row) sort and the old histogram on synthetic
+directories: buckets of exactly ``SHORT_CHAIN`` groups and one more, one
+bucket for every group, no live or no dead group, the dead group of a
+dropped pad key; and ``_main_chains``' device path, its kernel faked, is
+held to one MC launch with no sort.  The wrappers' argument checks are
+pinned too.  The CUDA kernels themselves need the card: ``chip_smoke.py``
+holds them against the plain versions there.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from hashjoin3d_tpu_torch import kernels
+from hashjoin3d_tpu_torch.ops import runs
 from hashjoin3d_tpu_torch.ops import strands_windowed as sw
 from hashjoin3d_tpu_torch.ops.hashing import bucket_of, hash_key
 from hashjoin3d_tpu_torch.ops.layout import (
     I32, I64, UKEY_PAD, GroupIndex, compact_group_index, i64_to_u32,
     inverse_permute, key_order, run_boundaries, sort_with_rows,
     sorted_histogram, u32_to_i64)
+from hashjoin3d_tpu_torch.ops import nested
 from hashjoin3d_tpu_torch.ops.nested import _main_chains
-from hashjoin3d_tpu_torch.ops.runs import run_directory, run_histogram
+from hashjoin3d_tpu_torch.ops.runs import (main_chains, run_directory,
+                                           run_histogram)
+from hashjoin3d_tpu_torch.utils import tracing
 
 NB = 1000  # main-chain buckets
+SHORT_CHAIN = 64  # MC's longest bucket ranked by counting (kShortChain)
 
 
 def old_compact_group_index(skey, srow, cap, n_valid=None,
@@ -180,6 +192,35 @@ def histogram_case(seed=9):
     return [("bucket_len", got[0], want[0]), ("rank", got[1], want[1])]
 
 
+def main_chain_case(sizes, pairs=300, n_dead=0, pad_group=False, nb=1000,
+                    seed=13):
+    """(field, got, want) of ``main_chains`` against the sort it replaced
+    on a synthetic directory: live groups in buckets of ``sizes`` groups
+    (bucket i + 3) and two groups in each of ``pairs`` more buckets,
+    shuffled, with distinct first rows; then ``n_dead`` dead groups (bucket
+    ``nb``, first row n), the first of them a dropped pad key's group with
+    a live first row where ``pad_group``."""
+    rng = np.random.default_rng(seed)
+    spread = rng.choice(np.arange(len(sizes) + 3, nb), pairs, replace=False)
+    live_b = rng.permutation(np.concatenate(
+        [np.full(m, i + 3) for i, m in enumerate(sizes)]
+        + [np.repeat(spread, 2)]))
+    n_live = live_b.size
+    n = 2 * (n_live + n_dead) + 5
+    rows = rng.permutation(n)
+    first = np.concatenate([rows[:n_live], np.full(n_dead, n)])
+    if pad_group and n_dead:
+        first[n_live] = rows[n_live]
+    b = torch.from_numpy(np.concatenate([live_b, np.full(n_dead, nb)])
+                         .astype(np.int32))
+    first = torch.from_numpy(first.astype(np.int32))
+    pk_s, gid_s = torch.sort((b.to(I64) << 32) | first.to(I64), stable=True)
+    want_len, want_pos = old_histogram((pk_s >> 32).to(I32), gid_s, nb)
+    pos, blen = main_chains(b, first, nb)
+    return [("main_pos_by_group", pos, want_pos),
+            ("bucket_main_len", blen, want_len)]
+
+
 CASES = {
     "n = 0": lambda: directory_case("duplicates", 0, cap=4),
     "one run": lambda: directory_case("one run", 3000),
@@ -201,6 +242,16 @@ CASES = {
     "with_gid_by_row": lambda: directory_case("duplicates", 3000,
                                               with_gid=True),
     "bucket values >= num_buckets": histogram_case,
+    "main chains, short and long buckets": lambda: main_chain_case(
+        (SHORT_CHAIN, SHORT_CHAIN + 1, 3 * SHORT_CHAIN, 1500), n_dead=200),
+    "main chains, one bucket": lambda: main_chain_case((2000,), pairs=0,
+                                                       n_dead=7, nb=5),
+    "main chains, a dropped pad key": lambda: main_chain_case(
+        (9, 4), n_dead=100, pad_group=True),
+    "main chains, no dead group": lambda: main_chain_case((70, 3)),
+    "main chains, no live group": lambda: main_chain_case(
+        (), pairs=0, n_dead=50, pad_group=True),
+    "main chains, no group": lambda: main_chain_case((), pairs=0),
 }
 
 
@@ -249,6 +300,10 @@ x64 = x32.long()
     (lambda: run_histogram(x32, x64[:10], 8), "perm must be shaped"),
     (lambda: run_histogram(x32, x64, 0), "num_buckets 0 must"),
     (lambda: run_histogram(x32, x64, 1 << 31), "num_buckets 2147483648"),
+    (lambda: main_chains(x64, x32, 8), "bucket must be a 1-D int32"),
+    (lambda: main_chains(x32, x64, 8), "first_row must be a 1-D int32"),
+    (lambda: main_chains(x32, x32[:10], 8), "first_row must be shaped"),
+    (lambda: main_chains(x32, x32, 0), "num_buckets 0 must"),
 ])
 def test_run_wrappers_refuse_what_the_kernel_does_not_take(call, match):
     with pytest.raises(ValueError, match=match):
@@ -271,3 +326,44 @@ def test_run_wrappers_take_numpy_integers_and_report_every_run():
     # ranks in sorted order 0 1 0 0 1 2 3 (the dead 4 counts from the last
     # head), written through the reversed rows
     assert rank.tolist() == [3, 2, 1, 0, 0, 1, 0]
+
+
+def test_main_chains_sort_nothing_and_tally_their_groups(monkeypatch):
+    """``_main_chains`` on the device path (an exp-4 Ndu build's shape,
+    small; MC faked, the operands taken for a card's) makes one MC launch
+    over the whole directory under ``hj.build.runs``, with no sort, no
+    ``run_histogram`` call and no ``hj.build.sort`` span."""
+    from torch.profiler import ProfilerActivity, profile
+
+    keys = column("duplicates", 3000, 17)
+    skey, srow, nk = sort_with_rows(keys)
+    groups = compact_group_index(keys, skey, srow, 1024)
+    assert int(nk) < 1024  # padding groups take part
+    launches = []
+
+    def refuse(*a, **k):
+        raise AssertionError("a sort in _main_chains")
+
+    real_device = kernels.kernel_device
+    monkeypatch.setattr(kernels, "kernel_device", lambda name, *t, **k: (
+        0 if name == "main_chains" else real_device(name, *t, **k)))
+    monkeypatch.setattr(kernels, "stream", lambda dev: 0)
+    monkeypatch.setattr(kernels, "lib", lambda: type(
+        "Lib", (), {"hj3t_main_chains_scratch": staticmethod(
+            lambda cap, nb: 16 * cap + 4 * nb + 64)}))
+    monkeypatch.setattr(runs, "_workspace", lambda *a: (1, 0))
+    monkeypatch.setattr(runs, "_MC", lambda *a: launches.append(a))
+    monkeypatch.setattr(torch, "sort", refuse)
+    monkeypatch.setattr(torch, "argsort", refuse)
+    monkeypatch.setattr(nested, "run_histogram", refuse, raising=False)
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        pos, blen = _main_chains(groups, int(nk), "murmur")
+    recs = tracing.records()
+    tracing.clear()
+    monkeypatch.undo()
+    assert [a[0] for a in launches] == ["main_chains"]
+    assert launches[0][3:5] == (1024, int(nk))  # cap, num_buckets
+    assert pos.shape == (1024,) and blen.shape == (int(nk),)
+    assert "hj.build.runs" in {r.name for r in recs}
+    assert "hj.build.sort" not in {r.name for r in recs}
